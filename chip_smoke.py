@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py            # every phase (under two minutes)
+    python3 chip_smoke.py            # every phase (about two minutes)
     python3 chip_smoke.py --quick    # build + kernel checks only
 
 Phases, each of which raises (and the script exits non-zero) on a mismatch:
@@ -15,14 +15,34 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
 3. K2 fused hop against its plain version, bit for bit, on a generated
    graph with zipf hubs (split hub rows included); then a small BFS on the
    card (both kernels) against the plain staged chain on the CPU.
-4. The main path at full width: the DBpedia-shaped 10M-atom snapshot,
-   K = 4096 seeds, 3 hops, through ``bfs_pull`` on the fused path (K2) and
-   on the staged chain (K1). The two must agree exactly, the reach sets of 8
-   seeds must equal a numpy host BFS, and both kernels must have launched.
+   K3 sorted-set membership against its plain version, bit for bit, on
+   :data:`K3_CASES` (M from 1 to 5, Lb up to about 300K, ragged lengths
+   under SENTINEL padding, all-SENTINEL rows, values near INT32_MAX - 1).
+4. The main path at full width: the DBpedia-shaped 10M-atom snapshot (built
+   once, shared by every later phase), K = 4096 seeds, 3 hops, through
+   ``bfs_pull`` on the fused path (K2) and on the staged chain (K1). The two
+   must agree exactly, the reach sets of 8 seeds must equal a numpy host
+   BFS, and both kernels must have launched.
 5. Served path: 5 requests padded to the 64-seed bucket, checked against
    the main path's result.
-6. Each kernel timed at the main path's shapes beside its plain version and
-   its bound.
+6. K1 and K2 timed at the main path's shapes beside their plain versions
+   and their bounds.
+7. The intersection path: ``device_intersect_sorted`` on the incidence rows
+   of the hubs at :data:`HUB_RANKS` (h1 ∩ h2, h1 ∩ h2 ∩ h3, h1 ∩ the most
+   common property type's links), each equal to ``np.intersect1d`` folded
+   over the same arrays, timed host to host; K3 must have launched.
+8. The pattern path: bench.py c3's traffic (:data:`PATTERN_PAIRS` anchor
+   pairs from ``default_rng(PATTERN_SEED)``, type filter ``th``) through
+   ``plan_pattern`` / ``execute_pattern`` / ``collect_pattern``, every
+   query equal to a numpy host intersection (also through the overflow
+   re-run); queries/s of execute-only and execute+collect windows. Then
+   :data:`SERVE_PATTERNS` requests, typed and untyped, through
+   ``serve_pattern`` in the 64 bucket, equal to the pattern path.
+9. K3 timed at the h1 ∩ h2 shape beside its plain version, ``torch.isin``
+   and its bound.
+10. The device's busy share of the main path (fused and staged), the
+    h1 ∩ h2 intersection and the pattern windows, from ``torch.profiler``,
+    after every timed phase.
 
 Every log line carries the card's name and power limit. The last lines are
 the card line, one JSON line of kernel records and the result
@@ -52,6 +72,26 @@ N_SEEDS, HOPS, HOST_SEEDS = 4096, 3, 8
 TIMED_RUNS = 5
 SERVE_SEEDS, SERVE_TOP_R = 5, 16
 
+#: K3 check cases (Lb, M, Lo, values up to INT32_MAX - 1, an all-SENTINEL
+#: other row): ragged real lengths under SENTINEL padding
+K3_CASES = (
+    (1, 1, 1, False, False), (3, 2, 7, False, False),
+    (1000, 3, 777, True, False), (4099, 5, 3001, False, True),
+    (65_537, 2, 100_003, True, False), (123_457, 5, 9_999, False, False),
+    (250_001, 3, 250_000, True, True), (299_999, 1, 300_007, False, False),
+)
+#: incidence-row ranks of the hubs the intersection path intersects
+#: (0 = the longest row): h1 ∩ h2, h1 ∩ h2 ∩ h3, h1 ∩ type_set(th)
+HUB_RANKS = (0, 1, 2)
+#: bench.py c3's traffic: PATTERN_PAIRS anchor pairs from links of the most
+#: common property type ``th``, drawn by default_rng(PATTERN_SEED), with
+#: the type filter ``th``
+PATTERN_PAIRS, PATTERN_SEED, PATTERN_TOP_R = 1024, 42, 16
+#: executions per timed window of the pattern path, and windows per mode
+PATTERN_REPS, PATTERN_WINDOWS = 32, 3
+#: served pattern requests (typed and untyped alternate), one 64 bucket
+SERVE_PATTERNS = 5
+
 
 def _card() -> str:
     out = subprocess.run(
@@ -66,6 +106,7 @@ class Smoke:
         self.torch = torch
         self.card = card
         self.dev = torch.device("cuda")
+        self.profiles: list = []
 
     def log(self, msg: str) -> None:
         print(f"[{self.card}] {msg}", flush=True)
@@ -88,6 +129,30 @@ class Smoke:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def profile_later(self, name: str, fn, unprofiled_ms: float,
+                      reps: int = 1) -> None:
+        """Queue ``fn`` for :func:`phase_profiles`: ``reps`` runs under
+        ``torch.profiler``, set against ``unprofiled_ms``, the wall time of
+        one run without it."""
+        self.profiles.append((name, fn, unprofiled_ms, reps))
+
+    def record(self, name, src, replaces, n, err, ms, plain, nbytes, ops,
+               library_ms=None) -> dict:
+        """One entry of the ``kernels`` JSON line; the bound is the larger
+        of ``nbytes`` over the memory rate and ``ops`` over the ALU rate."""
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / ALU_OPS_PER_S * 1e3
+        self.log(f"{name}: bound {max(bytes_ms, ops_ms):.6f} ms "
+                 f"({nbytes} bytes, {ops} ops)")
+        return {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+        }
 
     def rand_bits(self, rng, shape):
         import numpy as np
@@ -179,22 +244,48 @@ def phase_k2(s: Smoke) -> None:
     s.log("small BFS: card (fused and staged) == plain staged chain on CPU")
 
 
-def phase_main(s: Smoke, records: dict) -> None:
+def build_snapshot(s: Smoke):
+    from hypergraphdb_tpu_torch.models import dbpedia_snapshot
+
+    t0 = time.perf_counter()
+    snap, info = dbpedia_snapshot()
+    s.log(f"snapshot: {snap.num_atoms} atoms, {snap.n_edges_tgt} target "
+          f"entries, {snap.n_edges_inc} incidence entries in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return snap, info
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from hypergraphdb_tpu_torch.ops import fused_bfs
+    from hypergraphdb_tpu_torch.ops.gather_or import gather_or
+    from hypergraphdb_tpu_torch.ops.membership import membership_mask
+
+    gather_or.launches = 0
+    fused_bfs.fused_hop.launches = 0
+    membership_mask.launches = 0
+
+
+def launches() -> dict:
+    from hypergraphdb_tpu_torch.ops import fused_bfs
+    from hypergraphdb_tpu_torch.ops.gather_or import gather_or
+    from hypergraphdb_tpu_torch.ops.membership import membership_mask
+
+    return {"gather_or": gather_or.launches,
+            "fused_hop": fused_bfs.fused_hop.launches,
+            "membership": membership_mask.launches}
+
+
+def phase_main(s: Smoke, snap, info, records: dict) -> None:
     import numpy as np
 
-    from hypergraphdb_tpu_torch.models import dbpedia_snapshot
     from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs
     from hypergraphdb_tpu_torch.ops.gather_or import gather_or, gather_or_plain
     from hypergraphdb_tpu_torch.ops.host_bfs import host_bfs
     from hypergraphdb_tpu_torch.ops.serving import serve_bfs
 
     torch = s.torch
-    t0 = time.perf_counter()
-    snap, info = dbpedia_snapshot()
     N = snap.num_atoms
-    s.log(f"snapshot: {N} atoms, {snap.n_edges_tgt} target entries, "
-          f"{snap.n_edges_inc} incidence entries in "
-          f"{time.perf_counter() - t0:.2f} s")
     e0, e1 = info["entities"]
     seeds = np.random.default_rng(7).integers(e0, e1, size=N_SEEDS).astype(
         np.int32)
@@ -239,17 +330,15 @@ def phase_main(s: Smoke, records: dict) -> None:
         return res
 
     secs = {True: [], False: []}
-    gather_or.launches = 0
-    fused_bfs.fused_hop.launches = 0
+    reset_launches()
     results = {fused: timed(fused) for fused in (True, False)}
-    launches = {"gather_or": gather_or.launches,
-                "fused_hop": fused_bfs.fused_hop.launches}
+    n_launch = launches()
     for _ in range(TIMED_RUNS - 1):  # more runs, for the spread
         for fused in (True, False):
             timed(fused)
     res_f, res_s = results[True], results[False]
-    s.expect(launches["fused_hop"] > 0, "main path never launched K2")
-    s.expect(launches["gather_or"] > 0, "main path never launched K1")
+    s.expect(n_launch["fused_hop"] > 0, "main path never launched K2")
+    s.expect(n_launch["gather_or"] > 0, "main path never launched K1")
     s.expect(torch.equal(res_f.visited_t, res_s.visited_t),
              "fused and staged visited bitmaps differ")
     s.expect(np.array_equal(res_f.edges_touched, res_s.edges_touched),
@@ -262,7 +351,10 @@ def phase_main(s: Smoke, records: dict) -> None:
         s.log(f"main path {name}: {N_SEEDS} seeds x {HOPS} hops, {edges} "
               f"edges; runs {[round(t * 1e3, 1) for t in secs[fused]]} ms; "
               f"median {med * 1e3:.1f} ms, {edges / med:.4e} edges/s")
-    s.log(f"launches on the main path: {launches}")
+    s.log(f"launches on the main path: {n_launch}")
+    for fused, name in ((True, "fused"), (False, "staged")):
+        s.profile_later(f"main path {name}", lambda f=fused: run(f),
+                        float(np.median(secs[fused])) * 1e3)
 
     lanes = list(range(HOST_SEEDS))
     rows = ellbfs.visited_rows(res_f, N, lanes=lanes)
@@ -340,30 +432,326 @@ def phase_main(s: Smoke, records: dict) -> None:
     s.expect(k1_err == 0 and k2_err == 0,
              "kernels differ from plain at main-path shapes")
 
-    def record(name, src, replaces, n, err, ms, plain, nbytes, ops):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / ALU_OPS_PER_S * 1e3
-        s.log(f"{name}: bound {max(bytes_ms, ops_ms):.3f} ms "
-              f"({nbytes} bytes, {ops} ops)")
-        return {
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": n, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        }
-
-    records["kernels"] = [
-        record("gather_or", "hypergraphdb_tpu_torch/csrc/gather_or.cu",
-               "hypergraphdb_tpu/ops/pallas_gather.py:95",
-               launches["gather_or"], k1_err, k1_ms, k1_plain, k1_bytes,
-               k1_ops),
-        record("fused_hop", "hypergraphdb_tpu_torch/csrc/fused_hop.cu",
-               "hypergraphdb_tpu/ops/pallas_bfs.py:313",
-               launches["fused_hop"], k2_err, k2_ms, k2_plain, k2_bytes,
-               k2_ops),
+    records["kernels"] += [
+        s.record("gather_or", "hypergraphdb_tpu_torch/csrc/gather_or.cu",
+                 "hypergraphdb_tpu/ops/pallas_gather.py:95",
+                 n_launch["gather_or"], k1_err, k1_ms, k1_plain, k1_bytes,
+                 k1_ops),
+        s.record("fused_hop", "hypergraphdb_tpu_torch/csrc/fused_hop.cu",
+                 "hypergraphdb_tpu/ops/pallas_bfs.py:313",
+                 n_launch["fused_hop"], k2_err, k2_ms, k2_plain, k2_bytes,
+                 k2_ops),
     ]
+
+
+def k3_case(rng, lb: int, m: int, lo: int, near_max: bool, empty_row: bool):
+    """A sorted SENTINEL-padded base (Lb,) and others (M, Lo) with ragged
+    real lengths; the others hold about half the base's values."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.setops import SENTINEL, pad_sorted
+
+    span = 2 * (lb + lo) + 8
+    top = int(SENTINEL)  # exclusive: values reach INT32_MAX - 1
+    vmin = top - span if near_max else 0
+    vals = rng.integers(vmin, min(vmin + span, top), size=lb)
+    base = np.unique(vals)[: int(rng.integers(max(1, lb // 2), lb + 1))]
+    others = np.full((m, lo), SENTINEL, np.int32)
+    for j in range(m):
+        if empty_row and j == m - 1:
+            continue  # an all-SENTINEL row: nothing matches
+        pick = base[rng.random(len(base)) < 0.5]
+        extra = rng.integers(vmin, min(vmin + span, top), size=lo // 2 + 1)
+        row = np.unique(np.concatenate([pick, extra]))
+        others[j] = pad_sorted(row[: int(rng.integers(lo // 2, lo + 1))], lo)
+    return pad_sorted(base, lb), others
+
+
+def phase_k3(s: Smoke) -> None:
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.membership import membership_mask
+    from hypergraphdb_tpu_torch.ops.setops import intersect_mask_many
+
+    torch = s.torch
+    rng = np.random.default_rng(4)
+    hits = []
+    for lb, m, lo, near_max, empty_row in K3_CASES:
+        base, others = k3_case(rng, lb, m, lo, near_max, empty_row)
+        b = torch.from_numpy(base).to(s.dev)
+        o = torch.from_numpy(others).to(s.dev)
+        got = membership_mask(b, o)
+        torch.cuda.synchronize()
+        want = intersect_mask_many(b, o)
+        s.expect(torch.equal(got, want),
+                 f"K3 != plain at Lb={lb} M={m} Lo={lo} near_max={near_max}")
+        hits.append(int(want.sum()))
+    s.log(f"K3 membership: bit-exact against plain on {len(K3_CASES)} "
+          f"cases (matches per case {hits})")
+
+
+def hub_rows(snap):
+    """Atom ids and incidence rows of the hubs at :data:`HUB_RANKS`."""
+    import numpy as np
+
+    deg = np.diff(snap.inc_offsets[: snap.num_atoms + 1])
+    order = np.argsort(-deg, kind="stable")
+    ids = [int(order[r]) for r in HUB_RANKS]
+    return ids, [snap.incidence_row(h) for h in ids]
+
+
+def top_property_type(snap, info) -> int:
+    """The property type with the most links (bench.py c3's ``th``)."""
+    return int(max(info["property_types"],
+                   key=lambda t: len(snap.type_set(t))))
+
+
+def phase_intersect(s: Smoke, snap, info) -> int:
+    """The planner's n-way intersection on the hub rows, through K3.
+    Returns K3's launches on this path."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.setops import device_intersect_sorted
+
+    ids, rows = hub_rows(snap)
+    th = top_property_type(snap, info)
+    s.log(f"hubs {ids}: incidence rows {[len(r) for r in rows]}; type {th}: "
+          f"{len(snap.type_set(th))} links")
+    cases = {
+        "h1&h2": rows[:2],
+        "h1&h2&h3": rows,
+        "h1&type": [rows[0], snap.type_set(th)],
+    }
+    device_intersect_sorted(cases["h1&h2"], device=s.dev)  # warm
+    secs = {k: [] for k in cases}
+
+    def run(name):
+        t0 = time.perf_counter()
+        got = device_intersect_sorted(cases[name], device=s.dev)
+        secs[name].append(time.perf_counter() - t0)
+        return got
+
+    reset_launches()
+    results = {name: run(name) for name in cases}
+    n = launches()["membership"]
+    s.log(f"K3 launches on the intersection path: {n} for {len(cases)} "
+          f"calls")
+    for _ in range(TIMED_RUNS - 1):
+        for name in cases:
+            run(name)
+    s.expect(n > 0, "intersection path never launched K3")
+    for name, arrays in cases.items():
+        want = arrays[0].astype(np.int64)
+        for a in arrays[1:]:
+            want = np.intersect1d(want, a)
+        s.expect(np.array_equal(results[name], want),
+                 f"device_intersect_sorted {name} != np.intersect1d")
+        s.log(f"intersect {name}: {len(want)} ids, host to host "
+              f"{[round(t * 1e3, 3) for t in secs[name]]} ms, median "
+              f"{np.median(secs[name]) * 1e3:.3f} ms")
+    s.profile_later("intersect h1&h2",
+                    lambda: device_intersect_sorted(cases["h1&h2"], s.dev),
+                    float(np.median(secs["h1&h2"])) * 1e3, reps=20)
+    return n
+
+
+def host_pattern(snap, pair, th):
+    """Numpy truth of one c3 query: the two incidence rows intersected (a
+    binary search of the shorter in the longer), then filtered by type."""
+    import numpy as np
+
+    small, big = sorted((snap.incidence_row(int(x)) for x in pair), key=len)
+    pos = np.minimum(np.searchsorted(big, small), max(len(big) - 1, 0))
+    got = small[big[pos] == small] if len(big) else small[:0]
+    if th is not None:
+        got = got[snap.type_of[got] == th]
+    return got.astype(np.int64)
+
+
+def phase_pattern(s: Smoke, snap, info) -> None:
+    """bench.py c3 on the card: plan, execute and collect 1024 typed anchor
+    pairs; then a few requests through the served pattern."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops import setops
+    from hypergraphdb_tpu_torch.ops.serving import (
+        PATTERN_PAD,
+        serve_pattern,
+    )
+
+    torch = s.torch
+    th = top_property_type(snap, info)
+    r = np.random.default_rng(PATTERN_SEED)
+    cands = snap.type_set(th)
+    links = cands[r.integers(0, len(cands), size=PATTERN_PAIRS)]
+    starts = snap.tgt_offsets[links].astype(np.int64)
+    pairs = np.stack([snap.tgt_flat[starts], snap.tgt_flat[starts + 1]],
+                     axis=1).astype(np.int32)
+    pool = ThreadPoolExecutor(max_workers=1)
+    host = pool.submit(lambda: [host_pattern(snap, p, th) for p in pairs])
+
+    t0 = time.perf_counter()
+    ell = setops.ell_targets(snap, s.dev)
+    snap.device(s.dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plan = setops.plan_pattern(snap, pairs, th, device=s.dev)
+    t2 = time.perf_counter()
+    s.expect(ell is not None and plan.use_ell, "10M snapshot lost its ELL")
+    s.log(f"pattern set-up: ELL {tuple(ell.shape)} and device snapshot "
+          f"{t1 - t0:.2f} s, plan {t2 - t1:.3f} s; buckets (pad, queries) "
+          f"{[(p, len(sel)) for sel, _, p in plan.buckets]}")
+
+    def execute():
+        return setops.execute_pattern(plan, top_r=PATTERN_TOP_R)
+
+    setops.collect_pattern(plan, execute())  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    results = setops.collect_pattern(plan, execute())
+    s.log(f"launches on the pattern path: {launches()} (the reference's "
+          f"pattern lane runs no TPU kernel either)")
+
+    def window(collect: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PATTERN_REPS):
+            pending = execute()
+            if collect:
+                setops.collect_pattern(plan, pending)
+        torch.cuda.synchronize()
+        return PATTERN_PAIRS * PATTERN_REPS / (time.perf_counter() - t0)
+
+    for collect, name in ((False, "execute-only"),
+                          (True, "execute+collect")):
+        qps = [window(collect) for _ in range(PATTERN_WINDOWS)]
+        med = float(np.median(qps))
+        s.log(f"pattern c3 {name}: {PATTERN_PAIRS} queries x "
+              f"{PATTERN_REPS} per window, windows "
+              f"{[round(q) for q in qps]} queries/s, median "
+              f"{med:.1f} queries/s")
+        s.profile_later(f"pattern c3 {name} window",
+                        lambda c=collect: window(c),
+                        PATTERN_PAIRS * PATTERN_REPS / med * 1e3)
+
+    # the overflow re-run on the card: a window of 1 overflows every query
+    # with two or more matches
+    narrow = setops.collect_pattern(
+        plan, setops.execute_pattern(plan, top_r=1))
+    truth = host.result()
+    pool.shutdown()
+    sizes = np.array([len(t) for t in truth])
+    for q in range(PATTERN_PAIRS):
+        s.expect(np.array_equal(results[q], truth[q]),
+                 f"pattern query {q}: differs from the host intersection")
+        s.expect(np.array_equal(narrow[q], truth[q]),
+                 f"pattern query {q}: overflow re-run differs")
+    s.log(f"pattern c3: {PATTERN_PAIRS} queries equal the host "
+          f"intersection (sizes {sizes.min()}..{sizes.max()}, "
+          f"{int((sizes > 1).sum())} through the overflow re-run at top_r 1)")
+
+    # served: a few requests padded to the 64 bucket, typed and untyped
+    off = snap.inc_offsets
+    base_len = np.minimum(off[pairs[:, 0] + 1] - off[pairs[:, 0]],
+                          off[pairs[:, 1] + 1] - off[pairs[:, 1]])
+    pick = np.nonzero(base_len <= PATTERN_PAD)[0][:SERVE_PATTERNS]
+    s.expect(len(pick) == SERVE_PATTERNS, "too few c3 pairs fit the pad")
+    types = [th if k % 2 == 0 else None for k in range(SERVE_PATTERNS)]
+    untyped = setops.and_incident_pattern(snap, pairs[pick], None,
+                                          device=s.dev)
+    want = [results[q] if t is not None else u
+            for q, t, u in zip(pick, types, untyped)]
+    secs = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        counts, first_r = serve_pattern(snap, pairs[pick], types,
+                                        SERVE_TOP_R, device=s.dev)
+        secs.append(time.perf_counter() - t0)
+    for k, w in enumerate(want):
+        s.expect(int(counts[k]) == len(w), f"served pattern count lane {k}")
+        win = np.full(SERVE_TOP_R, int(setops.SENTINEL), np.int64)
+        win[: min(len(w), SERVE_TOP_R)] = w[:SERVE_TOP_R]
+        s.expect(np.array_equal(first_r[k].astype(np.int64), win),
+                 f"served pattern first_r lane {k}")
+    s.log(f"served pattern: {SERVE_PATTERNS} requests in the 64 bucket, "
+          f"pad {PATTERN_PAD}, top_r {SERVE_TOP_R}, runs "
+          f"{[round(t * 1e3, 3) for t in secs]} ms (first one cold), match "
+          f"the pattern path")
+
+
+def phase_k3_timing(s: Smoke, snap, n_launches: int, records: dict) -> None:
+    """K3 alone at the h1 ∩ h2 shape that ``device_intersect_sorted``
+    gives it, beside its plain version and ``torch.isin``."""
+    import math
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.membership import membership_mask
+    from hypergraphdb_tpu_torch.ops.setops import (
+        SENTINEL,
+        _bucket,
+        intersect_mask_many,
+        pad_sorted,
+    )
+
+    torch = s.torch
+    _, rows = hub_rows(snap)
+    big, small = rows[0], rows[1]
+    L = _bucket(len(big))
+    b = torch.from_numpy(pad_sorted(small, L)).to(s.dev)
+    o = torch.from_numpy(pad_sorted(big, L)[None]).to(s.dev)
+    got = membership_mask(b, o)
+    want = intersect_mask_many(b, o)
+    lib = torch.isin(b, o[0])
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    s.expect(err == 0, "K3 != plain at the h1 & h2 shape")
+    s.expect(torch.equal(lib & (b != int(SENTINEL)), got),
+             "torch.isin disagrees with K3 on the real lanes")
+    ms = s.time_ms(lambda: membership_mask(b, o), 50)
+    plain = s.time_ms(lambda: intersect_mask_many(b, o), 10)
+    lib_ms = s.time_ms(lambda: torch.isin(b, o[0]), 10)
+    nbytes = b.numel() * 4 + o.numel() * 4 + b.numel()  # mask: 1 byte each
+    # compares this data needs: one lower-bound search of the real row per
+    # real base element (SENTINEL lanes stop at once)
+    ops = len(small) * (math.ceil(math.log2(L)) + 1)
+    s.log(f"K3 at h1 & h2: Lb {b.numel()} ({len(small)} real), Lo {L} "
+          f"({len(big)} real), {ms:.4f} ms kernel, {plain:.4f} ms plain, "
+          f"{lib_ms:.4f} ms torch.isin")
+    records["kernels"].append(s.record(
+        "membership", "hypergraphdb_tpu_torch/csrc/membership.cu",
+        "hypergraphdb_tpu/ops/pallas_kernels.py:41", n_launches, err, ms,
+        plain, nbytes, ops, library_ms=lib_ms))
+
+
+def phase_profiles(s: Smoke) -> None:
+    """The device's busy share of each path queued by the timed phases,
+    from ``torch.profiler``: the kernels, copies and fills it records on
+    the card, summed, against the path's unprofiled wall time. Runs after
+    every timed phase, because once a profile has run the tracer stays
+    attached and slows every later launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch = s.torch
+    for name, fn, unprofiled_ms, reps in s.profiles:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / reps
+        n_ops = sum(e.count for e in rows) / reps
+        top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} "
+                        f"ms x{e.count}" for e in rows[:5])
+        s.log(f"profile {name} ({reps} runs): device busy {busy_ms:.4f} ms "
+              f"a run of {unprofiled_ms:.3f} ms wall unprofiled "
+              f"({100 * busy_ms / unprofiled_ms:.1f} %), {n_ops:.1f} device "
+              f"operations a run; top: {top}")
 
 
 def main(argv: list[str]) -> int:
@@ -388,12 +776,18 @@ def main(argv: list[str]) -> int:
     phase_build(s)
     phase_k1(s)
     phase_k2(s)
-    records: dict = {}
+    phase_k3(s)
+    records: dict = {"kernels": []}
     if "--quick" not in argv:
-        phase_main(s, records)
+        snap, info = build_snapshot(s)
+        phase_main(s, snap, info, records)
+        n_k3 = phase_intersect(s, snap, info)
+        phase_pattern(s, snap, info)
+        phase_k3_timing(s, snap, n_k3, records)
+        phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)
-    if records:
+    if records["kernels"]:
         print(json.dumps(records))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

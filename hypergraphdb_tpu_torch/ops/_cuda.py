@@ -33,6 +33,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     "gather_or": ("hg_gather_or", [_P, _P, _P, _LL, _I, _I, _P]),
     "fused_hop": ("hg_fused_hop", [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
+    "membership": ("hg_membership", [_P, _P, _P, _LL, _I, _LL, _P]),
 }
 
 _lock = threading.Lock()

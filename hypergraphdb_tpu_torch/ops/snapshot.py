@@ -10,7 +10,7 @@ and row ``N`` is a dummy row that absorbs padding):
 - ``tgt_offsets[N+2]``, ``tgt_flat``, ``tgt_src`` — target CSR: the ordered
   targets of each link atom, and its source link per entry.
 - ``type_of[N+1]``, ``is_link[N+1]``, ``arity[N+1]``.
-- ``by_type``: type handle → sorted array of atom ids.
+- ``by_type``: type handle → sorted array of atom ids (``type_set``).
 
 Value columns (ranks, kinds) are not carried yet; ``pack(graph)`` waits for
 the port's own graph layer. :meth:`CSRSnapshot.from_reference_arrays` takes
@@ -177,6 +177,32 @@ class CSRSnapshot:
             n_edges_tgt=int(d["n_edges_tgt"]),
             **cols,
         )
+
+    # ------------------------------------------------------------ host views
+    def incidence_row(self, atom: int) -> np.ndarray:
+        """The sorted ids of the links that target ``atom``."""
+        s, e = int(self.inc_offsets[atom]), int(self.inc_offsets[atom + 1])
+        return self.inc_links[s:e]
+
+    def type_set(self, type_handle: int) -> np.ndarray:
+        """The sorted ids of the atoms of one type (empty if none)."""
+        return self.by_type.get(int(type_handle), np.empty(0, dtype=np.int32))
+
+    # ---------------------------------------------------------------- device
+    def device(self, device: str | torch.device = DEFAULT_DEVICE
+               ) -> "DeviceSnapshot":
+        """The tensor twin on ``device``, uploaded once per device and
+        cached on the snapshot (the card unless the caller asks for the
+        CPU)."""
+        dev = resolve_device(device)
+        cache = getattr(self, "_device_twins", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_device_twins", cache)
+        key = str(dev)
+        if key not in cache:
+            cache[key] = DeviceSnapshot.from_host(self, dev)
+        return cache[key]
 
 
 @dataclass

@@ -7,9 +7,9 @@ import pytest
 import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs
+from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs, setops
 from hypergraphdb_tpu_torch.ops.host_bfs import host_bfs
-from hypergraphdb_tpu_torch.ops.serving import serve_bfs
+from hypergraphdb_tpu_torch.ops.serving import serve_bfs, serve_pattern
 from hypergraphdb_tpu_torch.ops.snapshot import DeviceSnapshot
 from tests.test_ellbfs import host_bfs as ref_host_bfs
 from tests.test_ellbfs import random_snapshot
@@ -28,16 +28,27 @@ def test_default_device_is_cuda():
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("entry", ["bfs_pull", "bfs_pull_fused", "serve_bfs",
-                                   "device_snapshot"])
+@pytest.mark.parametrize("entry", [
+    "bfs_pull", "bfs_pull_fused", "serve_bfs", "device_snapshot",
+    "snapshot_device", "ell_targets", "plan_pattern", "and_incident_pattern",
+    "serve_pattern", "device_intersect_sorted",
+])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     snap = to_port(random_snapshot(30, 20, 3, seed=1))
     seeds = np.arange(32, dtype=np.int32)
+    pairs = [(0, 1), (2, 3)]
     call = {
         "bfs_pull": lambda: ellbfs.bfs_pull(snap, seeds, 1),
         "bfs_pull_fused": lambda: fused_bfs.bfs_pull_fused(snap, seeds, 1),
         "serve_bfs": lambda: serve_bfs(snap, seeds[:5], 1, 4),
         "device_snapshot": lambda: DeviceSnapshot.from_host(snap),
+        "snapshot_device": lambda: snap.device(),
+        "ell_targets": lambda: setops.ell_targets(snap),
+        "plan_pattern": lambda: setops.plan_pattern(snap, pairs),
+        "and_incident_pattern": lambda: setops.and_incident_pattern(snap, pairs),
+        "serve_pattern": lambda: serve_pattern(snap, pairs, [None, None], 4),
+        "device_intersect_sorted": lambda: setops.device_intersect_sorted(
+            [seeds, seeds[::2]]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

@@ -1,7 +1,9 @@
-"""Served BFS: the port's ``bfs_serve_batch_fused`` / ``serve_bfs`` against
-the reference ``bfs_serve_batch_fused(..., interpret=True)`` across the serve
-buckets, pad lanes included. Tolerance: exact equality of counts and
-``first_r`` windows."""
+"""Served BFS and served patterns: the port's ``bfs_serve_batch_fused`` /
+``serve_bfs`` against the reference ``bfs_serve_batch_fused(...,
+interpret=True)``, and its ``pattern_serve_batch`` / ``serve_pattern``
+against the reference ``pattern_serve_batch``, across the serve buckets, pad
+lanes included. Tolerance: exact equality of counts and ``first_r``
+windows."""
 
 import numpy as np
 import pytest
@@ -13,10 +15,20 @@ from hypergraphdb_tpu.ops.serving import bfs_serve_batch_fused as ref_serve
 from hypergraphdb_tpu_torch.ops import fused_bfs
 from hypergraphdb_tpu_torch.ops.serving import (
     BUCKETS,
+    NO_TYPE,
+    PATTERN_PAD,
     bfs_serve_batch_fused,
+    pattern_serve_batch,
     serve_bfs,
+    serve_pattern,
+)
+from hypergraphdb_tpu_torch.ops.setops import (
+    SENTINEL,
+    and_incident_pattern,
+    ell_targets,
 )
 from tests.test_ellbfs import random_snapshot
+from tests.test_torch_setops import c3_pairs, smallest_first
 from tests.test_torch_snapshot import to_port
 
 
@@ -87,3 +99,79 @@ def test_first_r_top_r_beyond_row_block():
     got = fused_bfs.first_r_from_bitmap(torch.from_numpy(vis), n1, top_r, K)
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(got.numpy()[0], rows0[:top_r])
+
+
+# ------------------------------------------------------------ served pattern
+
+
+@pytest.fixture(scope="module")
+def dbp():
+    from hypergraphdb_tpu.models.generators import dbpedia_snapshot
+
+    ref, info = dbpedia_snapshot(n_entities=3000, n_links=12000)
+    th = max(info["property_types"], key=lambda t: len(ref.type_set(t)))
+    return ref, to_port(ref), int(th)
+
+
+def _requests(port, th, n):
+    """``n`` c3 anchor pairs and a type per request: ``th``, none, or a
+    type that matches nothing."""
+    pairs = c3_pairs(port, th, n, seed=3)
+    types = [(th, None, th + 1)[i % 3] for i in range(n)]
+    return pairs, types
+
+
+@pytest.mark.parametrize("bucket,live", [(64, 40), (256, 200)])
+def test_pattern_serve_batch_matches_reference(dbp, bucket, live):
+    from hypergraphdb_tpu.ops.serving import pattern_serve_batch as ref_batch
+    from hypergraphdb_tpu.ops.setops import ell_targets as ref_ell
+
+    ref, port, th = dbp
+    pairs, types = _requests(port, th, live)
+    anchors = np.full((bucket, 2), port.num_atoms, np.int32)
+    anchors[:live] = smallest_first(port, pairs)[0]
+    type_vec = np.full(bucket, NO_TYPE, np.int32)
+    type_vec[:live] = [NO_TYPE if t is None else t for t in types]
+    top_r = 4
+    c_ref, f_ref = ref_batch(ref.device, ref_ell(ref), jnp.asarray(anchors),
+                             jnp.asarray(type_vec), pad_len=PATTERN_PAD,
+                             top_r=top_r)
+    counts, first_r = pattern_serve_batch(
+        port.device("cpu"), ell_targets(port, "cpu"),
+        torch.from_numpy(anchors), torch.from_numpy(type_vec), PATTERN_PAD,
+        top_r)
+    assert np.array_equal(counts.numpy(), np.asarray(c_ref))
+    assert np.array_equal(first_r.numpy(), np.asarray(f_ref))
+    assert (counts.numpy()[live:] == 0).all()  # pad lanes match nothing
+    assert (counts.numpy()[:live] > 0).any()
+
+
+@pytest.mark.parametrize("n_req", [5, 64, 65])
+def test_serve_pattern_matches_pattern_path(dbp, n_req):
+    _, port, th = dbp
+    pairs, types = _requests(port, th, n_req)
+    top_r = 4
+    counts, first_r = serve_pattern(port, pairs, types, top_r, device="cpu")
+    assert counts.shape == (n_req,) and first_r.shape == (n_req, top_r)
+    for k, (pair, t) in enumerate(zip(pairs, types)):
+        want = and_incident_pattern(port, [pair], t, device="cpu")[0]
+        assert counts[k] == len(want)
+        window = np.full(top_r, SENTINEL, np.int64)
+        window[: min(len(want), top_r)] = want[:top_r]
+        assert np.array_equal(first_r[k].astype(np.int64), window)
+
+
+def test_serve_pattern_rejects_what_a_batch_cannot_hold(dbp):
+    _, port, th = dbp
+    deg = np.diff(port.inc_offsets[: port.num_atoms + 1])
+    h1, h2 = np.argsort(-deg, kind="stable")[:2]
+    assert min(deg[h1], deg[h2]) > PATTERN_PAD
+    with pytest.raises(ValueError, match="over the pad"):
+        serve_pattern(port, [(h1, h2)], [None], 4, device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        serve_pattern(port, [(0, port.num_atoms)], [th], 4, device="cpu")
+    with pytest.raises(ValueError, match="bucket"):
+        serve_pattern(port, [(0, 1)] * (BUCKETS[-1] + 1),
+                      [None] * (BUCKETS[-1] + 1), 4, device="cpu")
+    with pytest.raises(ValueError, match="type handles"):
+        serve_pattern(port, [(0, 1)], [], 4, device="cpu")

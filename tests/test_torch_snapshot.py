@@ -88,3 +88,15 @@ def test_device_snapshot_on_cpu():
     assert dev.num_atoms == port.num_atoms
     assert torch.equal(dev.inc_links, torch.from_numpy(port.inc_links))
     assert dev.to("cpu").tgt_flat.device.type == "cpu"
+
+
+def test_host_views_and_cached_device_twin():
+    ref, _ = jax_dbpedia(n_entities=300, n_links=900, seed=5)
+    port = to_port(ref)
+    for atom in (0, 70, 100, 365, port.num_atoms):
+        assert np.array_equal(port.incidence_row(atom), ref.incidence_row(atom))
+    for th in (1, 7, 999):
+        assert np.array_equal(port.type_set(th), ref.type_set(th))
+    dev = port.device("cpu")
+    assert port.device("cpu") is dev
+    assert torch.equal(dev.type_of, torch.from_numpy(port.type_of))
