@@ -11,22 +11,36 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
 1. build: ``nvcc`` compiles every ``hypergraphdb_tpu_torch/csrc/*.cu`` for
    ``sm_90a``, in parallel, into ``build/cuda_kernels/``.
 2. K1 gather-OR against its plain PyTorch version, bit for bit, on random
-   shapes (512-byte rows and ragged widths).
+   shapes (512-byte rows and ragged widths); then with line masks (none,
+   exact, all-set) on random, sparse and all-ones-heavy bitmaps at kw 2, 3,
+   128 and 256, every emitted mask equal to ``line_mask`` of its output.
 3. K2 fused hop against its plain version, bit for bit, on a generated
-   graph with zipf hubs (split hub rows included); then a small BFS on the
-   card (both kernels) against the plain staged chain on the CPU.
+   graph with zipf hubs (split hub rows included), unmasked and with the
+   masked cases of K1 plus a plan heavy with self entries; then a small BFS
+   on the card (both kernels) against the plain staged chain on the CPU,
+   and a 64-seed BFS whose every mask is audited.
    K3 sorted-set membership against its plain version, bit for bit, on
    :data:`K3_CASES` (M from 1 to 5, Lb up to about 300K, ragged lengths
    under SENTINEL padding, all-SENTINEL rows, values near INT32_MAX - 1).
 4. The main path at full width: the DBpedia-shaped 10M-atom snapshot (built
    once, shared by every later phase), K = 4096 seeds, 3 hops, through
    ``bfs_pull`` on the fused path (K2) and on the staged chain (K1). The two
-   must agree exactly, the reach sets of 8 seeds must equal a numpy host
+   must agree exactly, the reach sets of the seeds at :data:`HOST_LANES`
+   (two in each 128-byte line of a bitmap row) must equal a numpy host
    BFS, and both kernels must have launched.
 5. Served path: 5 requests padded to the 64-seed bucket, checked against
    the main path's result.
-6. K1 and K2 timed at the main path's shapes beside their plain versions
-   and their bounds.
+6. The main path once more under a mask audit (the mask entering every hop,
+   fused and staged, equal to ``line_mask`` of its bitmap), keeping the
+   bitmap and mask entering each hop: K2 timed at each hop's input and K1
+   at every level of each hop, with and without masks, each run into
+   zeros and bit-exact with its plain version on the same input, every
+   emitted mask equal to ``line_mask`` of its output; K2's plain output and
+   the staged chain equal to the BFS's next bitmap. Beside each time, the
+   bound of earlier versions (every used row read) and a data bound (what
+   the masks and the saturation exit leave to read, counted on the card).
+   Then both kernels, unmasked, on the final bitmap beside their plain
+   versions and their bounds (the figure earlier versions reported).
 7. The intersection path: ``device_intersect_sorted`` on the incidence rows
    of the hubs at :data:`HUB_RANKS` (h1 ∩ h2, h1 ∩ h2 ∩ h3, h1 ∩ the most
    common property type's links), each equal to ``np.intersect1d`` folded
@@ -67,7 +81,10 @@ HBM_BYTES_PER_S = 3.35e12
 #: entry for the kernels' 32-bit integer ORs, ops/s
 ALU_OPS_PER_S = 67e12
 
-N_SEEDS, HOPS, HOST_SEEDS = 4096, 3, 8
+N_SEEDS, HOPS = 4096, 3
+#: seed lanes checked against the host BFS: two in each 128-byte line of a
+#: 4096-seed bitmap row (lane k lies in line k // 1024)
+HOST_LANES = (0, 1, 1100, 1500, 2200, 2600, 3300, 4095)
 #: timed runs of each path (fused and staged alternate)
 TIMED_RUNS = 5
 SERVE_SEEDS, SERVE_TOP_R = 5, 16
@@ -137,10 +154,16 @@ class Smoke:
         one run without it."""
         self.profiles.append((name, fn, unprofiled_ms, reps))
 
+    @staticmethod
+    def bound_ms(nbytes: int, ops: int) -> float:
+        """The larger of ``nbytes`` over the memory rate and ``ops`` over
+        the ALU rate, in milliseconds."""
+        return max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3
+
     def record(self, name, src, replaces, n, err, ms, plain, nbytes, ops,
                library_ms=None) -> dict:
-        """One entry of the ``kernels`` JSON line; the bound is the larger
-        of ``nbytes`` over the memory rate and ``ops`` over the ALU rate."""
+        """One entry of the ``kernels`` JSON line; the bound is
+        :meth:`bound_ms` of ``nbytes`` and ``ops``."""
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / ALU_OPS_PER_S * 1e3
         self.log(f"{name}: bound {max(bytes_ms, ops_ms):.6f} ms "
@@ -149,7 +172,7 @@ class Smoke:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": ms, "plain_ms": plain,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": self.bound_ms(nbytes, ops),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms,
         }
@@ -160,6 +183,30 @@ class Smoke:
         words = rng.integers(0, 2**32, size=shape, dtype=np.uint64)
         return self.torch.from_numpy(
             words.astype(np.uint32).view(np.int32)).to(self.dev)
+
+    def bitmap(self, rng, rows: int, kw: int, kind: str):
+        """An (rows, kw) int32 bitmap on the card: ``random`` bits,
+        ``sparse`` (random bits in 2 % of the 32-word lines, the rest zero)
+        or ``ones`` (half the rows all ones, the rest random)."""
+        import numpy as np
+
+        words = rng.integers(0, 2**32, size=(rows, kw), dtype=np.uint64)
+        words = words.astype(np.uint32)
+        if kind == "sparse":
+            live = rng.random((rows, -(-kw // 32))) < 0.02
+            words[~np.repeat(live, 32, axis=1)[:, :kw]] = 0
+        elif kind == "ones":
+            words[rng.random(rows) < 0.5] = 0xFFFFFFFF
+        return self.torch.from_numpy(words.view(np.int32)).to(self.dev)
+
+    def masks(self, bm):
+        """The input masks every kernel case runs with: none (every line
+        live), the exact mask, and an all-set superset."""
+        from hypergraphdb_tpu_torch.ops import linemask
+
+        R, kw = bm.shape
+        return (("none", None), ("exact", linemask.line_mask(bm)),
+                ("full", linemask.full_mask(R, kw, self.dev)))
 
 
 def phase_build(s: Smoke) -> None:
@@ -174,9 +221,17 @@ def phase_build(s: Smoke) -> None:
                 s.log(f"ptxas {name}: {line.strip()}")
 
 
+#: row widths (32-bit words) of the masked kernel cases: the served 64-seed
+#: bucket, a ragged width, the main path's 4096 seeds (four 128-byte
+#: lines) and eight lines
+MASK_KWS = (2, 3, 128, 256)
+BITMAP_KINDS = ("random", "sparse", "ones")
+
+
 def phase_k1(s: Smoke) -> None:
     import numpy as np
 
+    from hypergraphdb_tpu_torch.ops import linemask
     from hypergraphdb_tpu_torch.ops.gather_or import gather_or, gather_or_plain
 
     torch = s.torch
@@ -191,22 +246,55 @@ def phase_k1(s: Smoke) -> None:
         torch.cuda.synchronize()
         s.expect(torch.equal(got, gather_or_plain(values, idx, w)),
                  f"K1 != plain at S={S} Kw={kw} n_out={n_out} w={w}")
-    # output into a later section of the buffer it reads (pyramid levels)
+    # output into a later section of the buffer it reads (pyramid levels),
+    # which starts zeroed: out holds a subset of the result
     buf = s.rand_bits(rng, (600, 128))
+    buf[400:] = 0
     idx = torch.from_numpy(
         rng.integers(0, 400, size=1600).astype(np.int32)).to(s.dev)
     want = gather_or_plain(buf, idx, 8)
     gather_or(buf, idx, 8, out=buf[400:600])
     torch.cuda.synchronize()
     s.expect(torch.equal(buf[400:600], want), "K1 != plain into a section")
-    s.log(f"K1 gather_or: bit-exact against plain on {len(cases) + 1} cases")
+    # masked: every bitmap kind and input mask, into a section of a buffer
+    # whose mask is emitted at an offset; out starts as zeros or as another
+    # subset of the result
+    n_masked = 0
+    S, n_out, w, row0 = 3000, 4001, 8, 5
+    for kw in MASK_KWS:
+        for kind in BITMAP_KINDS:
+            values = s.bitmap(rng, S, kw, kind)
+            values[0] = 0  # the zero row, a quarter of the entries
+            ix = rng.integers(0, S, size=n_out * w)
+            ix[rng.random(ix.shape[0]) < 0.25] = 0
+            idx = torch.from_numpy(ix.astype(np.int32)).to(s.dev)
+            want = gather_or_plain(values, idx, w)
+            for mname, mask in s.masks(values):
+                for oname in ("zeros", "subset"):
+                    buf = torch.zeros((n_out + row0, kw), dtype=torch.int32,
+                                      device=s.dev)
+                    if oname == "subset":
+                        buf[row0:] = want & s.rand_bits(rng, (n_out, kw))
+                    bmask = linemask.empty_mask(n_out + row0, kw, s.dev)
+                    gather_or(values, idx, w, out=buf[row0:], mask=mask,
+                              out_mask=bmask, mask_row0=row0)
+                    torch.cuda.synchronize()
+                    what = f"kw={kw} {kind} mask={mname} out={oname}"
+                    s.expect(torch.equal(buf[row0:], want), f"K1 != plain, {what}")
+                    s.expect(torch.equal(bmask, linemask.line_mask(buf)),
+                             f"K1 emitted mask != line_mask(out), {what}")
+                    n_masked += 1
+    s.log(f"K1 gather_or: bit-exact against plain on {len(cases) + 1} "
+          f"unmasked and {n_masked} masked cases (kw {MASK_KWS}, bitmaps "
+          f"{BITMAP_KINDS}, masks none/exact/full, out zeros/subset, "
+          f"emitted masks exact)")
 
 
 def phase_k2(s: Smoke) -> None:
     import numpy as np
 
     from hypergraphdb_tpu_torch.models import dbpedia_snapshot
-    from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs
+    from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs, linemask
 
     torch = s.torch
     snap, info = dbpedia_snapshot(n_entities=20_000, n_links=80_000, seed=3)
@@ -226,8 +314,42 @@ def phase_k2(s: Smoke) -> None:
         got = fused_bfs.fused_hop(old, plan, out=out)
         torch.cuda.synchronize()
         s.expect(torch.equal(got, want), f"K2 != plain into a subset, kw={kw}")
+    # masked: every bitmap kind and input mask, on the plan and on a
+    # self-heavy twin (40 % of its real entries the row's own id)
+    chunk_row = torch.repeat_interleave(
+        plan.item_row, plan.item_off[1:] - plan.item_off[:-1])
+    entry_row = chunk_row.repeat_interleave(plan.w).to(torch.int32)
+    heavy = (torch.from_numpy(rng.random(plan.idx.shape[0]) < 0.4).to(s.dev)
+             & (plan.idx != geom.zero_row))
+    plans = {"plan": plan,
+             "self-heavy": plan._replace(idx=torch.where(heavy, entry_row,
+                                                         plan.idx))}
+    n_masked = 0
+    for kw in MASK_KWS:
+        for kind in BITMAP_KINDS:
+            old = s.bitmap(rng, geom.n_rows, kw, kind)
+            old[geom.zero_row] = 0
+            for pname, p in plans.items():
+                want = fused_bfs.fused_hop_plain(old, p)
+                for mname, mask in s.masks(old):
+                    for oname in ("zeros", "subset"):
+                        out = torch.zeros_like(old) if oname == "zeros" \
+                            else old & s.rand_bits(rng, old.shape)
+                        om = linemask.full_mask(geom.n_rows, kw, s.dev)
+                        got = fused_bfs.fused_hop(old, p, out=out, mask=mask,
+                                                  out_mask=om)
+                        torch.cuda.synchronize()
+                        what = (f"kw={kw} {kind} {pname} mask={mname} "
+                                f"out={oname}")
+                        s.expect(torch.equal(got, want), f"K2 != plain, {what}")
+                        s.expect(torch.equal(om, linemask.line_mask(got)),
+                                 f"K2 emitted mask != line_mask(out), {what}")
+                        n_masked += 1
     s.log(f"K2 fused_hop: bit-exact against plain ({geom.n_rows} rows, "
-          f"{geom.n_chunks} chunks, {split_rows} split hub rows)")
+          f"{geom.n_chunks} chunks, {split_rows} split hub rows) unmasked "
+          f"and on {n_masked} masked cases (kw {MASK_KWS}, bitmaps "
+          f"{BITMAP_KINDS}, self-heavy plan, masks none/exact/full, out "
+          f"zeros/subset, emitted masks exact)")
 
     e0, e1 = info["entities"]
     seeds = rng.integers(e0, e1, size=96).astype(np.int32)
@@ -242,6 +364,341 @@ def phase_k2(s: Smoke) -> None:
         s.expect(torch.equal(res.reach_counts.cpu(), cpu.reach_counts),
                  "small BFS reach counts differ")
     s.log("small BFS: card (fused and staged) == plain staged chain on CPU")
+    audited = mask_audit(s, snap, torch.from_numpy(seeds[:64]).to(s.dev))
+    s.log(f"mask audit, 64-seed BFS: {audited} masks entering hops (fused "
+          f"and staged) equal line_mask of their bitmaps")
+
+
+def mask_audit(s: Smoke, snap, seeds, keep=None) -> int:
+    """Run ``seeds`` (a multiple of 32, on the card) through the fused and
+    the staged BFS with a hook that holds the mask entering every hop, and
+    the final one, against ``line_mask`` of its bitmap. ``keep(h, visited,
+    mask)``, when given, also sees the fused path's. Returns the masks
+    checked."""
+    from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs, linemask
+
+    n = [0]
+
+    def hook(path, h, visited, mask):
+        s.expect(s.torch.equal(mask, linemask.line_mask(visited)),
+                 f"{path} BFS: mask entering hop {h} != line_mask")
+        n[0] += 1
+        if keep is not None and path == "fused":
+            keep(h, visited, mask)
+
+    plan, geom = fused_bfs.device_fused_plan(snap, s.dev)
+    fused_bfs.bfs_fused(plan, seeds, geom, HOPS, count_edges=False,
+                        clear_dummy=True,
+                        hop_hook=lambda *a: hook("fused", *a))
+    ellbfs._bfs_pull_device(ellbfs.device_plans(snap, s.dev),
+                            ellbfs.plans_for(snap), seeds, HOPS,
+                            ellbfs.PLAIN_CHUNK, False,
+                            hop_hook=lambda *a: hook("staged", *a))
+    s.torch.cuda.synchronize()
+    return n[0]
+
+
+def full_fields(torch, bitmap):
+    """(R,) int64: per row of an (R, kw) int32 bitmap, the field of its
+    lines whose every bit is set (where a saturated lane stops)."""
+    import torch.nn.functional as F
+
+    from hypergraphdb_tpu_torch.ops import linemask
+
+    R, kw = bitmap.shape
+    G, L = linemask.line_words(kw), linemask.n_lines(kw)
+    lines = torch.arange(L, device=bitmap.device, dtype=torch.int64)
+    out = torch.empty(R, dtype=torch.int64, device=bitmap.device)
+    for s in range(0, R, linemask.ROW_BLOCK):
+        blk = bitmap[s : s + linemask.ROW_BLOCK]
+        if L * G != kw:
+            blk = F.pad(blk, (0, L * G - kw), value=-1)
+        full = (blk.reshape(blk.shape[0], L, G) == -1).all(-1)
+        out[s : s + blk.shape[0]] = (full.to(torch.int64) << lines).sum(1)
+    return out
+
+
+def live_lines(bitmap) -> int:
+    """The nonzero lines of an (R, kw) int32 bitmap."""
+    from hypergraphdb_tpu_torch.ops import linemask
+
+    f = linemask.row_fields_of(bitmap)
+    return sum(int(((f >> l) & 1).sum())
+               for l in range(linemask.n_lines(bitmap.shape[1])))
+
+
+def data_need(torch, vals, vmask, idx, rows_of, n_out: int, own_full=None,
+              block: int = 1 << 24) -> dict:
+    """What one K1 or K2 launch on this data must read, counted on the
+    card. ``vals`` is the bitmap the entries of ``idx`` point into, with
+    its exact mask ``vmask``; ``rows_of(a, b)`` gives the output row of
+    entries ``a..b-1`` (int64); ``own_full`` (K2) the full-line fields of
+    each output row's own row, which K2 reads where its line is nonzero.
+    An (output row, line) needs no source line if its own line is all
+    ones, its first all-ones source line if it has one (the saturation
+    exit), else every live source line; self entries (K2) add nothing.
+
+    Returns the entries with a nonzero source (``live``), the (entry, line)
+    pairs whose line is nonzero (``pairs``), the self entries (``self``),
+    the index entries of rows not saturated from the start (``idx``), the
+    line loads the data needs (``loads``) and the distinct lines of
+    ``vals`` among them, own lines included (``lines``): each read once."""
+    from hypergraphdb_tpu_torch.ops import linemask
+
+    kw = vals.shape[1]
+    L = linemask.n_lines(kw)
+    dev = vals.device
+    full = linemask.pack_fields(full_fields(torch, vals), kw)
+    end = idx.shape[0]
+    cnt = torch.zeros((L, n_out), dtype=torch.int64, device=dev)
+    first = torch.full((L, n_out), end, dtype=torch.int64, device=dev)
+    lines = torch.arange(L, device=dev, dtype=torch.int64)
+    own = (torch.zeros((L, n_out), dtype=torch.bool, device=dev)
+           if own_full is None
+           else ((own_full[None, :] >> lines[:, None]) & 1).bool())
+    got = {"live": 0, "pairs": 0, "idx": 0, "self": 0}
+
+    def fields(s):
+        """(entries, rows, live fields, full fields) of block ``s``, self
+        entries' fields cleared."""
+        ix = idx[s : s + block]
+        r = rows_of(s, s + ix.shape[0])
+        f = linemask.fields_at(vmask, ix, kw)
+        u = linemask.fields_at(full, ix, kw)
+        if own_full is not None:
+            other = ix.to(torch.int64) != r
+            f, u = f * other, u * other
+        return ix, r, f, u
+
+    for s in range(0, end, block):
+        ix, r, f, u = fields(s)
+        f0 = linemask.fields_at(vmask, ix, kw)
+        got["live"] += int((f0 != 0).sum())
+        got["pairs"] += sum(int(((f0 >> l) & 1).sum()) for l in range(L))
+        if own_full is None:
+            got["idx"] += ix.shape[0]
+        else:
+            got["self"] += int((ix.to(torch.int64) == r).sum())
+            got["idx"] += int((own_full[r] != (1 << L) - 1).sum())
+        e = torch.arange(s, s + ix.shape[0], device=dev, dtype=torch.int64)
+        for l in range(L):
+            cnt[l].index_add_(0, r, (f >> l) & 1)
+            first[l].scatter_reduce_(0, r, torch.where(
+                ((u >> l) & 1).bool(), e, end), "amin")
+    sat = first < end
+    got["loads"] = int(torch.where(own, 0, torch.where(sat, 1, cnt)).sum())
+    used = torch.zeros((L, vals.shape[0]), dtype=torch.bool, device=dev)
+    for l in range(L):
+        pick = sat[l] & ~own[l]
+        used[l, idx[first[l][pick]].long()] = True
+    if own_full is not None:  # the own rows' nonzero lines
+        f_own = linemask.fields_at(vmask, torch.arange(n_out, device=dev), kw)
+        for l in range(L):
+            used[l] |= ((f_own >> l) & 1).bool()
+    for s in range(0, end, block):
+        ix, r, f, _ = fields(s)
+        for l in range(L):
+            keep = ((f >> l) & 1).bool() & ~sat[l][r] & ~own[l][r]
+            used[l, ix[keep].long()] = True
+    got["lines"] = int(used.sum())
+    return got
+
+
+def phase_hops(s: Smoke, snap, seeds, final) -> dict:
+    """Phase 6 at each hop's real input. The 4096-seed BFS runs once more on
+    both paths under :func:`mask_audit` (every mask entering a hop, and the
+    final one, equal to ``line_mask`` of its bitmap), keeping the fused
+    path's bitmap and mask entering each hop. Then K2 is timed on each, and
+    K1 at every level of each hop's staged chain, each with its mask and
+    without one (every line live: the self skip and the saturation exit
+    alone), each run into zeros and held against the kernel's plain
+    version on the same inputs, with its emitted mask against ``line_mask``
+    of its output. K2's plain output must also equal the next hop's input
+    (``final`` after the last), and so must the staged chain's visited
+    update. Returns, per kernel, the keys its ``kernels`` record gains: ms
+    per hop (with and without masks) and per BFS; the bound of a BFS (the
+    per-launch bound's definition, summed over the BFS's launches); and the
+    data bound per hop and per BFS, from what :func:`data_need` counts."""
+    from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs, linemask
+    from hypergraphdb_tpu_torch.ops.gather_or import gather_or, gather_or_plain
+
+    torch = s.torch
+    hop_in = {}
+
+    def keep(h, visited, mask):
+        if h < HOPS:
+            hop_in[h] = (visited.clone(), mask.clone())
+
+    audited = mask_audit(s, snap, seeds, keep=keep)
+    s.log(f"mask audit, {seeds.shape[0]}-seed BFS at full size: {audited} "
+          f"masks entering hops (fused and staged) equal line_mask of their "
+          f"bitmaps")
+    n_pad, kw = final.shape
+    row_bytes = kw * 4
+    line_bytes = min(linemask.line_words(kw), kw) * 4
+    line_ops = min(linemask.line_words(kw), kw)
+
+    def expect_next(h, got, what):
+        want = hop_in[h + 1][0] if h + 1 < HOPS else final
+        s.expect(torch.equal(got[: want.shape[0]], want),
+                 f"{what} at hop {h + 1}'s input != the BFS's next bitmap")
+
+    def runs(what, sec, want, launch, masks):
+        """Time ``launch(mask, out_mask)`` with each (name, mask, out_mask,
+        times) of ``masks``, each into zeros, and hold ``sec`` against
+        ``want`` after each."""
+        for name, mask, om, times in masks:
+            sec.zero_()
+            times.append(s.time_ms(lambda: launch(mask, om), 3))
+            s.expect(torch.equal(sec, want), f"{what}, {name}, != plain")
+
+    # K2: one launch a hop
+    dplan, geom = fused_bfs.device_fused_plan(snap, s.dev)
+    k2_bound = s.bound_ms(
+        2 * geom.n_rows * row_bytes + dplan.idx.numel() * 4
+        + dplan.item_off.numel() * 8 + dplan.item_row.numel() * 4,
+        (dplan.idx.numel() + geom.n_rows) * kw)
+    chunk_row = torch.repeat_interleave(
+        dplan.item_row, dplan.item_off[1:] - dplan.item_off[:-1]).long()
+    w2 = dplan.w
+
+    def fused_rows(a, b):
+        return chunk_row[a // w2 : b // w2].repeat_interleave(w2)
+
+    out = torch.zeros_like(hop_in[0][0])
+    om, om_bare = (torch.empty_like(hop_in[0][1]) for _ in range(2))
+    k2_ms, k2_bare, k2_data = [], [], []
+    for h in range(HOPS):
+        old, m = hop_in[h]
+        want = fused_bfs.fused_hop_plain(old, dplan)
+        expect_next(h, want, "K2's plain version")
+        runs(f"K2 at hop {h + 1}'s input", out, want,
+             lambda mask, o: fused_bfs.fused_hop(old, dplan, out=out,
+                                                 mask=mask, out_mask=o),
+             (("masked", m, om, k2_ms), ("unmasked", None, om_bare, k2_bare)))
+        for name, o in (("masked", om), ("unmasked", om_bare)):
+            s.expect(torch.equal(o, linemask.line_mask(want)),
+                     f"K2 {name} mask at hop {h + 1} != line_mask")
+        del want
+        got = data_need(torch, old, m, dplan.idx, fused_rows, geom.n_rows,
+                        own_full=full_fields(torch, old), block=w2 << 21)
+        k2_data.append(s.bound_ms(
+            got["idx"] * 4 + dplan.item_off.numel() * 8
+            + dplan.item_row.numel() * 4 + 2 * m.numel() * 4
+            + (got["lines"] + live_lines(out)) * line_bytes,
+            got["loads"] * line_ops))
+        n = dplan.idx.numel()
+        s.log(f"K2 hop {h + 1}: {k2_ms[-1]:.3f} ms, {k2_bare[-1]:.3f} ms "
+              f"without a mask (bound {k2_bound:.3f} ms, data bound "
+              f"{k2_data[-1]:.3f} ms); of {n} entries {got['live'] / n:.4%} "
+              f"have a nonzero source, {got['pairs'] / (4 * n):.4%} of "
+              f"(entry, line) pairs are live, {got['self'] / n:.4%} are the "
+              f"row itself; the data needs {got['idx']} index entries, "
+              f"{got['loads']} line loads, {got['lines']} distinct lines")
+    del out, om, om_bare, chunk_row
+
+    # K1: every level of both stages, as _bfs_pull_device runs them
+    plans = ellbfs.plans_for(snap)
+    dp = ellbfs.device_plans(snap, s.dev)
+    stages = []
+    for levels, widths, rows in ((dp["levels1"], plans.stage1.widths,
+                                  dp["rows1"]),
+                                 (dp["levels2"], plans.stage2_widths,
+                                  dp["rows2"])):
+        buf = torch.zeros((rows, kw), dtype=torch.int32, device=s.dev)
+        stages.append((levels, widths, buf,
+                       linemask.empty_mask(rows, kw, s.dev),
+                       linemask.empty_mask(rows, kw, s.dev)))
+    level_bounds, k1_ms, k1_level_ms, k1_bare = [], [], [], []
+    k1_data, k1_level_data = [], []
+    for h in range(HOPS):
+        visited = hop_in[h][0][:n_pad]
+        vmask = linemask.line_mask(visited)
+        src, smask = visited, vmask
+        times, bare, data = [], [], []
+        level0 = None
+        for levels, widths, buf, bmask, bmask_bare in stages:
+            buf[-1].zero_()
+            bmask.zero_()
+            bmask_bare.zero_()
+            off = 0
+            for i, (idx, w) in enumerate(zip(levels, widths)):
+                n = idx.shape[0] // w
+                sec = buf[off : off + n]
+                if h == 0:  # each used row read once, the output written
+                    used = torch.zeros(src.shape[0], dtype=torch.bool,
+                                       device=s.dev)
+                    used[idx.long()] = True
+                    level_bounds.append(s.bound_ms(
+                        int(used.sum()) * row_bytes + idx.numel() * 4
+                        + n * row_bytes, idx.numel() * kw))
+                    del used
+                want = gather_or_plain(src, idx, w)
+                runs(f"K1 at hop {h + 1}'s input, level {len(times)}", sec,
+                     want,
+                     lambda mask, o: gather_or(src, idx, w, out=sec,
+                                               mask=mask, out_mask=o,
+                                               mask_row0=off),
+                     (("masked", smask, bmask, times),
+                      ("unmasked", None, bmask_bare, bare)))
+                del want
+                got = data_need(torch, src, smask, idx,
+                                lambda a, b: torch.arange(
+                                    a, b, device=s.dev) // w, n)
+                level0 = got if level0 is None else level0
+                data.append(s.bound_ms(
+                    got["idx"] * 4 + smask.numel() * 4
+                    + -(-n * linemask.field_bits(kw) // 8)
+                    + (got["lines"] + live_lines(sec)) * line_bytes,
+                    got["loads"] * line_ops))
+                off += n
+                src, smask = buf, bmask
+            for name, o in (("masked", bmask), ("unmasked", bmask_bare)):
+                s.expect(torch.equal(o, linemask.line_mask(buf)),
+                         f"K1 {name} stage mask at hop {h + 1} != line_mask")
+        nxt, nmask = visited.clone(), vmask.clone()
+        ellbfs._visited_update(nxt, nmask, stages[1][2], stages[1][3],
+                               dp["out_map"], plans.n_atoms)
+        expect_next(h, nxt, "K1 chain")
+        s.expect(torch.equal(nmask, linemask.line_mask(nxt)),
+                 f"visited mask after hop {h + 1} != line_mask")
+        del nxt, nmask
+        k1_ms.append(sum(times))
+        k1_bare.append(sum(bare))
+        k1_level_ms.append(times)
+        k1_data.append(sum(data))
+        k1_level_data.append(data)
+        n = dp["levels1"][0].numel()
+        s.log(f"K1 hop {h + 1}: {len(times)} levels "
+              f"{[round(t, 4) for t in times]} ms, {k1_ms[-1]:.3f} ms, "
+              f"{k1_bare[-1]:.3f} ms without masks (bound "
+              f"{sum(level_bounds):.3f} ms, data bound {k1_data[-1]:.3f} ms, "
+              f"per level {[round(t, 4) for t in data]}); level-0 entries "
+              f"with a nonzero source {level0['live'] / n:.4%}, live (entry, "
+              f"line) pairs {level0['pairs'] / (4 * n):.4%}")
+    hop_in.clear()
+    s.log(f"per BFS: K2 {sum(k2_ms):.3f} ms over {HOPS} launches "
+          f"({sum(k2_bare):.3f} ms without masks; bound "
+          f"{HOPS * k2_bound:.3f} ms, data bound {sum(k2_data):.3f} ms), K1 "
+          f"{sum(k1_ms):.3f} ms over {HOPS * len(level_bounds)} launches "
+          f"({sum(k1_bare):.3f} ms without masks; bound "
+          f"{HOPS * sum(level_bounds):.3f} ms, data bound "
+          f"{sum(k1_data):.3f} ms)")
+    return {
+        "fused_hop": {"hop_ms": k2_ms, "bfs_ms": sum(k2_ms),
+                      "bfs_bound_ms": HOPS * k2_bound,
+                      "hop_data_bound_ms": k2_data,
+                      "bfs_data_bound_ms": sum(k2_data),
+                      "hop_ms_no_mask": k2_bare},
+        "gather_or": {"hop_ms": k1_ms, "bfs_ms": sum(k1_ms),
+                      "bfs_bound_ms": HOPS * sum(level_bounds),
+                      "hop_data_bound_ms": k1_data,
+                      "bfs_data_bound_ms": sum(k1_data),
+                      "hop_ms_no_mask": k1_bare,
+                      "level_ms": k1_level_ms,
+                      "level_bound_ms": level_bounds,
+                      "level_data_bound_ms": k1_level_data},
+    }
 
 
 def build_snapshot(s: Smoke):
@@ -291,8 +748,8 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
         np.int32)
 
     pool = ThreadPoolExecutor(max_workers=4)
-    host = [pool.submit(host_bfs, snap, int(x), HOPS)
-            for x in seeds[:HOST_SEEDS]]
+    host = [pool.submit(host_bfs, snap, int(seeds[k]), HOPS)
+            for k in HOST_LANES]
 
     t0 = time.perf_counter()
     plans = ellbfs.plans_for(snap)
@@ -314,7 +771,7 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
     t0 = time.perf_counter()
     host_results = [f.result() for f in host]
     pool.shutdown()
-    s.log(f"host BFS of {HOST_SEEDS} seeds done, waited "
+    s.log(f"host BFS of {len(HOST_LANES)} seeds done, waited "
           f"{time.perf_counter() - t0:.2f} s after the plans")
 
     for fused in (True, False):  # warm runs: allocator, first launches
@@ -356,17 +813,16 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
         s.profile_later(f"main path {name}", lambda f=fused: run(f),
                         float(np.median(secs[fused])) * 1e3)
 
-    lanes = list(range(HOST_SEEDS))
-    rows = ellbfs.visited_rows(res_f, N, lanes=lanes)
+    rows = ellbfs.visited_rows(res_f, N, lanes=HOST_LANES)
     reach = res_f.reach_counts.cpu().numpy()
-    for k, (want, want_edges) in zip(lanes, host_results):
-        s.expect(np.array_equal(rows[k], want),
+    for k, got, (want, want_edges) in zip(HOST_LANES, rows, host_results):
+        s.expect(np.array_equal(got, want),
                  f"seed lane {k}: reach set differs from the host BFS")
         s.expect(int(reach[k]) == len(want), f"seed lane {k}: reach count")
         s.expect(int(res_f.edges_touched[k]) == want_edges,
                  f"seed lane {k}: edge count differs from the host BFS")
-    s.log(f"host BFS: {HOST_SEEDS} seeds agree (reach sizes "
-          f"{[int(reach[k]) for k in lanes]})")
+    s.log(f"host BFS: seed lanes {HOST_LANES} agree (reach sizes "
+          f"{[int(reach[k]) for k in HOST_LANES]})")
 
     # served path: a few requests padded to the 64-seed bucket
     t0 = time.perf_counter()
@@ -374,6 +830,7 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
                                 device=s.dev)
     serve_s = time.perf_counter() - t0
     sentinel = int(fused_bfs.SENTINEL)
+    rows = ellbfs.visited_rows(res_f, N, lanes=range(SERVE_SEEDS))
     for k in range(SERVE_SEEDS):
         s.expect(int(counts[k]) == int(reach[k]), f"served count lane {k}")
         want = np.full(SERVE_TOP_R, sentinel, np.int64)
@@ -389,6 +846,7 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
     kw = visited.shape[1]
     row_bytes = kw * 4
     del results, res_s, res_f
+    per_hop = phase_hops(s, snap, torch.from_numpy(seeds).to(s.dev), visited)
     # the plain counting passes each path runs HOPS + 1 times
     deg_ms = s.time_ms(
         lambda: ellbfs.bitdot(visited, dp["inc_deg"], dp["deg_rows"]), 2)
@@ -399,7 +857,7 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
     idx1 = dp["levels1"][0]
     w1 = plans.stage1.widths[0]
     n_out = idx1.shape[0] // w1
-    out_k = torch.empty((n_out, kw), dtype=torch.int32, device=s.dev)
+    out_k = torch.zeros((n_out, kw), dtype=torch.int32, device=s.dev)
     out_p = torch.empty_like(out_k)
     k1_ms = s.time_ms(lambda: gather_or(visited, idx1, w1, out=out_k), 5)
     k1_plain = s.time_ms(
@@ -410,7 +868,8 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
     k1_bytes = (int(used.sum()) * row_bytes + idx1.numel() * 4
                 + n_out * row_bytes)
     k1_ops = idx1.numel() * kw
-    s.log(f"K1 at stage-1 level 0: {n_out} rows x {w1}, {k1_ms:.3f} ms "
+    s.log(f"K1 at stage-1 level 0 on the final bitmap, no mask: {n_out} "
+          f"rows x {w1}, {k1_ms:.3f} ms "
           f"kernel, {k1_plain:.3f} ms plain, {idx1.numel() * row_bytes} "
           f"gathered bytes")
     del out_k, out_p, used
@@ -426,7 +885,8 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
     k2_bytes = (2 * geom.n_rows * row_bytes + dplan.idx.numel() * 4
                 + dplan.item_off.numel() * 8 + dplan.item_row.numel() * 4)
     k2_ops = (dplan.idx.numel() + geom.n_rows) * kw
-    s.log(f"K2 one hop: {geom.n_items} items, {k2_ms:.3f} ms kernel, "
+    s.log(f"K2 one hop on the final bitmap, no mask: {geom.n_items} items, "
+          f"{k2_ms:.3f} ms kernel, "
           f"{k2_plain:.3f} ms plain, "
           f"{fused_bfs.fused_bytes_per_hop(geom, N_SEEDS)} modelled bytes")
     s.expect(k1_err == 0 and k2_err == 0,
@@ -442,6 +902,8 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
                  n_launch["fused_hop"], k2_err, k2_ms, k2_plain, k2_bytes,
                  k2_ops),
     ]
+    for rec in records["kernels"][-2:]:
+        rec.update(per_hop[rec["name"]])
 
 
 def k3_case(rng, lb: int, m: int, lo: int, near_max: bool, empty_row: bool):

@@ -31,8 +31,10 @@ NVCC_FLAGS = (
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each library's entry point: (symbol, argtypes)
 _ENTRIES = {
-    "gather_or": ("hg_gather_or", [_P, _P, _P, _LL, _I, _I, _P]),
-    "fused_hop": ("hg_fused_hop", [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
+    "gather_or": ("hg_gather_or",
+                  [_P, _P, _P, _LL, _I, _I, _P, _P, _LL, _I, _I, _P]),
+    "fused_hop": ("hg_fused_hop",
+                  [_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _I, _P]),
     "membership": ("hg_membership", [_P, _P, _P, _LL, _I, _LL, _P]),
 }
 
@@ -118,6 +120,11 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    """``t.data_ptr()``, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def check_rows(idx, n_rows: int, what: str) -> None:

@@ -15,6 +15,9 @@ atom → incident links → their targets) and the same layout:
   composed with stage 1's output map on the host.
 - every level of both pyramids runs through K1 (``ops/gather_or.py``) on
   the card, writing straight into its section of the stage buffer.
+- ``visited`` and each stage buffer travel with their exact line masks
+  (``ops/linemask.py``): each level reads the mask of what it gathers, so
+  K1 skips zero rows and lines, and emits the mask of the rows it writes.
 
 Differences from the reference, all deliberate:
 
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from hypergraphdb_tpu_torch.ops import linemask
 from hypergraphdb_tpu_torch.ops.gather_or import PLAIN_CHUNK, gather_or
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
 
@@ -267,6 +271,21 @@ def seed_bitmap(seeds: torch.Tensor, n_rows: int, kw: int) -> torch.Tensor:
     return visited.index_add_(0, seeds, onehot)
 
 
+def seed_mask(seeds: torch.Tensor, n_rows: int, kw: int,
+              clear_row: Optional[int] = None) -> torch.Tensor:
+    """The exact line mask of ``seed_bitmap(seeds, n_rows, kw)``: seed k
+    sets the line holding word ``k >> 5`` of row ``seeds[k]``. With
+    ``clear_row`` that row's field is left clear (the caller clears the
+    row itself)."""
+    k = torch.arange(seeds.shape[0], device=seeds.device)
+    lines = (k >> 5) // linemask.line_words(kw)
+    rows = seeds.to(torch.int64)
+    if clear_row is not None:
+        keep = rows != clear_row
+        rows, lines = rows[keep], lines[keep]
+    return linemask.mask_of_points(rows, lines, n_rows, kw)
+
+
 def bitdot(packed: torch.Tensor, weight: Optional[torch.Tensor] = None,
            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Σ_v weight[v] · bit(v, k) for every seed column k, as exact (K,)
@@ -295,33 +314,50 @@ def bitdot(packed: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return acc.to(torch.int64)
 
 
-def _apply_plan(values: torch.Tensor, levels: tuple, widths: tuple,
-                buf: torch.Tensor, chunk: int) -> torch.Tensor:
+def _apply_plan(values: torch.Tensor, vmask: torch.Tensor, levels: tuple,
+                widths: tuple, buf: torch.Tensor, bmask: torch.Tensor,
+                chunk: int) -> torch.Tensor:
     """Run a reduction pyramid into ``buf``: the concatenation of every
     level's chunk array plus one global zero row at the end — the address
     space ``ReducePlan.out_map`` (and composed downstream level-0 indices)
     point into. Upper-level indices come rebased into that space
     (:func:`device_plans`), so every level is one gather-OR into its
-    section: K1 on the card, its plain version on the CPU."""
+    section: K1 on the card, its plain version on the CPU.
+
+    Level 0 reads ``values`` with its line mask ``vmask``, the upper levels
+    read ``buf`` with ``bmask``, which is zeroed here and receives every
+    section's exact fields as it is written. ``buf`` must hold a subset of
+    this run's result (zeros, or the previous hop's run of the same BFS:
+    the reduced values only grow), so all-zero rows are not stored."""
     buf[-1].zero_()
+    bmask.zero_()
     off = 0
-    src = values
+    src, smask = values, vmask
     for idx, w in zip(levels, widths):
         n = idx.shape[0] // w
-        gather_or(src, idx, w, out=buf[off : off + n], chunk=chunk)
+        gather_or(src, idx, w, out=buf[off : off + n], chunk=chunk,
+                  mask=smask, out_mask=bmask, mask_row0=off)
         off += n
-        src = buf
+        src, smask = buf, bmask
     return buf
 
 
-def _visited_update(visited: torch.Tensor, reach: torch.Tensor,
+def _visited_update(visited: torch.Tensor, vmask: torch.Tensor,
+                    reach: torch.Tensor, rmask: torch.Tensor,
                     out_map: torch.Tensor, n_atoms: int,
                     block: int = 1 << 20) -> torch.Tensor:
-    """visited |= reach[out_map], in place, in row blocks so the gathered
-    transient stays one block; the dummy row stays clear."""
+    """visited |= reach[out_map] and its mask vmask |= the fields of
+    reach's mask at out_map (a line of ``a | b`` is nonzero iff it is in
+    ``a`` or ``b``), in place, in row blocks so the gathered transient
+    stays one block; the dummy row and its field stay clear. ``block`` is
+    a multiple of 32 rows, so a block's fields start on a word."""
+    kw = visited.shape[1]
     for s in range(0, visited.shape[0], block):
-        visited[s : s + block] |= reach[out_map[s : s + block]]
+        rows = out_map[s : s + block]
+        visited[s : s + block] |= reach[rows]
+        linemask.or_fields(vmask, linemask.fields_at(rmask, rows, kw), s, kw)
     visited[n_atoms] = 0
+    linemask.clear_field(vmask, n_atoms, kw)
     return visited
 
 
@@ -372,27 +408,44 @@ def device_plans(snap: CSRSnapshot,
 
 
 def _bfs_pull_device(dp: dict, plans: PullBFSPlans, seeds: torch.Tensor,
-                     max_hops: int, chunk: int, count_edges: bool):
+                     max_hops: int, chunk: int, count_edges: bool,
+                     hop_hook=None):
     """One seed block through the staged chain. Returns ``(visited (n_pad,
     Kw) int32, s_ins list of (K,) int64 per hop, reach (K,) int64)``.
 
     Hops pull from VISITED, not from a frontier: the closure is monotone,
     so per-hop frontier edge counts fall out as differences of
-    S_h = Σ_v visited_h[v]·deg(v) (frontiers partition visited)."""
+    S_h = Σ_v visited_h[v]·deg(v) (frontiers partition visited).
+
+    ``visited`` and the stage buffers each keep an exact line mask. The
+    buffers start zeroed, so each hop's run holds a superset of the last
+    one's and K1 skips storing all-zero rows. ``hop_hook(h, visited,
+    vmask)``, when given, sees the bitmap and mask entering hop ``h``
+    (0-based) and, with ``h == max_hops``, the final ones; it must not
+    modify them."""
     kw = seeds.shape[0] // WORD
+    dev = seeds.device
     visited = seed_bitmap(seeds, plans.n_pad, kw)
     visited[plans.n_atoms] = 0  # dummy row stays zero
-    buf1 = torch.empty((dp["rows1"], kw), dtype=torch.int32,
-                       device=seeds.device)
-    buf2 = torch.empty((dp["rows2"], kw), dtype=torch.int32,
-                       device=seeds.device)
+    vmask = seed_mask(seeds, plans.n_pad, kw, clear_row=plans.n_atoms)
+    buf1 = torch.zeros((dp["rows1"], kw), dtype=torch.int32, device=dev)
+    buf2 = torch.zeros((dp["rows2"], kw), dtype=torch.int32, device=dev)
+    mask1 = linemask.empty_mask(dp["rows1"], kw, dev)
+    mask2 = linemask.empty_mask(dp["rows2"], kw, dev)
     s_ins = []
-    for _ in range(max_hops):
+    for h in range(max_hops):
+        if hop_hook is not None:
+            hop_hook(h, visited, vmask)
         if count_edges:
             s_ins.append(bitdot(visited, dp["inc_deg"], dp["deg_rows"]))
-        _apply_plan(visited, dp["levels1"], plans.stage1.widths, buf1, chunk)
-        _apply_plan(buf1, dp["levels2"], plans.stage2_widths, buf2, chunk)
-        _visited_update(visited, buf2, dp["out_map"], plans.n_atoms)
+        _apply_plan(visited, vmask, dp["levels1"], plans.stage1.widths,
+                    buf1, mask1, chunk)
+        _apply_plan(buf1, mask1, dp["levels2"], plans.stage2_widths, buf2,
+                    mask2, chunk)
+        _visited_update(visited, vmask, buf2, mask2, dp["out_map"],
+                        plans.n_atoms)
+    if hop_hook is not None:
+        hop_hook(max_hops, visited, vmask)
     return visited, s_ins, bitdot(visited)
 
 

@@ -22,7 +22,10 @@ rule.
 
 Each hop reads only the old bitmap and writes a second buffer; the two
 ping-pong across hops. An in-place OR would let a hop see bits set in the
-same hop and over-reach.
+same hop and over-reach. Beside each bitmap the BFS keeps its line-occupancy
+mask (``ops/linemask.py``): the kernel skips the gathers that cannot add a
+bit (self entries, zero rows and lines, saturated lanes) and emits the mask
+of the bitmap it writes, which the next hop reads.
 
 :func:`plan_supported` keeps the "None or a reason string" contract with
 the port's own rule: the fused index grows as Σ arity² and can dwarf the
@@ -39,13 +42,14 @@ import numpy as np
 import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from hypergraphdb_tpu_torch.ops import _cuda
+from hypergraphdb_tpu_torch.ops import _cuda, linemask
 from hypergraphdb_tpu_torch.ops.ellbfs import (
     WORD,
     _ceil_to,
     _segmented_ranges,
     bitdot,
     seed_bitmap,
+    seed_mask,
 )
 from hypergraphdb_tpu_torch.ops.gather_or import or_fold
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
@@ -272,10 +276,13 @@ def _segment_or(x: torch.Tensor, seg: torch.Tensor):
 
 def fused_hop_plain(old: torch.Tensor, plan: DeviceFusedPlan,
                     out: Optional[torch.Tensor] = None,
-                    chunk: int = PLAIN_CHUNKS) -> torch.Tensor:
+                    chunk: int = PLAIN_CHUNKS,
+                    out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version of K2: ``new = old``, then per streamed
     block of chunks gather, OR-fold each chunk's ``w`` rows, OR the chunks
-    of each row together and into ``new``."""
+    of each row together and into ``new``. ``out_mask``, when given, is
+    overwritten with ``line_mask(new)``; no input mask is read (under the
+    mask contract the bitmap is the same with or without one)."""
     kw, w = old.shape[1], plan.w
     new = old.clone() if out is None else out.copy_(old)
     chunk_row = torch.repeat_interleave(plan.item_row,
@@ -286,18 +293,38 @@ def fused_hop_plain(old: torch.Tensor, plan: DeviceFusedPlan,
         g = or_fold(old[plan.idx[s * w : e * w]].view(e - s, w, kw))
         acc, rows = _segment_or(g, chunk_row[s:e])
         new[rows] |= acc
+    if out_mask is not None:
+        out_mask.copy_(linemask.line_mask(new))
     return new
 
 
+def _check_items(plan: DeviceFusedPlan) -> None:
+    """Raise unless ``item_off`` is n_items+1 non-decreasing chunk bounds
+    inside ``idx``: the kernel would read out of bounds. One sync."""
+    offs, n_items = plan.item_off, plan.item_row.shape[0]
+    if (offs.shape != (n_items + 1,) or int(offs[0]) < 0
+            or int(offs[-1]) * plan.w > plan.idx.numel()
+            or not bool((offs[1:] >= offs[:-1]).all())):
+        raise ValueError("fused_hop: item_off must be n_items+1 "
+                         "non-decreasing chunk bounds inside idx")
+
+
 def fused_hop(old: torch.Tensor, plan: DeviceFusedPlan,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One fused hop: ``old | OR-gather of the fused adjacency`` as a new
     (n_rows, kw) int32 bitmap, written into ``out`` when given.
+
+    ``mask`` is the line mask of ``old`` (a superset of its nonzero lines,
+    ``ops/linemask.py``; ``None``: every line live). ``out_mask``, when
+    given, is overwritten with the exact line mask of the result.
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
     ``out`` must not overlap ``old``, and on the card it must start as a
     subset of the result (zeros, or an earlier bitmap of the same BFS:
-    visited sets only grow), because split hub rows OR into it."""
+    visited sets only grow), because split hub rows OR into it and rows
+    whose result is all zero are not stored."""
     if old.dim() != 2 or old.dtype != torch.int32 or not old.is_contiguous():
         raise ValueError(f"fused_hop: old must be a contiguous (n_rows, kw) "
                          f"int32 tensor, got {tuple(old.shape)} {old.dtype}")
@@ -311,26 +338,30 @@ def fused_hop(old: torch.Tensor, plan: DeviceFusedPlan,
         raise ValueError("fused_hop: out must be a second buffer, not old")
     if plan.idx.device != old.device:
         raise ValueError("fused_hop: plan and bitmap on different devices")
+    n_rows, kw = old.shape
+    for m, what in ((mask, "mask"), (out_mask, "out_mask")):
+        if m is not None:
+            linemask.check_mask(m, n_rows, kw, old.device, f"fused_hop {what}")
     if old.device.type == "cpu":
-        return fused_hop_plain(old, plan, out=out)
+        return fused_hop_plain(old, plan, out=out, out_mask=out_mask)
     if old.device.type != "cuda":
         raise ValueError(f"fused_hop: unsupported device {old.device}")
     n_items = plan.item_row.shape[0]
     if n_items == 0:
+        if out_mask is not None:
+            out_mask.copy_(linemask.line_mask(old))
         return out.copy_(old)
-    n_rows = old.shape[0]
     _cuda.check_rows(plan.idx, n_rows, "fused_hop idx")
     _cuda.check_rows(plan.item_row, n_rows, "fused_hop item_row")
-    offs = plan.item_off
-    if (offs.shape != (n_items + 1,) or int(offs[0]) < 0
-            or int(offs[-1]) * plan.w > plan.idx.numel()
-            or not bool((offs[1:] >= offs[:-1]).all())):
-        raise ValueError("fused_hop: item_off must be n_items+1 "
-                         "non-decreasing chunk bounds inside idx")
+    _check_items(plan)
+    if out_mask is not None:
+        out_mask.zero_()
     fn = _cuda.kernel("fused_hop")
     code = fn(old.data_ptr(), out.data_ptr(), plan.idx.data_ptr(),
               plan.item_off.data_ptr(), plan.item_row.data_ptr(), n_items,
-              plan.w, old.shape[1], _cuda.stream_of(old))
+              plan.w, kw, _cuda.ptr(mask), _cuda.ptr(out_mask),
+              linemask.line_words(kw), linemask.field_bits(kw),
+              _cuda.stream_of(old))
     fused_hop.launches += 1
     _cuda.check(code, "fused_hop")
     return out
@@ -344,22 +375,36 @@ fused_hop.launches = 0
 
 
 def bfs_fused(plan: DeviceFusedPlan, seeds: torch.Tensor, geom: FusedGeom,
-              max_hops: int, count_edges: bool, clear_dummy: bool):
+              max_hops: int, count_edges: bool, clear_dummy: bool,
+              hop_hook=None):
     """Seed bitmap → ``max_hops`` fused hops → per-hop degree sums → reach
     counts. Returns ``(visited (n_rows, K/32) int32, s_ins list of (K,)
     int64, reach (K,) int64)``; equal to the staged chain on the same
     inputs. ``clear_dummy=False`` keeps the dummy-row bit of pad lanes (the
-    serving contract); the pull path clears it."""
+    serving contract); the pull path clears it.
+
+    Each bitmap travels with its exact line mask: the seed rows' mask, then
+    the mask each hop emits. ``hop_hook(h, visited, mask)``, when given, is
+    called with the bitmap and mask entering hop ``h`` (0-based) and, with
+    ``h == max_hops``, the final ones; it must not modify them."""
     kw = seeds.shape[0] // WORD
     visited = seed_bitmap(seeds, geom.n_rows, kw)
-    if clear_dummy:
-        visited[geom.n_atoms] = 0
+    dummy = geom.n_atoms if clear_dummy else None
+    if dummy is not None:
+        visited[dummy] = 0
+    vmask = seed_mask(seeds, geom.n_rows, kw, clear_row=dummy)
     spare = torch.zeros_like(visited)
+    smask = torch.empty_like(vmask)
     s_ins = []
-    for _ in range(max_hops):
+    for h in range(max_hops):
+        if hop_hook is not None:
+            hop_hook(h, visited, vmask)
         if count_edges:
             s_ins.append(bitdot(visited, plan.inc_deg, plan.deg_rows))
-        visited, spare = fused_hop(visited, plan, out=spare), visited
+        out = fused_hop(visited, plan, out=spare, mask=vmask, out_mask=smask)
+        visited, spare, vmask, smask = out, visited, smask, vmask
+    if hop_hook is not None:
+        hop_hook(max_hops, visited, vmask)
     return visited, s_ins, bitdot(visited)
 
 

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from hypergraphdb_tpu.ops import ellbfs as ref_ellbfs
-from hypergraphdb_tpu_torch.ops import ellbfs
+from hypergraphdb_tpu_torch.ops import ellbfs, linemask
 from tests.test_ellbfs import host_bfs, random_snapshot
 from tests.test_torch_snapshot import to_port
 
@@ -126,3 +126,52 @@ def test_bitdot_is_exact_past_float32():
     rows = torch.tensor([0, 2], dtype=torch.int64)
     assert (ellbfs.bitdot(packed, weight, rows) == 2**25 + 8).all()
     assert (ellbfs.bitdot(packed) == 5).all()
+
+
+# ------------------------------------------------ line masks through K1
+
+
+@pytest.mark.parametrize("hops", [1, 2, 3])
+@pytest.mark.parametrize("case", ["zipf", "pad_seeds", "sparse_seeds",
+                                  "saturating"])
+def test_masked_staged_pull_matches_reference(case, hops):
+    """The staged chain with masks threaded through every level and the
+    visited update equals the reference, and the visited mask entering
+    every hop is exactly ``line_mask`` of the bitmap."""
+    if case == "zipf":
+        ref_snap = random_snapshot(300, 250, 6, seed=9, zipf=True)
+        seeds = np.random.default_rng(2).integers(0, 300, size=64)
+    elif case == "pad_seeds":
+        ref_snap = random_snapshot(100, 80, 3, seed=3)
+        seeds = np.asarray([5, 5, 17, 180])  # 180: the dummy row
+    elif case == "sparse_seeds":
+        ref_snap = random_snapshot(1500, 450, 3, seed=5)
+        seeds = np.asarray([11])
+    else:  # dense: every node row fills with ones within three hops
+        ref_snap = random_snapshot(40, 300, 4, seed=12)
+        seeds = np.arange(32)
+    seeds = seeds.astype(np.int32)
+    port = to_port(ref_snap)
+    ref = ref_ellbfs.bfs_pull(ref_snap, seeds, hops)
+    K = -(-len(seeds) // 32) * 32
+    padded = np.full(K, port.num_atoms, np.int32)
+    padded[: len(seeds)] = seeds
+    seen = []
+
+    def hook(h, visited, vmask):
+        assert torch.equal(vmask, linemask.line_mask(visited)), f"hop {h}"
+        seen.append(h)
+
+    vt, s_ins, reach = ellbfs._bfs_pull_device(
+        ellbfs.device_plans(port, "cpu"), ellbfs.plans_for(port),
+        torch.from_numpy(padded), hops, ellbfs.PLAIN_CHUNK, True,
+        hop_hook=hook)
+    assert seen == list(range(hops + 1))
+    assert np.array_equal(vt.numpy().view(np.uint32), np.asarray(ref.visited_t))
+    assert np.array_equal(reach.numpy()[: len(seeds)],
+                          np.asarray(ref.reach_counts))
+    assert np.array_equal(s_ins[-1].numpy()[: len(seeds)], ref.edges_touched)
+    res = ellbfs.bfs_pull(port, seeds, hops, fused=False, device="cpu")
+    assert_same_result(ref, res)
+    if case == "saturating" and hops == 3:
+        assert (vt[:40].numpy().view(np.uint32) == 0xFFFFFFFF).all()

@@ -11,7 +11,7 @@ import torch
 from hypergraphdb_tpu.ops import ellbfs as ref_ellbfs
 from hypergraphdb_tpu.ops import pallas_bfs as ref_fused
 from hypergraphdb_tpu.ops.snapshot import CSRSnapshot as JaxSnapshot
-from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs
+from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs, linemask
 from tests.test_ellbfs import random_snapshot
 from tests.test_torch_snapshot import to_port
 
@@ -189,3 +189,107 @@ def test_fused_traffic_model_counts_real_entries():
     assert per_hop > geom.total_entries * 512  # gathered 512-byte rows
     assert geom.total_entries > 0
     assert fused_bfs.fused_index_bytes(port) == geom.n_chunks * geom.w * 4
+
+
+# ------------------------------------------------ line masks through K2
+
+
+def _audit_hook(seen):
+    """A ``hop_hook`` that checks every mask entering a hop (and the final
+    one) equals ``line_mask`` of its bitmap, and records the hop."""
+    def hook(h, visited, mask):
+        assert torch.equal(mask, linemask.line_mask(visited)), f"hop {h}"
+        seen.append(h)
+    return hook
+
+
+@pytest.mark.parametrize("kw", [2, 3, 128])
+def test_fused_hop_plain_emits_exact_mask_superset_mask_changes_nothing(kw):
+    port = to_port(_hub_snapshot(hub_arity=90, n_nodes=100, n_links=50))
+    plan, geom = fused_bfs.device_fused_plan(port, "cpu")
+    r = np.random.default_rng(kw)
+    words = r.integers(0, 2**32, size=(geom.n_rows, kw), dtype=np.uint64)
+    sparse = r.random((geom.n_rows, 1)) < 0.1  # most rows zero
+    old = torch.from_numpy(np.where(sparse, words, 0).astype(np.uint32)
+                           .view(np.int32))
+    old[geom.zero_row] = 0
+    want = fused_bfs.fused_hop(old, plan)
+    out_mask = linemask.full_mask(geom.n_rows, kw, "cpu")  # overwritten
+    for mask in (None, linemask.full_mask(geom.n_rows, kw, "cpu"),
+                 linemask.line_mask(old)):
+        got = fused_bfs.fused_hop(old, plan, mask=mask, out_mask=out_mask)
+        assert torch.equal(got, want)
+        assert torch.equal(out_mask, linemask.line_mask(got))
+    with pytest.raises(ValueError, match="line mask"):
+        fused_bfs.fused_hop(old, plan, mask=torch.zeros(1, dtype=torch.int32))
+
+
+def _saturating_snapshot():
+    """A small dense graph: from 32 distinct seeds every node row fills
+    with ones within three hops."""
+    return random_snapshot(40, 300, 4, seed=12)
+
+
+_MASKED_CASES = {
+    # name: (snapshot factory, seeds factory, ITEM_CHUNKS or None)
+    "zipf": (lambda: random_snapshot(150, 300, 4, seed=7, zipf=True),
+             lambda n: np.random.default_rng(3).integers(0, 150, size=64),
+             None),
+    "split_hubs": (lambda: _hub_snapshot(),
+                   lambda n: np.asarray([0, 3, 510, 519] + [7] * 28),
+                   4),
+    "pad_seeds": (lambda: random_snapshot(80, 160, 4, seed=1, zipf=True),
+                  lambda n: np.asarray([5, 5, 17] + [n] * 29), None),
+    "sparse_seeds": (lambda: random_snapshot(1500, 450, 3, seed=5),
+                     lambda n: np.asarray([11] + [n] * 63), None),
+    "saturating": (_saturating_snapshot, lambda n: np.arange(32), None),
+}
+
+
+@pytest.mark.parametrize("hops", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(_MASKED_CASES))
+def test_masked_fused_bfs_matches_reference(case, hops, monkeypatch):
+    """The fused BFS with masks threaded hop to hop equals the reference's
+    fused path and staged ``bfs_pull``, and every mask entering a hop is
+    exactly ``line_mask`` of its bitmap."""
+    build, pick, item_chunks = _MASKED_CASES[case]
+    if item_chunks is not None:
+        monkeypatch.setattr(fused_bfs, "ITEM_CHUNKS", item_chunks)
+    ref_snap = build()
+    port = to_port(ref_snap)
+    seeds = pick(port.num_atoms).astype(np.int32)
+    ref = ref_ellbfs.bfs_pull(ref_snap, seeds, hops)
+    rvt = np.asarray(ref.visited_t)
+    plan, geom = fused_bfs.device_fused_plan(port, "cpu")
+    if item_chunks is not None:
+        assert np.bincount(plan.item_row.numpy()).max() > 1  # split rows
+    seen = []
+    vt, s_ins, reach = fused_bfs.bfs_fused(
+        plan, torch.from_numpy(seeds), geom, hops, count_edges=True,
+        clear_dummy=True, hop_hook=_audit_hook(seen))
+    assert seen == list(range(hops + 1))
+    n_pad = rvt.shape[0]
+    assert np.array_equal(vt[:n_pad].numpy().view(np.uint32), rvt)
+    assert np.array_equal(reach.numpy(), np.asarray(ref.reach_counts))
+    assert np.array_equal(s_ins[-1].numpy(), ref.edges_touched)
+    if ref_fused.plan_supported(ref_snap, len(seeds)) is None:
+        fvt, fs, freach = _ref_fused(ref_snap, seeds, hops)
+        assert np.array_equal(fvt, rvt)
+        for a, b in zip(s_ins, fs):
+            assert np.array_equal(a.numpy(), b.astype(np.int64))
+    if case == "saturating" and hops == 3:
+        nodes = vt[:40].numpy().view(np.uint32)
+        assert (nodes == 0xFFFFFFFF).all()  # every node row saturated
+    if case == "sparse_seeds":
+        assert int(linemask.line_mask(vt).count_nonzero()) < geom.n_rows // 32
+
+
+def test_item_bounds_check_rescans_after_an_in_place_write():
+    """K2's work-item bounds check passes a built plan and catches one whose
+    ``item_off`` was written in place."""
+    port = to_port(_hub_snapshot(hub_arity=90, n_nodes=100, n_links=50))
+    plan, _ = fused_bfs.device_fused_plan(port, "cpu")
+    fused_bfs._check_items(plan)
+    plan.item_off[1] = plan.item_off[2] + 1  # no longer non-decreasing
+    with pytest.raises(ValueError, match="non-decreasing"):
+        fused_bfs._check_items(plan)

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import torch
 
 from hypergraphdb_tpu.ops import pallas_gather as pg
+from hypergraphdb_tpu_torch.ops import linemask
 from hypergraphdb_tpu_torch.ops.gather_or import gather_or, gather_or_plain
 
 
@@ -52,9 +53,11 @@ def test_gather_or_ragged_width(Kw):
 
 def test_gather_or_writes_into_buffer_section():
     """``out`` as a section of the buffer ``values`` lies in: the pyramid's
-    upper levels read one section and write the next."""
+    upper levels read one section and write the next, into zeros (``out``
+    starts as a subset of the result)."""
     w = 4
     buf = torch.from_numpy(_inputs(3, 40, 8, 1, 1)[0].view(np.int32)).clone()
+    buf[16:] = 0
     idx = torch.from_numpy(np.arange(16, dtype=np.int32))
     want = buf[:16].view(4, 4, 8)
     want = want[:, 0] | want[:, 1] | want[:, 2] | want[:, 3]
@@ -82,3 +85,53 @@ def test_cpu_tensors_use_plain_version_and_count_no_launch():
                         torch.from_numpy(idx), 8)
     assert torch.equal(a, b)
     assert gather_or.launches == before
+
+
+# ------------------------------------------------ line masks through K1
+
+
+@pytest.mark.parametrize("Kw", [2, 3, 128, 256])
+def test_gather_or_emits_exact_mask_superset_mask_changes_nothing(Kw):
+    """The rows written OR their exact line fields into the buffer's mask at
+    their offset, and an input mask (exact or all-set) changes nothing."""
+    r = np.random.default_rng(Kw)
+    values, idx = _inputs(5, 64, Kw, 30, 8)
+    values[r.random(64) < 0.7] = 0  # mostly zero rows
+    values[3] = 0xFFFFFFFF          # one saturated row
+    v = torch.from_numpy(values.view(np.int32))
+    want = gather_or(v, torch.from_numpy(idx), 8)
+    for mask in (None, linemask.full_mask(64, Kw, "cpu"),
+                 linemask.line_mask(v)):
+        buf = torch.zeros((45, Kw), dtype=torch.int32)
+        bmask = linemask.empty_mask(45, Kw, "cpu")
+        got = gather_or(v, torch.from_numpy(idx), 8, out=buf[7:37],
+                        mask=mask, out_mask=bmask, mask_row0=7)
+        assert torch.equal(got, want)
+        assert torch.equal(bmask, linemask.line_mask(buf))
+
+
+def test_gather_or_rejects_bad_masks():
+    values = torch.zeros((8, 4), dtype=torch.int32)
+    idx = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="line mask"):
+        gather_or(values, idx, 8, mask=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="exceed"):
+        gather_or(values, idx, 8, out_mask=linemask.empty_mask(8, 4, "cpu"),
+                  mask_row0=31)  # the mask word holds 32 rows
+
+
+def test_index_range_check_rescans_after_an_in_place_write():
+    """The kernels' index range check scans the index on every call: a
+    smaller table, or an index written in place, is caught."""
+    from hypergraphdb_tpu_torch.ops import _cuda
+
+    idx = torch.tensor([0, 3, 7], dtype=torch.int32)
+    _cuda.check_rows(idx, 8, "idx")
+    with pytest.raises(ValueError, match="outside"):
+        _cuda.check_rows(idx, 7, "idx")
+    idx[1] = 9
+    with pytest.raises(ValueError, match=r"\[0, 9\]"):
+        _cuda.check_rows(idx, 8, "idx")
+    idx[1] = -1
+    with pytest.raises(ValueError, match=r"\[-1, 7\]"):
+        _cuda.check_rows(idx, 8, "idx")

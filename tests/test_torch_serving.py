@@ -175,3 +175,35 @@ def test_serve_pattern_rejects_what_a_batch_cannot_hold(dbp):
                       [None] * (BUCKETS[-1] + 1), 4, device="cpu")
     with pytest.raises(ValueError, match="type handles"):
         serve_pattern(port, [(0, 1)], [], 4, device="cpu")
+
+
+def test_served_bfs_masks_keep_pad_lanes_dummy_bit(snaps):
+    """The 64 bucket through the masked fused hop: the pad lanes' dummy-row
+    bit is in the seed mask and every hop's mask (clear_dummy=False), each
+    mask entering a hop equals ``line_mask`` of its bitmap, and counts and
+    ``first_r`` equal the reference's."""
+    from hypergraphdb_tpu_torch.ops import linemask
+
+    ref_snap, port = snaps
+    n = port.num_atoms
+    seeds = np.full(64, n, np.int32)
+    seeds[:5] = np.random.default_rng(9).integers(0, 90, size=5)
+    plan, geom = fused_bfs.device_fused_plan(port, "cpu")
+    seen = []
+
+    def hook(h, visited, mask):
+        assert torch.equal(mask, linemask.line_mask(visited)), f"hop {h}"
+        assert int(linemask.fields_at(mask, torch.tensor([n]), 2)) == 1
+        seen.append(h)
+
+    visited, _, reach = fused_bfs.bfs_fused(
+        plan, torch.from_numpy(seeds), geom, 3, count_edges=False,
+        clear_dummy=False, hop_hook=hook)
+    assert seen == [0, 1, 2, 3]
+    c_ref, f_ref = _reference(ref_snap, seeds, 3, 8)
+    counts, first_r = bfs_serve_batch_fused(plan, torch.from_numpy(seeds),
+                                            geom, 3, 8)
+    assert np.array_equal(counts.numpy(), c_ref)
+    assert np.array_equal(first_r.numpy(), f_ref)
+    assert np.array_equal(reach.numpy(), c_ref.astype(np.int64))
+    assert (counts.numpy()[5:] == 1).all()
