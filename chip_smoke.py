@@ -19,9 +19,16 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
    masked cases of K1 plus a plan heavy with self entries; then a small BFS
    on the card (both kernels) against the plain staged chain on the CPU,
    and a 64-seed BFS whose every mask is audited.
-   K3 sorted-set membership against its plain version, bit for bit, on
-   :data:`K3_CASES` (M from 1 to 5, Lb up to about 300K, ragged lengths
-   under SENTINEL padding, all-SENTINEL rows, values near INT32_MAX - 1).
+   K3 sorted-set membership against its plain version, bit for bit,
+   through both entries: :data:`K3_CASES` (M from 1 to 5, Lb up to about
+   300K, ragged lengths under SENTINEL padding, all-SENTINEL rows, values
+   near INT32_MAX - 1) padded through ``membership_mask`` and unpadded
+   through ``membership_mask_ragged``; then the ragged cases of
+   :func:`k3_ragged_cases`: a base of about 1,000 ids against a row of
+   758K (windows past the search switch), windows of several chunks, an
+   empty row, values near INT32_MAX, M = 1..5, a tile whose flags all clear
+   at the first row, Lb not a multiple of the tile. Every ragged case also
+   runs from a row buffer one int off 16-byte alignment.
 4. The main path at full width: the DBpedia-shaped 10M-atom snapshot (built
    once, shared by every later phase), K = 4096 seeds, 3 hops, through
    ``bfs_pull`` on the fused path (K2) and on the staged chain (K1). The two
@@ -43,8 +50,13 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
    versions and their bounds (the figure earlier versions reported).
 7. The intersection path: ``device_intersect_sorted`` on the incidence rows
    of the hubs at :data:`HUB_RANKS` (h1 ∩ h2, h1 ∩ h2 ∩ h3, h1 ∩ the most
-   common property type's links), each equal to ``np.intersect1d`` folded
-   over the same arrays, timed host to host; K3 must have launched.
+   common property type's links) and one skewed case, the incidence row of
+   an atom of about :data:`SKEW_DEGREE` links that shares a link with h1,
+   ∩ h1 (its tile takes the kernel's in-window search), each equal to
+   ``np.intersect1d`` folded over the same arrays, timed host to host with
+   the result compacted on the card (what the function does) and, in
+   turns, after the same checks and staging, with the mask fetched and the
+   base indexed on the host; every call must have launched K3 once.
 8. The pattern path: bench.py c3's traffic (:data:`PATTERN_PAIRS` anchor
    pairs from ``default_rng(PATTERN_SEED)``, type filter ``th``) through
    ``plan_pattern`` / ``execute_pattern`` / ``collect_pattern``, every
@@ -52,8 +64,14 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
    re-run); queries/s of execute-only and execute+collect windows. Then
    :data:`SERVE_PATTERNS` requests, typed and untyped, through
    ``serve_pattern`` in the 64 bucket, equal to the pattern path.
-9. K3 timed at the h1 ∩ h2 shape beside its plain version, ``torch.isin``
-   and its bound.
+9. K3 at the h1 ∩ h2 arrays, unpadded, held against its plain version (and
+   the padded entry at PR 3's 2^20 shape against its own): its device time
+   from a CUDA graph of 50 launches (not paced by the host), spaced
+   launches between CUDA events at warm L2 (a call just before) and cold
+   (256 MB written just before), and beside them the wrapper's host time per call (back to
+   back, the figure PR 3 and PR 4 reported), the plain version and
+   ``torch.isin`` warm and cold, the data bound of the real bytes and the
+   earlier bound of the padded shape.
 10. The device's busy share of the main path (fused and staged), the
     h1 ∩ h2 intersection and the pattern windows, from ``torch.profiler``,
     after every timed phase.
@@ -929,14 +947,134 @@ def k3_case(rng, lb: int, m: int, lo: int, near_max: bool, empty_row: bool):
     return pad_sorted(base, lb), others
 
 
-def phase_k3(s: Smoke) -> None:
+def ragged(others):
+    """The real rows of a SENTINEL-padded (M, Lo) matrix, back to back:
+    ``(flat, offsets)``."""
     import numpy as np
 
-    from hypergraphdb_tpu_torch.ops.membership import membership_mask
-    from hypergraphdb_tpu_torch.ops.setops import intersect_mask_many
+    from hypergraphdb_tpu_torch.ops.setops import SENTINEL
+
+    rows = [row[row != SENTINEL] for row in others]
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offsets[1:])
+    flat = np.concatenate(rows) if rows else np.zeros(0, np.int32)
+    return flat.astype(np.int32), offsets
+
+
+#: the kernel's tile, chunk and search switch (``csrc/membership.cu``
+#: kTile, kChunk, kSearchRatio), to say which route a case takes
+K3_TILE, K3_CHUNK, K3_SEARCH_RATIO = 1024, 2048, 16
+
+
+def first_row_routes(base, row) -> dict:
+    """Tiles of ``base`` by the route they take at their first row: window
+    longer than one chunk and than K3_SEARCH_RATIO times the tile's live
+    count (``search``), else ``stream``, and how many streamed tiles need
+    more than one chunk."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.setops import SENTINEL
+
+    out = {"search": 0, "stream": 0, "multi_chunk": 0}
+    for t0 in range(0, len(base), K3_TILE):
+        tile = base[t0 : t0 + K3_TILE]
+        tile = tile[tile != SENTINEL]
+        if not len(tile):
+            continue
+        w = (np.searchsorted(row, tile[-1], "right")
+             - np.searchsorted(row, tile[0], "left"))
+        if w > K3_CHUNK and w > K3_SEARCH_RATIO * len(tile):
+            out["search"] += 1
+        else:
+            out["stream"] += 1
+            out["multi_chunk"] += int(w > K3_CHUNK)
+    return out
+
+
+def k3_ragged_cases(rng):
+    """Named ragged K3 cases: ``(base (Lb,) int32 with any SENTINEL tail,
+    rows)``."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.setops import SENTINEL
+
+    top = int(SENTINEL)
+
+    def draw(lo, hi, n):
+        return np.unique(rng.integers(lo, hi, size=n)).astype(np.int32)
+
+    def mixed(base, lo, hi, n):
+        """n draws in [lo, hi) plus about half of ``base``."""
+        pick = base[rng.random(len(base)) < 0.5]
+        return np.union1d(pick, draw(lo, hi, n)).astype(np.int32)
+
+    hub = draw(0, 10_000_000, 800_000)[:758_572]
+    short = np.union1d(hub[rng.random(len(hub)) < 0.0007],
+                       draw(0, 10_000_000, 500))[:K3_TILE - 24]
+    short = short.astype(np.int32)
+    cases = {"short base x 758K row (search)": (short, [hub])}
+    dense = draw(0, 1_000_000, 52_000)
+    cases["windows of several chunks (stream)"] = (
+        dense, [mixed(dense, 0, 1_000_000, 500_000)])
+    b = draw(0, 400_000, 120_000)
+    cases["an empty row"] = (b, [mixed(b, 0, 400_000, 90_000),
+                                 np.zeros(0, np.int32),
+                                 mixed(b, 0, 400_000, 50_000)])
+    b = draw(top - 300_000, top, 100_000)
+    cases["near INT32_MAX"] = (b, [mixed(b, top - 300_000, top, 80_000),
+                                   mixed(b, top - 300_000, top, 150_000)])
+    for m in range(1, 6):
+        b = draw(0, 2_000_000, 90_000 + 7 * m)
+        cases[f"M = {m}"] = (b, [mixed(b, 0, 2_000_000, 60_000 * (j + 1))
+                                 for j in range(m)])
+    b = draw(0, 300_000, 70_000)
+    cases["all flags clear at the first row"] = (
+        b, [np.arange(300_000, 400_000, dtype=np.int32),
+            mixed(b, 0, 300_000, 90_000), mixed(b, 0, 300_000, 60_000)])
+    b = draw(0, 400_000, 60_000)[: 37 * K3_TILE + 5]
+    tail = np.full(301, SENTINEL, np.int32)
+    cases["Lb not a multiple of the tile, SENTINEL tail"] = (
+        np.concatenate([b, tail]), [mixed(b, 0, 400_000, 70_000)])
+    return cases
+
+
+def phase_k3(s: Smoke) -> None:
+    """K3 through both entries, each held bit for bit against its plain
+    version: the padded cases of :data:`K3_CASES` in both forms, then the
+    ragged cases of :func:`k3_ragged_cases`, each also from a row buffer
+    that is not 16-byte aligned (the kernel's 4-byte copy route)."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.membership import (
+        membership_mask,
+        membership_mask_ragged,
+    )
+    from hypergraphdb_tpu_torch.ops.setops import (
+        intersect_mask_many,
+        intersect_mask_ragged,
+    )
 
     torch = s.torch
     rng = np.random.default_rng(4)
+
+    def check_ragged(base, flat, offsets, what):
+        b = torch.from_numpy(base).to(s.dev)
+        want = None
+        for shift in (0, 1):  # 16-byte aligned rows, then rows one int in
+            buf = torch.zeros(len(flat) + shift, dtype=torch.int32,
+                              device=s.dev)
+            buf[shift:] = torch.from_numpy(flat).to(s.dev)
+            f = buf[shift:]
+            got = membership_mask_ragged(
+                b, f, torch.from_numpy(offsets).to(s.dev),
+                offsets_host=offsets)
+            torch.cuda.synchronize()
+            if want is None:
+                want = intersect_mask_ragged(b, f, offsets)
+            s.expect(torch.equal(got, want),
+                     f"K3 ragged != plain: {what} (row shift {shift})")
+        return want
+
     hits = []
     for lb, m, lo, near_max, empty_row in K3_CASES:
         base, others = k3_case(rng, lb, m, lo, near_max, empty_row)
@@ -947,9 +1085,24 @@ def phase_k3(s: Smoke) -> None:
         want = intersect_mask_many(b, o)
         s.expect(torch.equal(got, want),
                  f"K3 != plain at Lb={lb} M={m} Lo={lo} near_max={near_max}")
+        flat, offsets = ragged(others)
+        want_r = check_ragged(base, flat, offsets, f"padded case Lb={lb}")
+        s.expect(torch.equal(want_r, want), "ragged and padded plain differ")
         hits.append(int(want.sum()))
     s.log(f"K3 membership: bit-exact against plain on {len(K3_CASES)} "
-          f"cases (matches per case {hits})")
+          f"padded cases through both entries (matches per case {hits})")
+    for name, (base, rows) in k3_ragged_cases(rng).items():
+        flat, offsets = ragged(rows)
+        want = check_ragged(base, flat, offsets, name)
+        routes = first_row_routes(base, rows[0])
+        if "(search)" in name:
+            s.expect(routes["stream"] == 0, f"{name}: a tile streamed")
+        if "(stream)" in name:
+            s.expect(routes["search"] == 0 and routes["multi_chunk"] > 0,
+                     f"{name}: routes {routes}")
+        s.log(f"K3 ragged {name}: Lb {len(base)}, rows "
+              f"{[len(r) for r in rows]}, {int(want.sum())} matches, "
+              f"first-row routes {routes}; bit-exact against plain")
 
 
 def hub_rows(snap):
@@ -968,52 +1121,103 @@ def top_property_type(snap, info) -> int:
                    key=lambda t: len(snap.type_set(t))))
 
 
+def skew_partner(snap, hub: int, degree: int) -> int:
+    """The atom that shares a link with ``hub`` whose incidence row is
+    nearest ``degree`` long: a mid-degree row whose intersection with the
+    hub's is not empty."""
+    import numpy as np
+
+    links = snap.incidence_row(hub).astype(np.int64)
+    starts, ends = snap.tgt_offsets[links], snap.tgt_offsets[links + 1]
+    lens = ends - starts
+    idx = np.repeat(starts - np.cumsum(lens) + lens, lens) + np.arange(
+        lens.sum())
+    targets = np.unique(snap.tgt_flat[idx])
+    targets = targets[targets != hub]
+    deg = snap.inc_offsets[targets + 1] - snap.inc_offsets[targets]
+    return int(targets[np.argmin(np.abs(deg - degree))])
+
+
+#: incidence-row length of the skewed intersection's short side
+SKEW_DEGREE = 1000
+
+
 def phase_intersect(s: Smoke, snap, info) -> int:
-    """The planner's n-way intersection on the hub rows, through K3.
+    """The planner's n-way intersection on the hub rows, through K3, with
+    both ways to compact the result timed in turns, each after the same
+    input checks and staging: on the card (what ``device_intersect_sorted``
+    does) and by fetching the mask and indexing the base on the host.
     Returns K3's launches on this path."""
     import numpy as np
 
-    from hypergraphdb_tpu_torch.ops.setops import device_intersect_sorted
+    from hypergraphdb_tpu_torch.ops.setops import (
+        _check_sorted_ids,
+        device_intersect_sorted,
+        intersection_mask,
+    )
 
     ids, rows = hub_rows(snap)
     th = top_property_type(snap, info)
+    mid = skew_partner(snap, ids[0], SKEW_DEGREE)
     s.log(f"hubs {ids}: incidence rows {[len(r) for r in rows]}; type {th}: "
-          f"{len(snap.type_set(th))} links")
+          f"{len(snap.type_set(th))} links; atom {mid}: "
+          f"{len(snap.incidence_row(mid))} links")
     cases = {
         "h1&h2": rows[:2],
         "h1&h2&h3": rows,
         "h1&type": [rows[0], snap.type_set(th)],
+        "mid&h1": [snap.incidence_row(mid), rows[0]],
     }
-    device_intersect_sorted(cases["h1&h2"], device=s.dev)  # warm
-    secs = {k: [] for k in cases}
+    routes = first_row_routes(cases["mid&h1"][0], rows[0])
+    s.expect(routes["stream"] == 0, f"mid & h1 streamed a tile: {routes}")
 
-    def run(name):
+    def host_compact(arrays):
+        """The other compaction: ``device_intersect_sorted`` up to the
+        mask, which is fetched to index the base on the host."""
+        arrays = _check_sorted_ids(arrays)
+        _, mask = intersection_mask(arrays, s.dev)
+        return arrays[0][mask.cpu().numpy()].astype(np.int64)
+
+    ways = {"card": lambda a: device_intersect_sorted(a, device=s.dev),
+            "host": host_compact}
+    for way in ways.values():  # warm
+        way(cases["h1&h2"])
+    secs = {(name, w): [] for name in cases for w in ways}
+
+    def run(name, w):
         t0 = time.perf_counter()
-        got = device_intersect_sorted(cases[name], device=s.dev)
-        secs[name].append(time.perf_counter() - t0)
+        got = ways[w](cases[name])
+        secs[name, w].append(time.perf_counter() - t0)
         return got
 
     reset_launches()
-    results = {name: run(name) for name in cases}
+    results = {name: run(name, "card") for name in cases}
     n = launches()["membership"]
     s.log(f"K3 launches on the intersection path: {n} for {len(cases)} "
           f"calls")
-    for _ in range(TIMED_RUNS - 1):
+    s.expect(n == len(cases), "an intersection call did not launch K3")
+    alt = {name: run(name, "host") for name in cases}
+    for i in range(TIMED_RUNS - 1):
         for name in cases:
-            run(name)
-    s.expect(n > 0, "intersection path never launched K3")
+            for w in (("card", "host") if i % 2 else ("host", "card")):
+                run(name, w)
     for name, arrays in cases.items():
         want = arrays[0].astype(np.int64)
         for a in arrays[1:]:
             want = np.intersect1d(want, a)
         s.expect(np.array_equal(results[name], want),
                  f"device_intersect_sorted {name} != np.intersect1d")
-        s.log(f"intersect {name}: {len(want)} ids, host to host "
-              f"{[round(t * 1e3, 3) for t in secs[name]]} ms, median "
-              f"{np.median(secs[name]) * 1e3:.3f} ms")
+        s.expect(np.array_equal(alt[name], want),
+                 f"host compaction {name} != np.intersect1d")
+        for w in ways:
+            t = secs[name, w]
+            s.log(f"intersect {name} (compact on the {w}): {len(want)} ids, "
+                  f"host to host {[round(x * 1e3, 3) for x in t]} ms, "
+                  f"median {np.median(t) * 1e3:.3f} ms")
+    s.log(f"intersect mid&h1: first-row routes {routes}")
     s.profile_later("intersect h1&h2",
                     lambda: device_intersect_sorted(cases["h1&h2"], s.dev),
-                    float(np.median(secs["h1&h2"])) * 1e3, reps=20)
+                    float(np.median(secs["h1&h2", "card"])) * 1e3, reps=20)
     return n
 
 
@@ -1141,49 +1345,159 @@ def phase_pattern(s: Smoke, snap, info) -> None:
           f"the pattern path")
 
 
+#: bytes written between launches for the cold-L2 times (the L2 is 50 MB)
+FLUSH_BYTES = 256 << 20
+#: K3 launches captured in one CUDA graph, graph replays, spaced launches
+GRAPH_LAUNCHES, GRAPH_REPLAYS, SPACED_RUNS = 50, 5, 20
+#: GPU cycles of the spacer before each spaced launch (about 1 ms), so the
+#: host has queued the launch before the device reaches it
+SPACER_CYCLES = 2_000_000
+
+
+def spaced_ms(s: Smoke, fn, flush=None) -> float:
+    """Mean device milliseconds of ``fn`` between a CUDA event pair. Each
+    run follows a spacer kernel, during which the host queues the rest,
+    then a warm-up call of ``fn`` (warm L2) or, given ``flush``, a write of
+    that buffer (which evicts ``fn``'s inputs from the L2); either keeps
+    the card busy up to the timed call."""
+    torch = s.torch
+    pairs = []
+    for r in range(SPACED_RUNS):
+        torch.cuda._sleep(SPACER_CYCLES)
+        if flush is None:
+            fn()
+        else:
+            flush.fill_(r)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / SPACED_RUNS
+
+
+def graph_ms(s: Smoke, fn) -> float:
+    """Device milliseconds a launch of ``fn``: GRAPH_LAUNCHES launches
+    captured in one CUDA graph, replays timed by CUDA events, so the host
+    does not pace them."""
+    torch = s.torch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (GRAPH_REPLAYS * GRAPH_LAUNCHES)
+
+
 def phase_k3_timing(s: Smoke, snap, n_launches: int, records: dict) -> None:
-    """K3 alone at the h1 ∩ h2 shape that ``device_intersect_sorted``
-    gives it, beside its plain version and ``torch.isin``."""
+    """K3 alone on the h1 ∩ h2 arrays as ``device_intersect_sorted`` gives
+    them (ragged, unpadded): its device time (a CUDA graph of launches, and
+    spaced event pairs at warm and cold L2), the wrapper's host time per
+    call (back-to-back calls, what PR 3 and PR 4 reported), its plain
+    version and ``torch.isin`` warm and cold, the data bound of the real
+    bytes and the earlier bound of PR 3's padded shape (at which the padded
+    entry is also held against its plain version)."""
     import math
 
     import numpy as np
 
-    from hypergraphdb_tpu_torch.ops.membership import membership_mask
+    from hypergraphdb_tpu_torch.ops.membership import (
+        membership_mask,
+        membership_mask_ragged,
+    )
     from hypergraphdb_tpu_torch.ops.setops import (
-        SENTINEL,
         _bucket,
         intersect_mask_many,
+        intersect_mask_ragged,
         pad_sorted,
     )
 
     torch = s.torch
     _, rows = hub_rows(snap)
     big, small = rows[0], rows[1]
-    L = _bucket(len(big))
-    b = torch.from_numpy(pad_sorted(small, L)).to(s.dev)
-    o = torch.from_numpy(pad_sorted(big, L)[None]).to(s.dev)
-    got = membership_mask(b, o)
-    want = intersect_mask_many(b, o)
-    lib = torch.isin(b, o[0])
+    b = torch.from_numpy(small.astype(np.int32)).to(s.dev)
+    f = torch.from_numpy(big.astype(np.int32)).to(s.dev)
+    off_host = np.array([0, len(big)], np.int64)
+    off = torch.from_numpy(off_host).to(s.dev)
+
+    def k3():
+        return membership_mask_ragged(b, f, off, offsets_host=off_host)
+
+    def plain():
+        return intersect_mask_ragged(b, f, off_host)
+
+    def lib():
+        return torch.isin(b, f)
+
+    got, want = k3(), plain()
     torch.cuda.synchronize()
     err = int((got.int() - want.int()).abs().max())
     s.expect(err == 0, "K3 != plain at the h1 & h2 shape")
-    s.expect(torch.equal(lib & (b != int(SENTINEL)), got),
-             "torch.isin disagrees with K3 on the real lanes")
-    ms = s.time_ms(lambda: membership_mask(b, o), 50)
-    plain = s.time_ms(lambda: intersect_mask_many(b, o), 10)
-    lib_ms = s.time_ms(lambda: torch.isin(b, o[0]), 10)
-    nbytes = b.numel() * 4 + o.numel() * 4 + b.numel()  # mask: 1 byte each
-    # compares this data needs: one lower-bound search of the real row per
-    # real base element (SENTINEL lanes stop at once)
-    ops = len(small) * (math.ceil(math.log2(L)) + 1)
-    s.log(f"K3 at h1 & h2: Lb {b.numel()} ({len(small)} real), Lo {L} "
-          f"({len(big)} real), {ms:.4f} ms kernel, {plain:.4f} ms plain, "
-          f"{lib_ms:.4f} ms torch.isin")
-    records["kernels"].append(s.record(
+    s.expect(torch.equal(lib(), got), "torch.isin disagrees with K3")
+    L = _bucket(len(big))
+    bp = torch.from_numpy(pad_sorted(small, L)).to(s.dev)
+    op = torch.from_numpy(pad_sorted(big, L)[None]).to(s.dev)
+    got_p = membership_mask(bp, op)
+    s.expect(torch.equal(got_p, intersect_mask_many(bp, op)),
+             "K3 padded != plain at PR 3's h1 & h2 shape")
+    s.expect(torch.equal(got_p[: len(small)], got),
+             "K3 padded and ragged differ at h1 & h2")
+    del bp, op, got_p
+
+    ms = graph_ms(s, k3)
+    host_ms = s.time_ms(k3, 50)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=s.dev)
+    fns = (("k3", k3), ("plain", plain), ("isin", lib), ("none", lambda: 0))
+    warm = {n: spaced_ms(s, fn) for n, fn in fns}
+    cold = {n: spaced_ms(s, fn, flush) for n, fn in fns}
+    plain_ms = s.time_ms(plain, 10)
+    lib_ms = s.time_ms(lib, 10)
+    del flush
+    # the data bound: the base, the offsets, the part of the row between
+    # the base's first and last ids (what the windows cover), the mask
+    window = int(np.searchsorted(big, small[-1], "right")
+                 - np.searchsorted(big, small[0], "left"))
+    nbytes = 4 * len(small) + off.numel() * 8 + 4 * window + len(small)
+    earlier_bytes = 2 * 4 * L + L
+    # compares: a search of one chunk in shared memory per base element
+    ops = len(small) * (math.ceil(math.log2(K3_CHUNK)) + 1)
+    s.log(f"K3 at h1 & h2: Lb {len(small)}, row {len(big)} ({window} in "
+          f"the base's range); device {ms:.5f} ms a launch (CUDA graph of "
+          f"{GRAPH_LAUNCHES}), spaced {warm['k3']:.5f} ms warm / "
+          f"{cold['k3']:.5f} ms cold L2; wrapper host time {host_ms:.5f} ms "
+          f"a call back to back; plain {plain_ms:.4f} ms back to back, "
+          f"spaced {warm['plain']:.4f} warm / {cold['plain']:.4f} cold; "
+          f"torch.isin {lib_ms:.4f} ms back to back, spaced "
+          f"{warm['isin']:.4f} warm / {cold['isin']:.4f} cold; an empty "
+          f"event pair {warm['none']:.5f} / {cold['none']:.5f}; routes "
+          f"{first_row_routes(small, big)}")
+    s.log(f"K3 bounds: data {Smoke.bound_ms(nbytes, 0):.6f} ms ({nbytes} "
+          f"bytes), earlier (PR 3's padded shape) "
+          f"{Smoke.bound_ms(earlier_bytes, 0):.6f} ms ({earlier_bytes} "
+          f"bytes)")
+    rec = s.record(
         "membership", "hypergraphdb_tpu_torch/csrc/membership.cu",
         "hypergraphdb_tpu/ops/pallas_kernels.py:41", n_launches, err, ms,
-        plain, nbytes, ops, library_ms=lib_ms))
+        plain_ms, nbytes, ops, library_ms=lib_ms)
+    rec.update({"host_ms": host_ms, "spaced_warm_ms": warm["k3"],
+                "spaced_cold_ms": cold["k3"],
+                "plain_spaced_warm_ms": warm["plain"],
+                "plain_spaced_cold_ms": cold["plain"],
+                "library_spaced_warm_ms": warm["isin"],
+                "library_spaced_cold_ms": cold["isin"],
+                "empty_pair_ms": warm["none"],
+                "earlier_bound_ms": Smoke.bound_ms(earlier_bytes, 0)})
+    records["kernels"].append(rec)
 
 
 def phase_profiles(s: Smoke) -> None:

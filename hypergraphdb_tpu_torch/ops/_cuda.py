@@ -35,7 +35,7 @@ _ENTRIES = {
                   [_P, _P, _P, _LL, _I, _I, _P, _P, _LL, _I, _I, _P]),
     "fused_hop": ("hg_fused_hop",
                   [_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _I, _I, _P]),
-    "membership": ("hg_membership", [_P, _P, _P, _LL, _I, _LL, _P]),
+    "membership": ("hg_membership", [_P, _P, _P, _P, _LL, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -13,8 +13,9 @@ reference; it is plain PyTorch here.
 
 :func:`device_intersect_sorted` is the planner's large-intersection step.
 On the card every call with more than one array launches K3
-(``ops/membership.py``); on the CPU it runs K3's plain version,
-:func:`intersect_mask_many`. Nothing falls back from the one to the other.
+(``ops/membership.py``) on the arrays at their real lengths; on the CPU it
+runs K3's plain version, :func:`intersect_mask_ragged`. Nothing falls back
+from the one to the other.
 
 Conventions: ids are int32, sorted ascending per row, padded with
 :data:`SENTINEL` (int32 max) so padding stays sorted and never matches.
@@ -22,6 +23,7 @@ Conventions: ids are int32, sorted ascending per row, padded with
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -78,6 +80,18 @@ def intersect_mask_many(base: torch.Tensor, others: torch.Tensor) -> torch.Tenso
     mask = base != int(SENTINEL)
     for other in others:
         mask &= member_mask(other, base)
+    return mask
+
+
+def intersect_mask_ragged(base: torch.Tensor, flat: torch.Tensor,
+                          offsets: np.ndarray) -> torch.Tensor:
+    """base (L,) against the rows ``flat[offsets[j]:offsets[j + 1]]``
+    (``offsets`` on the host): the mask of base elements present in every
+    row. K3's plain version for ragged rows; on the padded form it equals
+    :func:`intersect_mask_many`."""
+    mask = base != int(SENTINEL)
+    for s, e in zip(offsets[:-1], offsets[1:]):
+        mask &= member_mask(flat[int(s) : int(e)], base)
     return mask
 
 
@@ -369,20 +383,39 @@ def and_incident_pattern(snap: CSRSnapshot,
 # ------------------------------------------------------------------ planner step
 
 
-def device_intersect_sorted(arrays: Sequence[np.ndarray],
-                            device: str | torch.device = DEFAULT_DEVICE
-                            ) -> np.ndarray:
-    """n-way intersection of sorted, unique host id arrays on ``device``:
-    the planner's large-intersection step. Returns sorted int64.
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
 
-    Every array pads with SENTINEL to the power-of-two bucket of the
-    longest; the shortest is the base, and K3 (``ops/membership.py``)
-    keeps each base element found in all the others. A single array comes
-    back as it is."""
-    # imported here: membership imports this module for K3's plain version
-    from hypergraphdb_tpu_torch.ops.membership import membership_mask
 
-    dev = resolve_device(device)
+class _PinnedStaging:
+    """One page-locked host buffer that :func:`intersection_mask` stages its
+    arrays in, reused across calls and devices (page-locked memory serves
+    every card) and grown when too small. The event of the last copy out of
+    it is waited on before the buffer is written again, and a lock keeps
+    two threads from filling it at once."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.buf: Optional[torch.Tensor] = None
+        self.copied: Optional[torch.cuda.Event] = None
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        """``nbytes`` of the buffer, free to write; hold :attr:`lock`."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        if self.buf is None or self.buf.numel() < nbytes:
+            grow = 2 * self.buf.numel() if self.buf is not None else 0
+            self.buf = torch.empty(max(nbytes, grow), dtype=torch.uint8,
+                                   pin_memory=True)
+        return self.buf[:nbytes]
+
+
+_STAGING = _PinnedStaging()
+
+
+def _check_sorted_ids(arrays: Sequence[np.ndarray]) -> list[np.ndarray]:
+    """The arrays shortest first, raising unless each is 1-D and strictly
+    ascending in ``[0, SENTINEL)``."""
     arrays = sorted((np.asarray(a) for a in arrays), key=len)
     if not arrays:
         raise ValueError("device_intersect_sorted: no arrays")
@@ -392,12 +425,73 @@ def device_intersect_sorted(arrays: Sequence[np.ndarray],
             raise ValueError("device_intersect_sorted: arrays must be 1-D, "
                              "strictly ascending ids in "
                              f"[0, {int(SENTINEL)})")
+    return arrays
+
+
+def intersection_mask(arrays: Sequence[np.ndarray], dev: torch.device
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on checked arrays, shortest first and at least two: ``(base,
+    mask)`` on ``dev``, ``base`` the first array as int32 and ``mask`` the
+    flags of its elements found in all the others.
+
+    Nothing is padded. The offsets (int64), the base and the other arrays
+    back to back (int32, at their real lengths) are laid out in one host
+    buffer, each part 16-byte aligned; on the card that buffer is
+    page-locked (:data:`_STAGING`) and goes over in one copy, and the
+    kernel reads the ragged rows in place. On the CPU the same layout runs
+    K3's plain ragged version."""
+    # imported here: membership imports this module for K3's plain versions
+    from hypergraphdb_tpu_torch.ops.membership import membership_mask_ragged
+
+    base, rest = arrays[0], arrays[1:]
+    offsets = np.zeros(len(rest) + 1, dtype=np.int64)
+    np.cumsum([len(a) for a in rest], out=offsets[1:])
+    at_base = _align16(offsets.nbytes)
+    at_flat = _align16(at_base + 4 * len(base))
+    nbytes = at_flat + 4 * int(offsets[-1])
+
+    def fill(host: torch.Tensor) -> None:
+        h = host.numpy()
+        h[: offsets.nbytes].view(np.int64)[:] = offsets
+        h[at_base : at_base + 4 * len(base)].view(np.int32)[:] = base
+        for a, s in zip(rest, offsets):
+            at = at_flat + 4 * int(s)
+            h[at : at + 4 * len(a)].view(np.int32)[:] = a
+
+    if dev.type == "cuda":
+        with _STAGING.lock:
+            host = _STAGING.take(nbytes)
+            fill(host)
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            buf.copy_(host, non_blocking=True)
+            _STAGING.copied = torch.cuda.Event()
+            _STAGING.copied.record(torch.cuda.current_stream(dev))
+    else:
+        buf = torch.empty(nbytes, dtype=torch.uint8)
+        fill(buf)
+    base_t = buf[at_base : at_base + 4 * len(base)].view(torch.int32)
+    mask = membership_mask_ragged(
+        base_t, buf[at_flat:].view(torch.int32),
+        buf[: offsets.nbytes].view(torch.int64), offsets_host=offsets)
+    return base_t, mask
+
+
+def device_intersect_sorted(arrays: Sequence[np.ndarray],
+                            device: str | torch.device = DEFAULT_DEVICE
+                            ) -> np.ndarray:
+    """n-way intersection of sorted, unique host id arrays on ``device``:
+    the planner's large-intersection step. Returns sorted int64.
+
+    The shortest array is the base; K3 (``ops/membership.py``) keeps each
+    base element found in all the others, read at their real lengths
+    (:func:`intersection_mask`). The survivors are selected where the mask
+    is and only they come back: on the card that beat fetching the mask
+    and indexing the base on the host at the planner's hub intersections
+    (``PERF.md``). A single array comes back as it is."""
+    dev = resolve_device(device)
+    arrays = _check_sorted_ids(arrays)
     base = arrays[0]
     if len(base) == 0 or len(arrays) == 1:
         return base.astype(np.int64)
-    L = _bucket(len(arrays[-1]))
-    base_p = pad_sorted(base, L)
-    others = np.stack([pad_sorted(a, L) for a in arrays[1:]])
-    mask = membership_mask(torch.from_numpy(base_p).to(dev),
-                           torch.from_numpy(others).to(dev))
-    return base_p[mask.cpu().numpy()].astype(np.int64)
+    base_t, mask = intersection_mask(arrays, dev)
+    return base_t[mask].cpu().numpy().astype(np.int64)

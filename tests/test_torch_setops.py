@@ -276,7 +276,21 @@ def test_and_incident_pattern_matches_reference_and_host(dbp, typed):
 # ------------------------------------------------------------------ intersection
 
 
-@pytest.mark.parametrize("which", ["h1h2", "h1h2h3", "h1type", "disjoint"])
+def partner(snap, hub, ratio):
+    """The atom that shares a link with ``hub`` whose incidence row is
+    nearest ``ratio`` times as long as the hub's: the skewed intersection."""
+    links = snap.incidence_row(int(hub))
+    targets = np.unique(np.concatenate([
+        snap.tgt_flat[snap.tgt_offsets[l] : snap.tgt_offsets[l + 1]]
+        for l in links]))
+    targets = targets[targets != hub]
+    deg = snap.inc_offsets[targets + 1] - snap.inc_offsets[targets]
+    want = ratio * len(links)
+    return int(targets[np.argmin(np.abs(deg - want))])
+
+
+@pytest.mark.parametrize("which", ["h1h2", "h1h2h3", "h1type", "disjoint",
+                                   "skew"])
 def test_device_intersect_sorted_matches_reference(dbp, which):
     ref, port, _, th = dbp
     h = hubs(port, 3)
@@ -286,6 +300,7 @@ def test_device_intersect_sorted_matches_reference(dbp, which):
         "h1h2h3": rows,
         "h1type": [rows[0], port.type_set(th).astype(np.int64)],
         "disjoint": [rows[0], np.arange(3)],
+        "skew": [port.incidence_row(partner(port, h[0], 0.02)), rows[0]],
     }[which]
     got = setops.device_intersect_sorted(arrays, device="cpu")
     want = S.device_intersect_sorted(arrays)
@@ -295,7 +310,7 @@ def test_device_intersect_sorted_matches_reference(dbp, which):
     assert got.dtype == np.int64
     assert np.array_equal(got, want)
     assert np.array_equal(got, folded)
-    if which in ("h1h2", "h1type"):
+    if which in ("h1h2", "h1type", "skew"):
         assert len(got) > 0
 
 
@@ -307,3 +322,44 @@ def test_device_intersect_sorted_short_cases():
     assert got.dtype == np.int64 and got.size == 0
     with pytest.raises(ValueError):
         setops.device_intersect_sorted([], device="cpu")
+
+
+@pytest.mark.parametrize("lens", [(), (300,), (1, 700, 40), (0, 90)])
+def test_intersect_mask_ragged_equals_padded_form(lens):
+    """K3's ragged plain version equals :func:`intersect_mask_many` on the
+    same rows SENTINEL-padded to one length."""
+    r = np.random.default_rng(len(lens))
+    base = pad_sorted(np.unique(r.integers(0, 900, 400)).astype(np.int32), 512)
+    rows = [np.unique(r.integers(0, 900, n)).astype(np.int32)[:n]
+            for n in lens]
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(x) for x in rows], out=offsets[1:])
+    flat = np.concatenate(rows + [np.zeros(0, np.int32)]).astype(np.int32)
+    padded = (np.stack([pad_sorted(x, 1024) for x in rows]) if rows
+              else np.zeros((0, 1024), np.int32))
+    want = setops.intersect_mask_many(torch.from_numpy(base),
+                                      torch.from_numpy(padded))
+    got = setops.intersect_mask_ragged(torch.from_numpy(base),
+                                       torch.from_numpy(flat), offsets)
+    assert torch.equal(got, want)
+
+
+def test_intersection_mask_lays_out_odd_lengths():
+    """The staging layout (offsets, base and rows each 16-byte aligned)
+    keeps every array whole at odd lengths; the mask equals the fold of
+    ``np.isin``."""
+    r = np.random.default_rng(8)
+    arrays = [np.unique(r.integers(0, 400, n)).astype(np.int64)
+              for n in (13, 101, 57)]
+    arrays.sort(key=len)
+    base_t, mask = setops.intersection_mask(arrays, torch.device("cpu"))
+    assert base_t.dtype == torch.int32
+    assert base_t.numpy().tolist() == arrays[0].tolist()
+    want = np.isin(arrays[0], arrays[1]) & np.isin(arrays[0], arrays[2])
+    assert mask.numpy().tolist() == want.tolist()
+
+
+def test_device_intersect_sorted_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="1-D"):
+        setops.device_intersect_sorted([np.zeros((2, 2), np.int64),
+                                        np.arange(4)], device="cpu")
