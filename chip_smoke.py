@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py            # every phase (about two minutes)
+    python3 chip_smoke.py            # every phase (a few minutes)
     python3 chip_smoke.py --quick    # build + kernel checks only
 
 Phases, each of which raises (and the script exits non-zero) on a mismatch:
@@ -36,7 +36,7 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
    (two in each 128-byte line of a bitmap row) must equal a numpy host
    BFS, and both kernels must have launched.
 5. Served path: 5 requests padded to the 64-seed bucket, checked against
-   the main path's result.
+   the main path's result and the host BFS, timed over 10 warm calls.
 6. The main path once more under a mask audit (the mask entering every hop,
    fused and staged, equal to ``line_mask`` of its bitmap), keeping the
    bitmap and mask entering each hop: K2 timed at each hop's input and K1
@@ -72,9 +72,26 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
    back, the figure PR 3 and PR 4 reported), the plain version and
    ``torch.isin`` warm and cold, the data bound of the real bytes and the
    earlier bound of the padded shape.
-10. The device's busy share of the main path (fused and staged), the
-    h1 ∩ h2 intersection and the pattern windows, from ``torch.profiler``,
-    after every timed phase.
+10. BFS served over a base snapshot plus a delta: the snapshot with its
+    last :data:`DELTA_LINKS` links held back (their rows stay in the id
+    space, empty), and those links fed in id order to a ``DeltaMemtable``
+    (one full upload, then a tail upload). The fused route with the
+    delta's overlay (K2 every hop, K1 every overlay level) must equal the
+    whole graph served at the 5-request, 64- and 1024-lane batches, pad
+    lanes included, and the host BFS; the dense route with tombstones (h1,
+    base links, held-back links; a dead-only refresh) must equal a host BFS
+    that drops dead links and atoms, h1's lane counting 0; without
+    tombstones the dense route equals the fused one; a 10,000-link delta
+    is checked the same way. A 1-hop freshness batch reaches every
+    held-back partner with the overlay and none without. Overlay BFSs at
+    64 and 1024 lanes run under the mask audit; K1 is held against its
+    plain version at every overlay level and K2 at the 64-lane hop. Each
+    served route is timed over 10 warm calls, the overlay's share by CUDA
+    events, K1's launches per served batch counted, and the dense route's
+    peak device memory at 1024 lanes read.
+11. The device's busy share of the main path (fused and staged), the
+    h1 ∩ h2 intersection, the pattern windows and the two served delta
+    routes, from ``torch.profiler``, after every timed phase.
 
 Every log line carries the card's name and power limit. The last lines are
 the card line, one JSON line of kernel records and the result
@@ -100,12 +117,15 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
 N_SEEDS, HOPS = 4096, 3
-#: seed lanes checked against the host BFS: two in each 128-byte line of a
-#: 4096-seed bitmap row (lane k lies in line k // 1024)
-HOST_LANES = (0, 1, 1100, 1500, 2200, 2600, 3300, 4095)
+#: seed lanes checked against the host BFS: the served requests' lanes
+#: 0..4, and two in each 128-byte line of a 4096-seed bitmap row (lane k
+#: lies in line k // 1024)
+HOST_LANES = (0, 1, 2, 3, 4, 1100, 1500, 2200, 2600, 3300, 4095)
 #: timed runs of each path (fused and staged alternate)
 TIMED_RUNS = 5
 SERVE_SEEDS, SERVE_TOP_R = 5, 16
+#: warm calls of each served route timed host to host (median and spread)
+SERVE_RUNS = 10
 
 #: K3 check cases (Lb, M, Lo, values up to INT32_MAX - 1, an all-SENTINEL
 #: other row): ragged real lengths under SENTINEL padding
@@ -751,7 +771,42 @@ def launches() -> dict:
             "membership": membership_mask.launches}
 
 
-def phase_main(s: Smoke, snap, info, records: dict) -> None:
+def served_ms(s: Smoke, fn, runs: int = SERVE_RUNS) -> list:
+    """Host-to-host milliseconds of ``runs`` warm calls of ``fn`` (after
+    one warm-up), each ending in a synchronise."""
+    torch = s.torch
+    fn()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def spread(ms: list) -> str:
+    import numpy as np
+
+    return (f"median {float(np.median(ms)):.3f} ms (min {min(ms):.3f}, max "
+            f"{max(ms):.3f}, {len(ms)} warm calls)")
+
+
+def window(ids, top_r: int = SERVE_TOP_R):
+    """The served ``first_r`` row of a sorted reach set: its ``top_r``
+    smallest ids, SENTINEL-padded."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops import fused_bfs
+
+    want = np.full(top_r, int(fused_bfs.SENTINEL), np.int64)
+    head = np.asarray(ids[:top_r], dtype=np.int64)
+    want[: len(head)] = head
+    return want
+
+
+def phase_main(s: Smoke, snap, info, records: dict) -> dict:
     import numpy as np
 
     from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs
@@ -842,22 +897,25 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
     s.log(f"host BFS: seed lanes {HOST_LANES} agree (reach sizes "
           f"{[int(reach[k]) for k in HOST_LANES]})")
 
-    # served path: a few requests padded to the 64-seed bucket
+    # served path: a few requests padded to the 64-seed bucket; the first
+    # call alone is what earlier versions of this script timed
     t0 = time.perf_counter()
     counts, first_r = serve_bfs(snap, seeds[:SERVE_SEEDS], HOPS, SERVE_TOP_R,
                                 device=s.dev)
-    serve_s = time.perf_counter() - t0
-    sentinel = int(fused_bfs.SENTINEL)
-    rows = ellbfs.visited_rows(res_f, N, lanes=range(SERVE_SEEDS))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    truth = dict(zip(HOST_LANES, host_results))
     for k in range(SERVE_SEEDS):
-        s.expect(int(counts[k]) == int(reach[k]), f"served count lane {k}")
-        want = np.full(SERVE_TOP_R, sentinel, np.int64)
-        head = rows[k][:SERVE_TOP_R]
-        want[: len(head)] = head
-        s.expect(np.array_equal(first_r[k].astype(np.int64), want),
+        s.expect(int(counts[k]) == int(reach[k]) == len(truth[k][0]),
+                 f"served count lane {k}")
+        s.expect(np.array_equal(first_r[k].astype(np.int64),
+                                window(truth[k][0])),
                  f"served first_r lane {k}")
+    serve_ms = served_ms(s, lambda: serve_bfs(
+        snap, seeds[:SERVE_SEEDS], HOPS, SERVE_TOP_R, device=s.dev))
     s.log(f"served: {SERVE_SEEDS} requests in the 64 bucket, top_r "
-          f"{SERVE_TOP_R}, {serve_s * 1e3:.1f} ms, match the main path")
+          f"{SERVE_TOP_R}, match the main path and the host BFS; first "
+          f"call {first_ms:.1f} ms; {spread(serve_ms)}, runs "
+          f"{[round(t, 1) for t in serve_ms]}")
 
     # kernel timing at the main path's shapes (final visited bitmap as data)
     visited = res_s.visited_t
@@ -922,6 +980,7 @@ def phase_main(s: Smoke, snap, info, records: dict) -> None:
     ]
     for rec in records["kernels"][-2:]:
         rec.update(per_hop[rec["name"]])
+    return {"seeds": seeds, "host": truth}
 
 
 def k3_case(rng, lb: int, m: int, lo: int, near_max: bool, empty_row: bool):
@@ -1500,6 +1559,511 @@ def phase_k3_timing(s: Smoke, snap, n_launches: int, records: dict) -> None:
     records["kernels"].append(rec)
 
 
+#: links held back from the base snapshot, fed to the memtable in id order:
+#: the delta (about 3.6M incidence entries, bucket 2^22), under 0.1 × the
+#: base's edges (bench.py c5's compact_ratio)
+DELTA_LINKS = 600_000
+#: the memtables' bucket floor and the small delta's links: bench.py c5's
+#: delta_bucket_min and one c5 ingest batch
+DELTA_BUCKET_MIN, SMALL_DELTA_LINKS = 1 << 18, 10_000
+#: held-back links fed after the delta's full upload: its tail upload
+TAIL_LINKS = 10_000
+#: tombstones of the dense route: h1, this many base links and held-back
+#: links drawn by default_rng(DEAD_SEED)
+DEAD_BASE_LINKS, DEAD_HELD_LINKS, DEAD_SEED = 1_000, 100, 11
+#: the lane of the dense batches seeded at h1, and the host-checked lanes
+H1_LANE = 5
+#: lanes of the 1-hop freshness probe
+FRESH_LANES, FRESH_SEED = 64, 5
+#: the larger served bucket of the delta phase
+BIG_BUCKET = 1024
+
+
+def split_snapshot(snap, n_held: int):
+    """``(base, records)``: ``snap`` with its last ``n_held`` links held
+    back, their rows left in the id space with type -1, no link flag and
+    arity 0 (what a pack with capacity headroom holds), and the held-back
+    links as ``(handle, targets)`` records in id order."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
+
+    N = snap.num_atoms
+    off = snap.tgt_offsets[: N + 1].astype(np.int64)
+    flat = snap.tgt_flat[: snap.n_edges_tgt]
+    held = np.flatnonzero(snap.is_link[:N])[-n_held:]
+    is_held = np.zeros(N, dtype=bool)
+    is_held[held] = True
+    lens = np.diff(off)
+    base_off = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum(np.where(is_held, 0, lens), out=base_off[1:])
+    keep = ~np.repeat(is_held, lens)
+    type_of = np.where(is_held, -1, snap.type_of[:N]).astype(np.int32)
+    base = CSRSnapshot.from_tables(type_of, snap.is_link[:N] & ~is_held,
+                                   base_off, flat[keep])
+    return base, [(int(h), flat[off[h] : off[h + 1]]) for h in held]
+
+
+def delta_csr(memtable, n1: int):
+    """A memtable's entries as host CSRs: ``(inc_off, inc_links, tgt_off,
+    tgt_flat)``, incidence rows by atom and target rows by link."""
+    import numpy as np
+
+    hd = memtable.host_delta()
+    out = []
+    for row, col in (("inc_src", "inc_links"), ("tgt_src", "tgt_flat")):
+        order = np.argsort(hd[row], kind="stable")
+        off = np.zeros(n1 + 1, dtype=np.int64)
+        np.cumsum(np.bincount(hd[row], minlength=n1), out=off[1:])
+        out += [off, hd[col][order]]
+    return tuple(out)
+
+
+def host_bfs_delta(base, dcsr, dead, seed: int, max_hops: int):
+    """Sorted ids one seed reaches over base ∪ delta (``dcsr`` from
+    :func:`delta_csr`) within ``max_hops``, where dead links emit nothing
+    and dead atoms are never reached (a dead seed reaches nothing): the
+    dense route's semantics, one seed at a time on the host."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.host_bfs import gather_ragged
+
+    N = base.num_atoms
+    if dead[seed]:
+        return np.empty(0, dtype=np.int64)
+    d_inc_off, d_inc, d_tgt_off, d_tgt = dcsr
+    inc_off = base.inc_offsets.astype(np.int64)
+    tgt_off = base.tgt_offsets.astype(np.int64)
+
+    def rows(flat, off, ids):
+        return gather_ragged(flat, off[ids], off[ids + 1] - off[ids])
+
+    visited = np.zeros(N + 1, dtype=bool)
+    visited[seed] = True
+    frontier = np.asarray([seed], dtype=np.int64)
+    for _ in range(max_hops):
+        hit = np.zeros(N + 1, dtype=bool)
+        hit[rows(base.inc_links, inc_off, frontier)] = True
+        hit[rows(d_inc, d_inc_off, frontier)] = True
+        links = np.flatnonzero(hit & ~dead)
+        hit = np.zeros(N + 1, dtype=bool)
+        hit[rows(base.tgt_flat, tgt_off, links)] = True
+        hit[rows(d_tgt, d_tgt_off, links)] = True
+        hit[N] = False
+        frontier = np.flatnonzero(hit & ~dead & ~visited)
+        visited[frontier] = True
+        if not len(frontier):
+            break
+    return np.flatnonzero(visited[:N])
+
+
+def fresh_pairs(base, records, n: int):
+    """``n`` pairs (a, b) of distinct targets of distinct held-back links,
+    ``a`` not repeated, that share no base link (checked on the host): a
+    1-hop BFS from ``a`` reaches ``b`` only through the delta."""
+    import numpy as np
+
+    rng = np.random.default_rng(FRESH_SEED)
+    pairs, used = [], set()
+    for i in rng.permutation(len(records)):
+        ts = np.unique(records[i][1])
+        if len(ts) < 2:
+            continue
+        a, b = int(ts[-1]), int(ts[-2])
+        if a in used or np.intersect1d(base.incidence_row(a),
+                                       base.incidence_row(b)).size:
+            continue
+        used.add(a)
+        pairs.append((a, b))
+        if len(pairs) == n:
+            return pairs
+    raise AssertionError(f"only {len(pairs)} freshness pairs found")
+
+
+def lane_bits(torch, visited, rows, lanes):
+    """Bit of lane ``lanes[i]`` in row ``rows[i]`` of a packed bitmap."""
+    rows = torch.as_tensor(rows, device=visited.device, dtype=torch.int64)
+    lanes = torch.as_tensor(lanes, device=visited.device, dtype=torch.int64)
+    return ((visited[rows, lanes >> 5] >> (lanes & 31).to(torch.int32)) & 1
+            ).bool()
+
+
+def overlay_check(s: Smoke, visited, vmask, overlay) -> dict:
+    """K1 through both pyramids of ``overlay`` from a BFS bitmap and its
+    mask, every level held bit for bit against the plain version and every
+    emitted mask against ``line_mask``; then each level's K1 launch timed
+    (CUDA events, into its own section, which holds the result), the whole
+    overlay share (``_overlay_reach``, events) and the plain share, beside
+    the bound of the levels' bytes (each used source row and index read
+    once, each output row written once)."""
+    from hypergraphdb_tpu_torch.ops import fused_bfs, linemask
+    from hypergraphdb_tpu_torch.ops.gather_or import gather_or, gather_or_plain
+
+    torch = s.torch
+    kw = visited.shape[1]
+    bufs = fused_bfs._overlay_buffers(overlay, kw, s.dev)
+    buf1, mask1, buf2, mask2 = bufs
+    reach = fused_bfs._overlay_reach(visited, vmask, overlay, bufs)
+    ov = overlay.arrays
+    plain = [torch.zeros_like(buf1), torch.zeros_like(buf2)]
+
+    def plain_reach():
+        """Both pyramids by the plain version, as ``_apply_plan`` runs
+        them: level 0 reads the stage's input, later levels its buffer."""
+        src = visited
+        for levels, widths, out in ((ov.levels1, overlay.widths1, plain[0]),
+                                    (ov.levels2, overlay.widths2, plain[1])):
+            off = 0
+            for idx, w in zip(levels, widths):
+                n = idx.shape[0] // w
+                gather_or_plain(src, idx, w, out=out[off : off + n])
+                off += n
+                src = out
+        return plain[1][ov.out_map]
+
+    plain_reach()
+    torch.cuda.synchronize()
+    s.expect(torch.equal(buf1, plain[0]) and torch.equal(buf2, plain[1]),
+             f"overlay K1 != plain at kw={kw}")
+    s.expect(torch.equal(mask1, linemask.line_mask(buf1))
+             and torch.equal(mask2, linemask.line_mask(buf2)),
+             f"overlay K1 emitted masks != line_mask at kw={kw}")
+    s.expect(torch.equal(reach, plain[1][ov.out_map]),
+             f"overlay rows != plain at kw={kw}")
+    level_ms, nbytes, ops = [], 0, 0
+    stages = ((visited, vmask, ov.levels1, overlay.widths1, buf1, mask1),
+              (buf1, mask1, ov.levels2, overlay.widths2, buf2, mask2))
+    for src, smask, levels, widths, buf, bmask in stages:
+        off = 0
+        for idx, w in zip(levels, widths):
+            n = idx.shape[0] // w
+            level_ms.append(s.time_ms(
+                lambda src=src, smask=smask, idx=idx, w=w, buf=buf,
+                bmask=bmask, off=off, n=n: gather_or(
+                    src, idx, w, out=buf[off : off + n], mask=smask,
+                    out_mask=bmask, mask_row0=off), 10))
+            nbytes += (int(torch.unique(idx).numel()) + n) * kw * 4 \
+                + idx.numel() * 4
+            ops += idx.numel() * kw
+            off += n
+            src, smask = buf, bmask
+    reach_ms = s.time_ms(
+        lambda: fused_bfs._overlay_reach(visited, vmask, overlay, bufs), 10)
+    plain_ms = s.time_ms(plain_reach, 3)
+    return {"kw": kw, "levels": len(level_ms), "level_ms": level_ms,
+            "k1_ms": sum(level_ms), "reach_ms": reach_ms,
+            "plain_reach_ms": plain_ms, "bound_ms": s.bound_ms(nbytes, ops),
+            "bytes": nbytes, "rows1": ov.rows1, "rows2": ov.rows2,
+            "atoms": int(ov.rows.numel())}
+
+
+def phase_delta(s: Smoke, full, info, truth: dict, records: dict) -> None:
+    """BFS served over a base snapshot plus a delta, by both routes."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops import fused_bfs, linemask
+    from hypergraphdb_tpu_torch.ops.incremental import DeltaMemtable
+    from hypergraphdb_tpu_torch.ops.serving import (
+        bfs_serve_batch,
+        bfs_serve_batch_fused,
+        serve_bfs,
+    )
+
+    torch = s.torch
+    N = full.num_atoms
+    seeds, host_full = truth["seeds"], truth["host"]
+    sentinel = int(fused_bfs.SENTINEL)
+
+    t0 = time.perf_counter()
+    base, held = split_snapshot(full, DELTA_LINKS)
+    t_base = time.perf_counter() - t0
+    s.log(f"delta: base snapshot with the last {DELTA_LINKS} links held back "
+          f"({base.n_edges_tgt} target / {base.n_edges_inc} incidence "
+          f"entries, {full.n_edges_tgt - base.n_edges_tgt} held back) in "
+          f"{t_base:.2f} s")
+
+    big = DeltaMemtable(N, bucket_min=DELTA_BUCKET_MIN, device=s.dev)
+    for h, ts in held[:-TAIL_LINKS]:
+        big.add_link(h, ts)
+    t0 = time.perf_counter()
+    big.device()
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    for h, ts in held[-TAIL_LINKS:]:
+        big.add_link(h, ts)
+    t0 = time.perf_counter()
+    delta = big.device()
+    torch.cuda.synchronize()
+    t_tail = time.perf_counter() - t0
+    s.expect((big.full_uploads, big.tail_uploads) == (1, 1),
+             f"memtable uploads {big.full_uploads}/{big.tail_uploads}, "
+             f"want one full and one tail")
+    small = DeltaMemtable(N, bucket_min=DELTA_BUCKET_MIN, device=s.dev)
+    for h, ts in held[:SMALL_DELTA_LINKS]:
+        small.add_link(h, ts)
+    small_delta = small.device()
+    s.log(f"delta: memtable of {DELTA_LINKS} links, {big.delta_edges} "
+          f"entries a relation, bucket {delta.inc_links.shape[0]}: full "
+          f"upload {t_full:.3f} s, tail of {TAIL_LINKS} links "
+          f"{t_tail:.3f} s; small delta {SMALL_DELTA_LINKS} links, "
+          f"{small.delta_edges} entries, bucket "
+          f"{small_delta.inc_links.shape[0]}")
+
+    # tombstones: h1, base links and held-back links (dead-only refresh)
+    h1 = hub_rows(full)[0][0]
+    rng = np.random.default_rng(DEAD_SEED)
+    l0 = info["links"][0]
+    held_ids = np.asarray([h for h, _ in held])
+    dead_ids = np.concatenate([
+        [h1], rng.choice(np.arange(l0, int(held_ids[0])), DEAD_BASE_LINKS,
+                         replace=False),
+        rng.choice(held_ids, DEAD_HELD_LINKS, replace=False)])
+    for h in dead_ids:
+        big.remove(int(h))
+    dead_delta = big.device()
+    s.expect(dead_delta.inc_links is delta.inc_links
+             and (big.full_uploads, big.tail_uploads) == (1, 1),
+             "a dead-only refresh re-uploaded the edge buffers")
+    dead = np.zeros(N + 1, dtype=bool)
+    dead[dead_ids] = True
+
+    dense_seeds = seeds[:BIG_BUCKET].copy()
+    dense_seeds[H1_LANE] = h1
+    host_lanes = range(H1_LANE + 1)
+    pool = ThreadPoolExecutor(max_workers=4)
+    csr_big, csr_small = delta_csr(big, N + 1), delta_csr(small, N + 1)
+    no_dead = np.zeros(N + 1, dtype=bool)
+    host_dead = {k: pool.submit(host_bfs_delta, base, csr_big, dead,
+                                int(dense_seeds[k]), HOPS)
+                 for k in host_lanes}
+    host_small = {k: pool.submit(host_bfs_delta, base, csr_small, no_dead,
+                                 int(seeds[k]), HOPS)
+                  for k in range(SERVE_SEEDS)}
+
+    t0 = time.perf_counter()
+    fused_bfs.fused_plans_for(base)
+    t_plan = time.perf_counter() - t0
+    plan, geom = fused_bfs.device_fused_plan(base, s.dev)
+    t0 = time.perf_counter()
+    overlay = fused_bfs.overlay_plan_for(delta, base, geom)
+    t_ov = time.perf_counter() - t0
+    ov = overlay.arrays
+    s.log(f"delta: base fused plan {t_plan:.2f} s ({geom.n_chunks} chunks); "
+          f"overlay plan {t_ov:.2f} s ({ov.rows.numel()} atoms gain edges, "
+          f"{len(ov.levels1)} + {len(ov.levels2)} levels, widths "
+          f"{overlay.widths1} / {overlay.widths2}, buffers {ov.rows1} + "
+          f"{ov.rows2} rows)")
+    fplan, fgeom = fused_bfs.device_fused_plan(full, s.dev)
+
+    # the fused route with the overlay against the whole graph
+    batches = {"5": seeds[:SERVE_SEEDS], "64": seeds[:64],
+               str(BIG_BUCKET): seeds[:BIG_BUCKET]}
+    want = {k: serve_bfs(full, x, HOPS, SERVE_TOP_R, device=s.dev)
+            for k, x in batches.items()}
+    reset_launches()
+    serve_bfs.routes.update(fused=0, dense=0)
+    got = {k: serve_bfs(base, x, HOPS, SERVE_TOP_R, delta=delta,
+                        device=s.dev) for k, x in batches.items()}
+    s.expect(serve_bfs.routes == {"fused": 3, "dense": 0},
+             f"overlay batches took routes {serve_bfs.routes}")
+    for k in batches:
+        s.expect(np.array_equal(got[k][0], want[k][0])
+                 and np.array_equal(got[k][1], want[k][1]),
+                 f"fused route with the overlay != the whole graph, {k}")
+    for k in range(SERVE_SEEDS):
+        ids = host_full[k][0]
+        s.expect(int(got["5"][0][k]) == len(ids)
+                 and np.array_equal(got["5"][1][k].astype(np.int64),
+                                    window(ids)),
+                 f"fused route with the overlay != host BFS, lane {k}")
+    # pad lanes included: the 5 requests' 64-lane batch, three ways
+    padded = np.full(64, N, np.int32)
+    padded[:SERVE_SEEDS] = seeds[:SERVE_SEEDS]
+    pt = torch.from_numpy(padded).to(s.dev)
+    a = bfs_serve_batch_fused(plan, pt, geom, HOPS, SERVE_TOP_R,
+                              overlay=overlay)
+    b = bfs_serve_batch_fused(fplan, pt, fgeom, HOPS, SERVE_TOP_R)
+    c = bfs_serve_batch(base.device(s.dev), delta, pt, HOPS, SERVE_TOP_R)
+    s.expect(all(torch.equal(x, y) and torch.equal(x, z)
+                 for x, y, z in zip(a, b, c)),
+             "64-lane batch with pad lanes: overlay, whole graph and dense "
+             "differ")
+    # the dense route with no dead set equals the fused route
+    for k in ("64", str(BIG_BUCKET)):
+        x = torch.from_numpy(batches[k]).to(s.dev)
+        dc, df = bfs_serve_batch(base.device(s.dev), delta, x, HOPS,
+                                 SERVE_TOP_R)
+        s.expect(np.array_equal(dc.cpu().numpy(), got[k][0])
+                 and np.array_equal(df.cpu().numpy(), got[k][1]),
+                 f"dense route without tombstones != fused route, {k}")
+    s.log(f"delta: fused route with the overlay == whole graph at 5 "
+          f"requests, 64 and {BIG_BUCKET} lanes, lanes 0..4 == host BFS; "
+          f"64-lane batch with 59 pad lanes == whole graph == dense; dense "
+          f"without tombstones == fused at 64 and {BIG_BUCKET}")
+
+    # the dense route with tombstones against the host truth
+    serve_bfs.routes.update(fused=0, dense=0)
+    c64, f64 = serve_bfs(base, dense_seeds[:64], HOPS, SERVE_TOP_R,
+                         delta=dead_delta, device=s.dev)
+    cbig, fbig = serve_bfs(base, dense_seeds, HOPS, SERVE_TOP_R,
+                           delta=dead_delta, device=s.dev)
+    s.expect(serve_bfs.routes == {"fused": 0, "dense": 2},
+             f"tombstoned batches took routes {serve_bfs.routes}")
+    s.expect(np.array_equal(c64, cbig[:64]) and np.array_equal(f64, fbig[:64]),
+             "dense route: the 64 bucket != the 1024 bucket's first lanes")
+    s.expect(int(c64[H1_LANE]) == 0 and (f64[H1_LANE] == sentinel).all(),
+             "the lane seeded at h1 reached something")
+    for k in host_lanes:
+        ids = host_dead[k].result()
+        s.expect(int(c64[k]) == len(ids)
+                 and np.array_equal(f64[k].astype(np.int64), window(ids)),
+                 f"dense route with tombstones != host BFS, lane {k}")
+    s.log(f"delta: dense route with {len(dead_ids)} tombstones (h1 = {h1}) "
+          f"== host BFS at lanes {list(host_lanes)} (reach "
+          f"{[int(c64[k]) for k in host_lanes]}; h1's lane 0), 64 == first "
+          f"64 of {BIG_BUCKET}")
+
+    # the small delta: fused with its overlay == dense == host BFS
+    serve_bfs.routes.update(fused=0, dense=0)
+    cs, fs = serve_bfs(base, seeds[:64], HOPS, SERVE_TOP_R,
+                       delta=small_delta, device=s.dev)
+    s.expect(serve_bfs.routes == {"fused": 1, "dense": 0},
+             "small delta left the fused route")
+    dc, df = bfs_serve_batch(base.device(s.dev), small_delta,
+                             torch.from_numpy(seeds[:64]).to(s.dev), HOPS,
+                             SERVE_TOP_R)
+    s.expect(np.array_equal(dc.cpu().numpy(), cs)
+             and np.array_equal(df.cpu().numpy(), fs),
+             "small delta: fused with the overlay != dense")
+    for k in range(SERVE_SEEDS):
+        ids = host_small[k].result()
+        s.expect(int(cs[k]) == len(ids)
+                 and np.array_equal(fs[k].astype(np.int64), window(ids)),
+                 f"small delta != host BFS, lane {k}")
+    pool.shutdown()
+    n_launch = launches()
+    s.expect(n_launch["gather_or"] > 0 and n_launch["fused_hop"] > 0,
+             f"the delta path never launched K1 and K2: {n_launch}")
+    s.log(f"delta: small delta fused == dense == host BFS at lanes 0..4; "
+          f"launches on the delta path: {n_launch}")
+
+    # freshness: 1 hop from one end of a held-back link reaches the other
+    pairs = fresh_pairs(base, held, FRESH_LANES)
+    fa = torch.tensor([p[0] for p in pairs], dtype=torch.int32, device=s.dev)
+    lanes = list(range(FRESH_LANES))
+    vis, _, _ = fused_bfs.bfs_fused(plan, fa, geom, 1, False, False,
+                                    overlay=overlay)
+    s.expect(bool(lane_bits(torch, vis, [p[1] for p in pairs], lanes).all()),
+             "freshness: a held-back partner was not reached in 1 hop")
+    vis, _, _ = fused_bfs.bfs_fused(plan, fa, geom, 1, False, False)
+    s.expect(not bool(lane_bits(torch, vis, [p[1] for p in pairs],
+                                lanes).any()),
+             "freshness: a partner was reached without the overlay")
+    s.log(f"delta: freshness, {FRESH_LANES} 1-hop lanes each reach their "
+          f"held-back partner with the overlay and none without")
+
+    # mask audit of overlay BFSs; keep the bitmaps entering hop 1
+    kept = {}
+    for k in (64, BIG_BUCKET):
+        def hook(h, visited, mask, k=k):
+            s.expect(torch.equal(mask, linemask.line_mask(visited)),
+                     f"overlay BFS at {k} lanes: mask entering hop {h} != "
+                     f"line_mask")
+            if h == 1:
+                kept[k] = (visited.clone(), mask.clone())
+
+        fused_bfs.bfs_fused(plan, torch.from_numpy(seeds[:k]).to(s.dev),
+                            geom, HOPS, False, False, hop_hook=hook,
+                            overlay=overlay)
+    s.log(f"delta: mask audit, overlay BFS at 64 and {BIG_BUCKET} lanes: "
+          f"every mask entering a hop (and the last) == line_mask")
+
+    # K1 at the overlay's shapes, K2 at the 64-lane hop
+    ov_stats = {k: overlay_check(s, *kept[k], overlay) for k in kept}
+    for k, st in ov_stats.items():
+        s.log(f"delta: overlay K1 at {k} lanes (kw {st['kw']}): bit-exact "
+              f"with plain over {st['levels']} levels ({st['rows1']} + "
+              f"{st['rows2']} buffer rows, {st['atoms']} atoms); K1 "
+              f"{st['k1_ms']:.4f} ms a hop (levels "
+              f"{[round(t, 4) for t in st['level_ms']]}), overlay share "
+              f"{st['reach_ms']:.4f} ms, plain {st['plain_reach_ms']:.4f} "
+              f"ms, bound {st['bound_ms']:.4f} ms ({st['bytes']} bytes)")
+    old, om = kept[64]
+    out = torch.zeros_like(old)
+    omask = linemask.full_mask(*old.shape, s.dev)
+    got2 = fused_bfs.fused_hop(old, plan, out=out, mask=om, out_mask=omask)
+    want2 = fused_bfs.fused_hop_plain(old, plan)
+    torch.cuda.synchronize()
+    s.expect(torch.equal(got2, want2)
+             and torch.equal(omask, linemask.line_mask(got2)),
+             "K2 at the 64-lane hop != plain")
+    k2_ms = s.time_ms(lambda: fused_bfs.fused_hop(
+        old, plan, out=out, mask=om, out_mask=omask), 5)
+    s.log(f"delta: K2 at the 64-lane hop 1 (kw 2, base plan) bit-exact with "
+          f"plain, masks exact; {k2_ms:.3f} ms")
+
+    # served routes, host to host; K1 launches a served batch
+    per_batch = {}
+    for k in ("5", str(BIG_BUCKET)):
+        x = batches[k]
+        reset_launches()
+        serve_bfs(base, x, HOPS, SERVE_TOP_R, delta=delta, device=s.dev)
+        per_batch[k] = launches()
+    route_ms = {
+        "static 1024": served_ms(s, lambda: serve_bfs(
+            full, batches[str(BIG_BUCKET)], HOPS, SERVE_TOP_R,
+            device=s.dev)),
+        "fused+overlay 5": served_ms(s, lambda: serve_bfs(
+            base, batches["5"], HOPS, SERVE_TOP_R, delta=delta,
+            device=s.dev)),
+        "fused+overlay 1024": served_ms(s, lambda: serve_bfs(
+            base, batches[str(BIG_BUCKET)], HOPS, SERVE_TOP_R, delta=delta,
+            device=s.dev)),
+        "dense+tombstones 64": served_ms(s, lambda: serve_bfs(
+            base, dense_seeds[:64], HOPS, SERVE_TOP_R, delta=dead_delta,
+            device=s.dev)),
+        "dense+tombstones 1024": served_ms(s, lambda: serve_bfs(
+            base, dense_seeds, HOPS, SERVE_TOP_R, delta=dead_delta,
+            device=s.dev)),
+    }
+    for name, ms in route_ms.items():
+        s.log(f"delta: served {name}: {spread(ms)}, runs "
+              f"{[round(t, 1) for t in ms]}")
+    s.log(f"delta: launches a served overlay batch: {per_batch}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    serve_bfs(base, dense_seeds, HOPS, SERVE_TOP_R, delta=dead_delta,
+              device=s.dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    s.log(f"delta: dense route at {BIG_BUCKET} lanes: peak device memory "
+          f"{peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} GiB above "
+          f"the {before / 2**30:.3f} GiB held before the call)")
+    s.profile_later("served fused+overlay 5", lambda: serve_bfs(
+        base, batches["5"], HOPS, SERVE_TOP_R, delta=delta, device=s.dev),
+        float(np.median(route_ms["fused+overlay 5"])))
+    s.profile_later("served dense+tombstones 64", lambda: serve_bfs(
+        base, dense_seeds[:64], HOPS, SERVE_TOP_R, delta=dead_delta,
+        device=s.dev), float(np.median(route_ms["dense+tombstones 64"])))
+
+    for rec in records["kernels"]:
+        if rec["name"] in ("gather_or", "fused_hop"):
+            rec["delta_path_launches"] = n_launch[rec["name"]]
+            rec["launches_per_overlay_batch"] = {
+                k: v[rec["name"]] for k, v in per_batch.items()}
+        if rec["name"] == "gather_or":
+            rec["overlay"] = {str(k): v for k, v in ov_stats.items()}
+        if rec["name"] == "fused_hop":
+            rec["hop_64_lanes_ms"] = k2_ms
+    s.log("delta record " + json.dumps({
+        "base_s": t_base, "fused_plan_s": t_plan, "overlay_plan_s": t_ov,
+        "refresh_full_s": t_full, "refresh_tail_s": t_tail,
+        "route_ms": route_ms, "dense_1024_peak_bytes": peak,
+        "dense_1024_before_bytes": before, "overlay": ov_stats,
+        "k2_hop_64_ms": k2_ms, "launches_per_overlay_batch": per_batch}))
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
@@ -1556,10 +2120,11 @@ def main(argv: list[str]) -> int:
     records: dict = {"kernels": []}
     if "--quick" not in argv:
         snap, info = build_snapshot(s)
-        phase_main(s, snap, info, records)
+        truth = phase_main(s, snap, info, records)
         n_k3 = phase_intersect(s, snap, info)
         phase_pattern(s, snap, info)
         phase_k3_timing(s, snap, n_k3, records)
+        phase_delta(s, snap, info, truth, records)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

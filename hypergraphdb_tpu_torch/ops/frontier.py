@@ -11,6 +11,11 @@ relations:
 Frontiers are dense (K, N+1) bool bitmaps; the dummy row ``N`` absorbs padded
 edges and is cleared after every hop. Plain PyTorch: the reference has no
 Pallas kernel here. Tensors stay on the device of the ``DeviceSnapshot``.
+
+A hop runs lane-transposed, rows for atoms and columns for seeds, so each
+gather reads whole rows; :func:`scatter_or` streams the relation in edge
+chunks of at most :data:`CHUNK_BYTES` of gathered rows. CUDA has no
+scatter-max on ``bool``, so the scatter runs on ``uint8`` views.
 """
 
 from __future__ import annotations
@@ -19,26 +24,34 @@ import torch
 
 from hypergraphdb_tpu_torch.ops.snapshot import DeviceSnapshot
 
+#: bytes of the (edges, lanes) gather transient of one scatter chunk
+CHUNK_BYTES = 1 << 31
 
-def _scatter_or(dst_index: torch.Tensor, values: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """(K, n) bool: OR of ``values[:, e]`` into column ``dst_index[e]``."""
-    K = values.shape[0]
-    out = torch.zeros((K, n), dtype=torch.bool, device=values.device)
-    return out.scatter_reduce(1, dst_index.expand(K, -1), values, "amax")
+
+def scatter_or(out: torch.Tensor, dst: torch.Tensor, src: torch.Tensor,
+               values: torch.Tensor) -> None:
+    """``out[dst[e]] |= values[src[e]]`` for every entry e, in place.
+    ``out`` (n, L) and ``values`` (m, L) are bool, ``dst`` int64, ``src``
+    int32 or int64."""
+    L = out.shape[1]
+    o, v = out.view(torch.uint8), values.view(torch.uint8)
+    step = max(1, CHUNK_BYTES // max(L, 1))
+    for s in range(0, dst.shape[0], step):
+        d = dst[s : s + step]
+        o.scatter_reduce_(0, d[:, None].expand(-1, L),
+                          v.index_select(0, src[s : s + step]), "amax")
 
 
 def expand_frontier(dev: DeviceSnapshot, frontier: torch.Tensor) -> torch.Tensor:
     """One hop: frontier bitmap (..., N+1) bool → neighbor bitmap (..., N+1)."""
     shape = frontier.shape
-    f = frontier.reshape(-1, shape[-1])
-    n1 = shape[-1]
-    inc_links, inc_src = dev.inc_links.long(), dev.inc_src.long()
-    tgt_flat, tgt_src = dev.tgt_flat.long(), dev.tgt_src.long()
-    link_active = _scatter_or(inc_links, f[:, inc_src], n1)
-    nbrs = _scatter_or(tgt_flat, link_active[:, tgt_src], n1)
-    nbrs[:, dev.num_atoms] = False  # clear the dummy slot
-    return nbrs.reshape(shape)
+    f = frontier.reshape(-1, shape[-1]).T.contiguous()
+    link_active = torch.zeros_like(f)
+    scatter_or(link_active, dev.index64("inc_links"), dev.inc_src, f)
+    nbrs = torch.zeros_like(f)
+    scatter_or(nbrs, dev.index64("tgt_flat"), dev.tgt_src, link_active)
+    nbrs[dev.num_atoms] = False  # clear the dummy slot
+    return nbrs.T.reshape(shape)
 
 
 def _seed_frontier(dev: DeviceSnapshot, seeds: torch.Tensor) -> torch.Tensor:

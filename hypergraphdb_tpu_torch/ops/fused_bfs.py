@@ -27,6 +27,13 @@ mask (``ops/linemask.py``): the kernel skips the gathers that cannot add a
 bit (self entries, zero rows and lines, saturated lanes) and emits the mask
 of the bitmap it writes, which the next hop reads.
 
+A delta over the base (``ops/incremental.py``) rides each hop as an
+*overlay* (reference :420-513): two small reduction pyramids over the delta
+COO, run through K1 like the staged chain, whose rows are ORed into the
+bitmap K2 wrote, with their line-mask fields. Tombstones cannot ride it
+(the composed adjacency cannot drop a dead link): the served route checks
+them first and takes the dense sweep instead.
+
 :func:`plan_supported` keeps the "None or a reason string" contract with
 the port's own rule: the fused index grows as Σ arity² and can dwarf the
 CSR, so its int32 entries must fit :data:`FUSED_INDEX_BUDGET` bytes of
@@ -45,13 +52,16 @@ from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops import _cuda, linemask
 from hypergraphdb_tpu_torch.ops.ellbfs import (
     WORD,
+    _apply_plan,
     _ceil_to,
+    _rebase_upper,
     _segmented_ranges,
     bitdot,
+    build_reduce_plan,
     seed_bitmap,
     seed_mask,
 )
-from hypergraphdb_tpu_torch.ops.gather_or import or_fold
+from hypergraphdb_tpu_torch.ops.gather_or import PLAIN_CHUNK, or_fold
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
 
 #: fused-adjacency chunk width (visited rows OR'd per chunk)
@@ -371,17 +381,167 @@ def fused_hop(old: torch.Tensor, plan: DeviceFusedPlan,
 fused_hop.launches = 0
 
 
+# ------------------------------------------------------------- delta overlay
+
+
+class OverlayArrays(NamedTuple):
+    """The device half of a :class:`DeltaOverlayPlan`."""
+
+    levels1: tuple          # stage 1: delta links ← visited rows (int32)
+    levels2: tuple          # stage 2: level 0 composed into stage 1's buffer
+    rows1: int              # rows of stage 1's buffer (its zero row last)
+    rows2: int
+    out_map: torch.Tensor   # (A,) int64 — stage-2 buffer row of each atom
+    rows: torch.Tensor      # (A,) int64 — the distinct atoms gaining edges
+
+
+@dataclass(frozen=True)
+class DeltaOverlayPlan:
+    """The delta's pull contribution: the staged chain's two pyramids
+    (``ellbfs.build_pull_plans``) over the delta's edges only, with output
+    restricted to the atoms that gained incidence, so a hop's overlay costs
+    O(delta), not O(graph). Built from the delta's own padded arrays, once
+    per delta (cached on it)."""
+
+    arrays: OverlayArrays
+    widths1: tuple
+    widths2: tuple
+
+
+def overlay_plan_for(delta, snap: CSRSnapshot,
+                     geom: FusedGeom) -> Optional[DeltaOverlayPlan]:
+    """The overlay plan of ``delta`` over the base ``snap`` in the fused row
+    space ``geom``, on the delta's device, cached on the delta. None for a
+    delta with no edges; raises ``ValueError`` for a delta the overlay
+    cannot carry (see :func:`_build_overlay`)."""
+    key = (snap.num_atoms, geom.zero_row)
+    cached = getattr(delta, "_overlay_plan", None)
+    if cached is not None and cached[1] == key:
+        return cached[0]
+    plan = _build_overlay(delta, snap, geom)
+    delta._overlay_plan = (plan, key)
+    return plan
+
+
+def _build_overlay(delta, snap: CSRSnapshot,
+                   geom: FusedGeom) -> Optional[DeltaOverlayPlan]:
+    """Stage 1 reduces the delta links' target lists over visited rows
+    (pads at ``geom.zero_row``); stage 2 reduces the delta incidence of
+    each atom over stage 1's output, its level 0 composed through stage
+    1's ``out_map``. The pull form equals the reference's dense push over
+    base ∪ delta only for a delta shaped as a memtable builds it: its
+    incidence entries are the transpose of its target entries, and its
+    links have no targets in the base. Anything else raises."""
+    N = snap.num_atoms
+    ts, tf, il, isrc = (getattr(delta, c).cpu().numpy().astype(np.int64)
+                        for c in ("tgt_src", "tgt_flat", "inc_links",
+                                  "inc_src"))
+    real_t, real_i = ts != N, il != N  # pad entries are the dummy row
+    if not real_t.any() and not real_i.any():
+        return None
+    ts, tf, il, isrc = ts[real_t], tf[real_t], il[real_i], isrc[real_i]
+    n1 = N + 1
+    if not np.array_equal(np.sort(ts * n1 + tf), np.sort(il * n1 + isrc)):
+        raise ValueError("overlay: the delta's incidence entries are not the "
+                         "transpose of its target entries")
+
+    # stage 1: the delta links' target lists as a compact CSR
+    order = np.argsort(ts, kind="stable")
+    ts, tf = ts[order], tf[order]
+    links_u, l_counts = np.unique(ts, return_counts=True)
+    base_arity = snap.tgt_offsets[links_u + 1] - snap.tgt_offsets[links_u]
+    if (base_arity != 0).any():
+        raise ValueError("overlay: delta links already have targets in the "
+                         "base")
+    n_links = len(links_u)
+    l_off = np.zeros(n_links + 1, dtype=np.int64)
+    np.cumsum(l_counts, out=l_off[1:])
+    s1 = build_reduce_plan(l_off, tf, n_links, zero_row=geom.zero_row)
+
+    # stage 2: the delta incidence grouped by atom; every link it names has
+    # target entries (the transpose check), so each has a stage-1 row
+    order = np.argsort(isrc, kind="stable")
+    isrc, il = isrc[order], il[order]
+    lpos = np.searchsorted(links_u, il)
+    atoms_u, a_counts = np.unique(isrc, return_counts=True)
+    n_a = len(atoms_u)
+    a_off = np.zeros(n_a + 1, dtype=np.int64)
+    np.cumsum(a_counts, out=a_off[1:])
+    s2 = build_reduce_plan(a_off, lpos, n_a, zero_row=n_links)
+    out_map_ext = np.append(s1.out_map, np.int32(s1.concat_size))
+    s2_levels = (out_map_ext[s2.levels[0]],) + s2.levels[1:]
+
+    dev = delta.inc_links.device
+
+    def put(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    arrays = OverlayArrays(
+        levels1=tuple(put(l) for l in _rebase_upper(s1.levels, s1.widths)),
+        levels2=tuple(put(l) for l in _rebase_upper(s2_levels, s2.widths)),
+        rows1=s1.concat_size + 1,
+        rows2=s2.concat_size + 1,
+        out_map=put(s2.out_map, torch.int64),
+        rows=put(atoms_u, torch.int64),
+    )
+    return DeltaOverlayPlan(arrays=arrays, widths1=s1.widths,
+                            widths2=s2.widths)
+
+
+def _overlay_buffers(overlay: DeltaOverlayPlan, kw: int, dev) -> tuple:
+    """Stage buffers and masks of one BFS's overlay, zeroed: reused by
+    every hop, each hop's contents only grow (K1's ``out`` rule)."""
+    ov = overlay.arrays
+    return (torch.zeros((ov.rows1, kw), dtype=torch.int32, device=dev),
+            linemask.empty_mask(ov.rows1, kw, dev),
+            torch.zeros((ov.rows2, kw), dtype=torch.int32, device=dev),
+            linemask.empty_mask(ov.rows2, kw, dev))
+
+
+def _overlay_reach(visited: torch.Tensor, vmask: torch.Tensor,
+                   overlay: DeltaOverlayPlan, bufs: tuple) -> torch.Tensor:
+    """The delta edges' pull contribution for ``overlay.arrays.rows``: both
+    pyramids through K1 (``ellbfs._apply_plan``), then the output rows,
+    (A, kw) int32."""
+    buf1, mask1, buf2, mask2 = bufs
+    ov = overlay.arrays
+    _apply_plan(visited, vmask, ov.levels1, overlay.widths1, buf1, mask1,
+                PLAIN_CHUNK)
+    _apply_plan(buf1, mask1, ov.levels2, overlay.widths2, buf2, mask2,
+                PLAIN_CHUNK)
+    return buf2[ov.out_map]
+
+
+def _or_rows(bitmap: torch.Tensor, mask: torch.Tensor, rows: torch.Tensor,
+             vals: torch.Tensor) -> None:
+    """``bitmap[rows] |= vals`` for distinct ``rows``, and their fields
+    ORed into ``mask``. The rows are scattered and several share a packed
+    mask word, so the words are built from points, never by an indexed
+    ``|=`` on the mask (duplicate words would lose updates)."""
+    n_rows, kw = bitmap.shape
+    new = bitmap[rows] | vals
+    bitmap[rows] = new
+    fields = linemask.row_fields_of(new)
+    lines = torch.arange(linemask.n_lines(kw), device=bitmap.device)
+    hit, line = (((fields[:, None] >> lines) & 1) != 0).nonzero(as_tuple=True)
+    mask |= linemask.mask_of_points(rows[hit], line, n_rows, kw)
+
+
 # --------------------------------------------------------------- fused BFS
 
 
 def bfs_fused(plan: DeviceFusedPlan, seeds: torch.Tensor, geom: FusedGeom,
               max_hops: int, count_edges: bool, clear_dummy: bool,
-              hop_hook=None):
+              hop_hook=None, overlay: Optional[DeltaOverlayPlan] = None):
     """Seed bitmap → ``max_hops`` fused hops → per-hop degree sums → reach
     counts. Returns ``(visited (n_rows, K/32) int32, s_ins list of (K,)
     int64, reach (K,) int64)``; equal to the staged chain on the same
     inputs. ``clear_dummy=False`` keeps the dummy-row bit of pad lanes (the
     serving contract); the pull path clears it.
+
+    ``overlay`` adds a delta's edges: each hop computes the overlay's rows
+    from the bitmap entering it, before K2 writes the spare buffer, and ORs
+    them into the bitmap K2 wrote, fields and all.
 
     Each bitmap travels with its exact line mask: the seed rows' mask, then
     the mask each hop emits. ``hop_hook(h, visited, mask)``, when given, is
@@ -395,13 +555,20 @@ def bfs_fused(plan: DeviceFusedPlan, seeds: torch.Tensor, geom: FusedGeom,
     vmask = seed_mask(seeds, geom.n_rows, kw, clear_row=dummy)
     spare = torch.zeros_like(visited)
     smask = torch.empty_like(vmask)
+    bufs = None
+    if overlay is not None:
+        bufs = _overlay_buffers(overlay, kw, visited.device)
     s_ins = []
     for h in range(max_hops):
         if hop_hook is not None:
             hop_hook(h, visited, vmask)
         if count_edges:
             s_ins.append(bitdot(visited, plan.inc_deg, plan.deg_rows))
+        if overlay is not None:
+            reach = _overlay_reach(visited, vmask, overlay, bufs)
         out = fused_hop(visited, plan, out=spare, mask=vmask, out_mask=smask)
+        if overlay is not None:
+            _or_rows(out, smask, overlay.arrays.rows, reach)
         visited, spare, vmask, smask = out, visited, smask, vmask
     if hop_hook is not None:
         hop_hook(max_hops, visited, vmask)
@@ -429,11 +596,28 @@ def bfs_pull_fused(snap: CSRSnapshot, seeds: np.ndarray, max_hops: int,
     return visited[:n_pad], s_ins, reach
 
 
+def serve_fused_kwargs(snap: CSRSnapshot, delta, k_bucket: int,
+                       device: str | torch.device = DEFAULT_DEVICE):
+    """What ``serving.bfs_serve_batch_fused`` needs for a (base, delta,
+    bucket): ``{"plan", "geom", "overlay"}`` (``overlay`` None without a
+    delta or for one with no edges), or, when the fused path declines the
+    bucket, :func:`plan_supported`'s reason string. Tombstones are the
+    caller's gate: the overlay carries none."""
+    reason = plan_supported(snap, k_bucket)
+    if reason is not None:
+        return reason
+    plan, geom = device_fused_plan(snap, device)
+    overlay = None if delta is None else overlay_plan_for(delta, snap, geom)
+    return {"plan": plan, "geom": geom, "overlay": overlay}
+
+
 def first_r_from_bitmap(visited: torch.Tensor, n1: int, top_r: int,
-                        K: int) -> torch.Tensor:
+                        K: int, packed: bool = True) -> torch.Tensor:
     """Per seed lane the ``top_r`` smallest reached row ids below ``n1``,
     ascending and SENTINEL-padded: (K, top_r) int32, read straight off the
-    transposed bitmap in row blocks with a per-block top-k and a merge."""
+    transposed bitmap in row blocks with a per-block top-k and a merge.
+    ``packed=False`` reads an (R, K) bool bitmap instead of (R, K/32)
+    words."""
     R = visited.shape[0]
     dev = visited.device
     rb = min(R, max(4096, (1 << 24) // max(K, 1)))
@@ -443,7 +627,8 @@ def first_r_from_bitmap(visited: torch.Tensor, n1: int, top_r: int,
     for s in range(0, R, rb):
         blk = visited[s : s + rb]
         ids = torch.arange(s, s + blk.shape[0], dtype=torch.int32, device=dev)
-        hit = ((blk[:, word] >> bit) & 1).bool() & (ids < n1)[:, None]
+        hit = ((blk[:, word] >> bit) & 1).bool() if packed else blk
+        hit = hit & (ids < n1)[:, None]
         masked = torch.where(hit, ids[:, None], int(SENTINEL))
         top = torch.topk(masked.T, min(top_r, blk.shape[0]), dim=1,
                          largest=False).values

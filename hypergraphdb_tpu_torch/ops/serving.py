@@ -1,10 +1,16 @@
 """Batched serving: fixed-shape micro-batches with compact results.
 
-The port of ``bfs_serve_batch_fused`` and ``pattern_serve_batch`` from
-``hypergraphdb_tpu/ops/serving.py`` (without the delta overlay, which comes
-with the incremental snapshots). A batch returns per-request counts and the
-``top_r`` smallest result ids, so the host link carries O(K · top_r) per
-batch instead of O(K · N).
+The port of ``bfs_serve_batch``, ``bfs_serve_batch_fused`` and
+``pattern_serve_batch`` from ``hypergraphdb_tpu/ops/serving.py``. A batch
+returns per-request counts and the ``top_r`` smallest result ids, so the
+host link carries O(K · top_r) per batch instead of O(K · N).
+
+A BFS batch over a base snapshot and a delta (``ops/incremental.py``) takes
+one of the reference runtime's two routes (``serve/runtime.py:685-760``),
+chosen by gates checked before anything launches: while a tombstone is
+pending, the dense base ∪ delta sweep (:func:`bfs_serve_batch`); otherwise
+the fused hop with the delta's overlay through K1, unless the fused plan
+declines the bucket, which sends the batch to the dense sweep too.
 
 Pad lanes carry the dummy row id (``n_atoms``). A BFS pad lane keeps its
 seed bit (``clear_dummy=False``), so it counts 1 and lists the dummy row; a
@@ -19,14 +25,16 @@ import numpy as np
 import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from hypergraphdb_tpu_torch.ops import incremental
 from hypergraphdb_tpu_torch.ops.fused_bfs import (
+    DeltaOverlayPlan,
     DeviceFusedPlan,
     FusedGeom,
     bfs_fused,
-    device_fused_plan,
     first_r_from_bitmap,
-    plan_supported,
+    serve_fused_kwargs,
 )
+from hypergraphdb_tpu_torch.ops.incremental import DeviceDelta
 from hypergraphdb_tpu_torch.ops.setops import (
     SENTINEL,
     compact,
@@ -53,38 +61,94 @@ def _bucket_for(n: int, what: str) -> int:
     return bucket
 
 
+def bfs_serve_batch(dev: DeviceSnapshot, delta: DeviceDelta,
+                    seeds: torch.Tensor, max_hops: int, top_r: int):
+    """K-seed BFS over base ∪ delta by the dense sweep
+    (``incremental.bfs_levels_delta`` semantics: tombstones honoured),
+    ``incremental.DENSE_LANE_BLOCK`` seed lanes at a time, each block
+    compacted on the device before the next runs. ``seeds`` is (K,) int32,
+    pad lanes at ``dev.num_atoms``. Returns ``(counts (K,) int32, first_r
+    (K, top_r) int32)``: per-seed |visited| (the live seed included, a dead
+    seed 0) and the ``top_r`` smallest reached atom ids ascending,
+    SENTINEL-padded."""
+    K, n1 = seeds.shape[0], dev.type_of.shape[0]
+    counts = torch.empty(K, dtype=torch.int32, device=seeds.device)
+    first_r = torch.empty((K, top_r), dtype=torch.int32, device=seeds.device)
+    block = incremental.DENSE_LANE_BLOCK
+    for s in range(0, K, block):
+        visited, _ = incremental.bfs_delta_lanes(dev, delta,
+                                                 seeds[s : s + block],
+                                                 max_hops)
+        e = s + visited.shape[1]
+        counts[s:e] = visited.sum(0, dtype=torch.int32)
+        first_r[s:e] = first_r_from_bitmap(visited, n1, top_r, e - s,
+                                           packed=False)
+    return counts, first_r
+
+
 def bfs_serve_batch_fused(plan: DeviceFusedPlan, seeds: torch.Tensor,
-                          geom: FusedGeom, max_hops: int, top_r: int):
-    """K-seed BFS through the fused hop with on-device compaction. ``seeds``
-    is (K,) int32 with K a multiple of 32, pad lanes at ``geom.n_atoms``.
-    Returns ``(counts (K,) int32, first_r (K, top_r) int32)``: per-seed
-    |visited| (seed included) and the ``top_r`` smallest reached atom ids
-    ascending, SENTINEL-padded past the count."""
+                          geom: FusedGeom, max_hops: int, top_r: int,
+                          overlay: DeltaOverlayPlan | None = None):
+    """K-seed BFS through the fused hop with on-device compaction, the
+    delta's edges riding ``overlay``. ``seeds`` is (K,) int32 with K a
+    multiple of 32, pad lanes at ``geom.n_atoms``. Returns ``(counts (K,)
+    int32, first_r (K, top_r) int32)``: per-seed |visited| (seed included)
+    and the ``top_r`` smallest reached atom ids ascending, SENTINEL-padded
+    past the count."""
     visited, _, reach = bfs_fused(plan, seeds, geom, max_hops,
-                                  count_edges=False, clear_dummy=False)
+                                  count_edges=False, clear_dummy=False,
+                                  overlay=overlay)
     K = seeds.shape[0]
     first_r = first_r_from_bitmap(visited, geom.n_atoms + 1, top_r, K)
     return reach.to(torch.int32), first_r
 
 
 def serve_bfs(snap, seeds, max_hops: int, top_r: int,
+              delta: DeviceDelta | None = None,
               device: str | torch.device = DEFAULT_DEVICE):
-    """Serve a few BFS requests as one bucketed batch: the seeds pad to the
-    first of :data:`BUCKETS` that holds them. Returns host arrays
-    ``(counts (n,), first_r (n, top_r))`` for the ``n`` requests."""
+    """Serve a few BFS requests as one bucketed batch over the base ``snap``
+    and, when given, a ``delta`` on the same device: the seeds pad to the
+    first of :data:`BUCKETS` that holds them. Returns host arrays ``(counts
+    (n,), first_r (n, top_r))`` for the ``n`` requests.
+
+    The route is decided before any launch and counted in
+    ``serve_bfs.routes``: a pending tombstone sends the batch to the dense
+    sweep, as does a bucket the fused plan declines when there is a delta;
+    otherwise the fused hop serves it, the delta riding its overlay.
+    Without a delta a declined bucket raises ``ValueError``."""
     dev = resolve_device(device)
     seeds = np.asarray(seeds, dtype=np.int32)
     n = len(seeds)
     bucket = _bucket_for(n, "serve_bfs")
-    reason = plan_supported(snap, bucket)
-    if reason is not None:
-        raise ValueError(f"serve_bfs: fused path declined: {reason}")
-    plan, geom = device_fused_plan(snap, dev)
+    if delta is not None and (delta.n_atoms != snap.num_atoms or delta.device
+                              != torch.empty(0, device=dev).device):
+        raise ValueError(f"serve_bfs: the delta covers {delta.n_atoms} ids on "
+                         f"{delta.device}, the base {snap.num_atoms} on {dev}")
+    fused = None
+    if delta is None or not delta.has_tombstones():
+        fused = serve_fused_kwargs(snap, delta, bucket, dev)
+        if isinstance(fused, str):
+            if delta is None:
+                raise ValueError(f"serve_bfs: fused path declined: {fused}")
+            fused = None
     padded = np.full(bucket, snap.num_atoms, dtype=np.int32)
     padded[:n] = seeds
-    counts, first_r = bfs_serve_batch_fused(
-        plan, torch.from_numpy(padded).to(dev), geom, max_hops, top_r)
+    seeds_t = torch.from_numpy(padded).to(dev)
+    if fused is not None:
+        route = "fused"
+        counts, first_r = bfs_serve_batch_fused(
+            fused["plan"], seeds_t, fused["geom"], max_hops, top_r,
+            overlay=fused["overlay"])
+    else:
+        route = "dense"
+        counts, first_r = bfs_serve_batch(snap.device(dev), delta, seeds_t,
+                                          max_hops, top_r)
+    serve_bfs.routes[route] += 1
     return counts[:n].cpu().numpy(), first_r[:n].cpu().numpy()
+
+
+#: batches served by each route since the counts were last set to 0
+serve_bfs.routes = {"fused": 0, "dense": 0}
 
 
 def pattern_serve_batch(dev: DeviceSnapshot, tgt_ell: torch.Tensor,

@@ -205,6 +205,15 @@ class CSRSnapshot:
         return cache[key]
 
 
+def cached_index64(holder, name: str) -> torch.Tensor:
+    """``holder.<name>`` as int64, converted on first use and cached on
+    ``holder`` (the columns of a device twin or delta never change)."""
+    cache = holder.__dict__.setdefault("_index64", {})
+    if name not in cache:
+        cache[name] = getattr(holder, name).to(torch.int64)
+    return cache[name]
+
+
 @dataclass
 class DeviceSnapshot:
     """The tensor twin of a :class:`CSRSnapshot` (topology columns)."""
@@ -230,6 +239,11 @@ class DeviceSnapshot:
             for f in fields(DeviceSnapshot) if f.name != "num_atoms"
         }
         return DeviceSnapshot(num_atoms=snap.num_atoms, **cols).to(dev)
+
+    def index64(self, name: str) -> torch.Tensor:
+        """Column ``name`` as int64, the index type of PyTorch's scatters,
+        converted once and cached on this twin."""
+        return cached_index64(self, name)
 
     def to(self, device: str | torch.device = DEFAULT_DEVICE
            ) -> "DeviceSnapshot":

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs, setops
+from hypergraphdb_tpu_torch.ops import ellbfs, fused_bfs, incremental, setops
 from hypergraphdb_tpu_torch.ops.host_bfs import host_bfs
 from hypergraphdb_tpu_torch.ops.serving import serve_bfs, serve_pattern
 from hypergraphdb_tpu_torch.ops.snapshot import DeviceSnapshot
@@ -31,7 +31,8 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("entry", [
     "bfs_pull", "bfs_pull_fused", "serve_bfs", "device_snapshot",
     "snapshot_device", "ell_targets", "plan_pattern", "and_incident_pattern",
-    "serve_pattern", "device_intersect_sorted",
+    "serve_pattern", "device_intersect_sorted", "delta_memtable",
+    "delta_from_reference",
 ])
 def test_entry_points_raise_without_cuda(no_cuda, entry):
     snap = to_port(random_snapshot(30, 20, 3, seed=1))
@@ -49,6 +50,10 @@ def test_entry_points_raise_without_cuda(no_cuda, entry):
         "serve_pattern": lambda: serve_pattern(snap, pairs, [None, None], 4),
         "device_intersect_sorted": lambda: setops.device_intersect_sorted(
             [seeds, seeds[::2]]),
+        "delta_memtable": lambda: incremental.DeltaMemtable(snap.num_atoms),
+        "delta_from_reference": lambda: incremental.delta_from_reference(
+            {"capacity": snap.num_atoms, "dead": [],
+             **{c: seeds[:2] for c in incremental.COLUMNS}}),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

@@ -293,3 +293,119 @@ def test_item_bounds_check_rescans_after_an_in_place_write():
     plan.item_off[1] = plan.item_off[2] + 1  # no longer non-decreasing
     with pytest.raises(ValueError, match="non-decreasing"):
         fused_bfs._check_items(plan)
+
+
+# ------------------------------------------------------------- delta overlay
+
+
+def _ref_overlay_case():
+    """A reference (base, delta) pair from a manager fed 40 new links, each
+    from one of 4 nodes, so their delta rows need upper levels."""
+    from tests.test_torch_incremental import Recorder
+
+    rec = Recorder(n_nodes=100, n_links=150, seed=12)
+    r = np.random.default_rng(9)
+    for i in range(40):
+        rec.add_link([rec.nodes[int(r.integers(0, 4))],
+                      rec.nodes[int(r.integers(50, 100))]], f"delta{i}")
+    return rec
+
+
+def test_overlay_plan_matches_reference_overlay():
+    """Both pyramids of the overlay equal the reference's
+    ``overlay_plan_for`` once its upper levels are rebased into their
+    buffers as the port runs them, and the stage-1 pad moved to the port's
+    zero row."""
+    from hypergraphdb_tpu_torch.ops import incremental as inc
+    from tests.test_torch_incremental import ref_arrays
+
+    rec = _ref_overlay_case()
+    _, delta = rec.mgr.device()
+    ref_base = rec.mgr.base
+    ref_plan = ref_fused.overlay_plan_for(
+        delta, ref_base.num_atoms, ref_fused.device_fused_plan(ref_base)[1])
+    ref_zero = ref_fused.device_fused_plan(ref_base)[1].zero_row
+    port = to_port(ref_base)
+    pd = inc.delta_from_reference(ref_arrays(delta), "cpu")
+    _, geom = fused_bfs.device_fused_plan(port, "cpu")
+    plan = fused_bfs.overlay_plan_for(pd, port, geom)
+    assert plan.widths1 == ref_plan.widths1
+    assert plan.widths2 == ref_plan.widths2
+    lv1 = [np.asarray(l) for l in ref_plan.arrays.levels1]
+    lv1[0] = np.where(lv1[0] == ref_zero, geom.zero_row, lv1[0])
+    lv2 = [np.asarray(l) for l in ref_plan.arrays.levels2]
+    for got, want in ((plan.arrays.levels1,
+                       ellbfs._rebase_upper(lv1, plan.widths1)),
+                      (plan.arrays.levels2,
+                       ellbfs._rebase_upper(lv2, plan.widths2))):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), w)
+    assert np.array_equal(plan.arrays.out_map.numpy(),
+                          np.asarray(ref_plan.arrays.out_map))
+    assert np.array_equal(plan.arrays.rows.numpy(),
+                          np.asarray(ref_plan.arrays.rows))
+    assert len(plan.widths2) > 1  # upper levels
+    assert fused_bfs.overlay_plan_for(pd, port, geom) is plan  # cached
+    rec.close()
+
+
+def _held_back(n_held, seed=2):
+    """A port snapshot, its base with the last ``n_held`` links held back
+    and the memtable delta of those links."""
+    from chip_smoke import split_snapshot
+    from tests.test_torch_incremental import memtable_of
+
+    full = to_port(random_snapshot(200, 300, 4, seed=seed, zipf=True))
+    base, records = split_snapshot(full, n_held)
+    return full, base, records, memtable_of(base, records).device()
+
+
+@pytest.mark.parametrize("k", [64, 1024])
+@pytest.mark.parametrize("hops", [1, 3])
+def test_overlay_bfs_masks_stay_exact(k, hops):
+    """The fused BFS with an overlay, under a mask audit at every hop,
+    equals the fused BFS over the whole graph; the overlay's rows share
+    mask words, which an indexed ``|=`` on the words would lose."""
+    full, base, _, delta = _held_back(120)
+    plan, geom = fused_bfs.device_fused_plan(base, "cpu")
+    overlay = fused_bfs.overlay_plan_for(delta, base, geom)
+    rows = overlay.arrays.rows
+    per_word = 32 // linemask.field_bits(k // 32)
+    assert len(torch.unique(rows // per_word)) < len(rows)  # shared words
+    seeds = torch.from_numpy(np.random.default_rng(k).integers(
+        0, 200, size=k).astype(np.int32))
+    seen = []
+    vt, _, reach = fused_bfs.bfs_fused(plan, seeds, geom, hops, False, True,
+                                       hop_hook=_audit_hook(seen),
+                                       overlay=overlay)
+    assert seen == list(range(hops + 1))
+    fplan, fgeom = fused_bfs.device_fused_plan(full, "cpu")
+    wvt, _, wreach = fused_bfs.bfs_fused(fplan, seeds, fgeom, hops, False,
+                                         True)
+    n = full.num_atoms + 1
+    assert torch.equal(vt[:n], wvt[:n]) and torch.equal(reach, wreach)
+    plain, _, _ = fused_bfs.bfs_fused(plan, seeds, geom, hops, False, True)
+    assert not torch.equal(plain[:n], wvt[:n])  # the overlay added reach
+
+
+def test_overlay_rejects_a_delta_it_cannot_carry():
+    """The overlay covers memtable-shaped deltas only: an incidence entry
+    without its target entry, or a link that has targets in the base,
+    raises instead of serving a wrong answer; no edges at all plans None."""
+    from hypergraphdb_tpu_torch.ops import incremental as inc
+
+    _, base, records, delta = _held_back(20)
+    _, geom = fused_bfs.device_fused_plan(base, "cpu")
+    cols = {c: getattr(delta, c).clone() for c in inc.COLUMNS}
+    cols["inc_src"][0] = (cols["inc_src"][0] + 1) % base.num_atoms
+    broken = inc.DeviceDelta(dead=delta.dead, **cols)
+    with pytest.raises(ValueError, match="transpose"):
+        fused_bfs.overlay_plan_for(broken, base, geom)
+    base_link = int(np.flatnonzero(base.arity)[0])
+    mt = inc.DeltaMemtable(base.num_atoms, device="cpu")
+    mt.add_link(base_link, [0, 1])
+    with pytest.raises(ValueError, match="targets in the base"):
+        fused_bfs.overlay_plan_for(mt.device(), base, geom)
+    empty = inc.DeltaMemtable(base.num_atoms, device="cpu").device()
+    assert fused_bfs.overlay_plan_for(empty, base, geom) is None

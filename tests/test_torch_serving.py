@@ -207,3 +207,170 @@ def test_served_bfs_masks_keep_pad_lanes_dummy_bit(snaps):
     assert np.array_equal(first_r.numpy(), f_ref)
     assert np.array_equal(reach.numpy(), c_ref.astype(np.int64))
     assert (counts.numpy()[5:] == 1).all()
+
+
+# ------------------------------------------------- served BFS over a delta
+
+
+@pytest.fixture(scope="module")
+def delta_case():
+    """The reference's overlay scenario: 100 nodes, 150 links, 40 delta
+    links bridging the node halves; the (base, delta) pair before and after
+    tombstones on a node, a base link and a delta link."""
+    from hypergraphdb_tpu_torch.ops import incremental as inc
+    from tests.test_torch_incremental import Recorder, ref_arrays
+
+    rec = Recorder(n_nodes=100, n_links=150, seed=12)
+    r = np.random.default_rng(9)
+    new = [rec.add_link([rec.nodes[int(r.integers(0, 50))],
+                         rec.nodes[int(r.integers(50, 100))]], f"delta{i}")
+           for i in range(40)]
+    dev, delta = rec.mgr.device()
+    rec.remove(rec.nodes[7])
+    rec.remove(rec.links[2])
+    rec.remove(new[0])
+    _, dead = rec.mgr.device()
+    port = to_port(rec.mgr.base)
+    yield {"rec": rec, "dev": dev, "delta": delta, "dead": dead,
+           "port": port,
+           "pd": inc.delta_from_reference(ref_arrays(delta), "cpu"),
+           "pdead": inc.delta_from_reference(ref_arrays(dead), "cpu")}
+    rec.close()
+
+
+def _delta_seeds(case, bucket, live=48):
+    n = case["port"].num_atoms
+    seeds = np.full(bucket, n, np.int32)
+    seeds[:live] = np.random.default_rng(bucket).integers(0, 100, size=live)
+    seeds[1] = int(case["rec"].nodes[7])  # tombstoned in the dead pair
+    return seeds
+
+
+def _port_overlay(case, seeds, hops, top_r):
+    kw = fused_bfs.serve_fused_kwargs(case["port"], case["pd"], len(seeds),
+                                      "cpu")
+    assert kw["overlay"] is not None
+    counts, first_r = bfs_serve_batch_fused(
+        kw["plan"], torch.from_numpy(seeds), kw["geom"], hops, top_r,
+        overlay=kw["overlay"])
+    return counts.numpy(), first_r.numpy()
+
+
+@pytest.mark.parametrize("hops", [1, 3])
+def test_overlay_route_matches_reference_fused_route(delta_case, hops):
+    """The port's fused route with the delta overlay against the
+    reference's ``bfs_serve_batch_fused`` with its overlay, in interpret
+    mode, pad lanes included."""
+    case = delta_case
+    seeds = _delta_seeds(case, 64)
+    kw = ref_fused.serve_fused_kwargs(case["rec"].mgr.base, case["delta"], 64)
+    assert kw["overlay"] is not None
+    c_ref, f_ref = ref_serve(
+        kw["fused"], jnp.asarray(seeds), kw["n_atoms"], kw["overlay"],
+        geom=kw["geom"], kwp=kw["kwp"], max_hops=hops, top_r=7,
+        widths1=kw["widths1"], widths2=kw["widths2"], interpret=True)
+    counts, first_r = _port_overlay(case, seeds, hops, 7)
+    assert np.array_equal(counts, np.asarray(c_ref))
+    assert np.array_equal(first_r, np.asarray(f_ref))
+
+
+@pytest.mark.parametrize("hops", [1, 3])
+@pytest.mark.parametrize("bucket", [64, 256])
+def test_overlay_route_matches_dense_route(delta_case, bucket, hops,
+                                           monkeypatch):
+    """Fused with the overlay, the port's dense ``bfs_serve_batch`` and the
+    reference's dense ``bfs_serve_batch`` agree lane for lane, pad lanes
+    included; the overlay adds reach the base alone lacks."""
+    from hypergraphdb_tpu.ops.serving import bfs_serve_batch as ref_dense
+    from hypergraphdb_tpu_torch.ops.serving import bfs_serve_batch
+
+    from hypergraphdb_tpu_torch.ops import incremental as inc
+
+    case = delta_case
+    monkeypatch.setattr(inc, "DENSE_LANE_BLOCK", 32)  # several blocks
+    seeds = _delta_seeds(case, bucket)
+    c_ref, f_ref = ref_dense(case["dev"], case["delta"], jnp.asarray(seeds),
+                             hops, 7)
+    counts, first_r = _port_overlay(case, seeds, hops, 7)
+    d_counts, d_first = bfs_serve_batch(case["port"].device("cpu"),
+                                        case["pd"], torch.from_numpy(seeds),
+                                        hops, 7)
+    for c, f in ((counts, first_r), (d_counts.numpy(), d_first.numpy())):
+        assert np.array_equal(c, np.asarray(c_ref))
+        assert np.array_equal(f, np.asarray(f_ref))
+    assert (counts[48:] == 1).all()  # pad lanes keep the dummy bit
+    base_only, _ = serve_bfs(case["port"], seeds[:48], hops, 7,
+                             device="cpu")
+    assert (counts[:48] >= base_only).all() and (counts[:48] > base_only).any()
+
+
+@pytest.mark.parametrize("tombstones", [False, True])
+def test_serve_bfs_routes_by_the_tombstone_gate(delta_case, tombstones):
+    """A pending tombstone sends the batch to the dense sweep, none to the
+    fused route; both answer as the reference's dense batch."""
+    from hypergraphdb_tpu.ops.serving import bfs_serve_batch as ref_dense
+
+    case = delta_case
+    ref_delta = case["dead" if tombstones else "delta"]
+    pd = case["pdead" if tombstones else "pd"]
+    seeds = _delta_seeds(case, 64)[:48]
+    padded = np.full(64, case["port"].num_atoms, np.int32)
+    padded[:48] = seeds
+    c_ref, f_ref = ref_dense(case["dev"], ref_delta, jnp.asarray(padded), 3, 9)
+    serve_bfs.routes.update(fused=0, dense=0)
+    counts, first_r = serve_bfs(case["port"], seeds, 3, 9, delta=pd,
+                                device="cpu")
+    want = {"fused": 0, "dense": 1} if tombstones else {"fused": 1, "dense": 0}
+    assert serve_bfs.routes == want
+    assert np.array_equal(counts, np.asarray(c_ref)[:48])
+    assert np.array_equal(first_r, np.asarray(f_ref)[:48])
+    assert (counts[1] == 0) == tombstones  # the tombstoned seed
+
+
+def test_serve_bfs_declined_plan_takes_the_dense_route(delta_case,
+                                                      monkeypatch):
+    """A bucket the fused plan declines goes dense when there is a delta
+    (and raises without one, as before)."""
+    case = delta_case
+    monkeypatch.setattr(fused_bfs, "FUSED_INDEX_BUDGET", 0)
+    seeds = _delta_seeds(case, 64)[:20]
+    assert fused_bfs.plan_supported(case["port"], 64) is not None
+    serve_bfs.routes.update(fused=0, dense=0)
+    counts, _ = serve_bfs(case["port"], seeds, 2, 5, delta=case["pd"],
+                          device="cpu")
+    assert serve_bfs.routes == {"fused": 0, "dense": 1}
+    monkeypatch.undo()
+    fused_counts, _ = serve_bfs(case["port"], seeds, 2, 5, delta=case["pd"],
+                                device="cpu")
+    assert np.array_equal(counts, fused_counts)
+    monkeypatch.setattr(fused_bfs, "FUSED_INDEX_BUDGET", 0)
+    with pytest.raises(ValueError, match="declined"):
+        serve_bfs(case["port"], seeds, 2, 5, device="cpu")
+
+
+def test_delta_without_edges_gives_no_overlay(delta_case):
+    """A delta with no edges (all pad) plans no overlay and serves the
+    plain fused result."""
+    from hypergraphdb_tpu_torch.ops import incremental as inc
+
+    case = delta_case
+    port = case["port"]
+    empty = inc.DeltaMemtable(port.num_atoms, device="cpu").device()
+    kw = fused_bfs.serve_fused_kwargs(port, empty, 64, "cpu")
+    assert kw["overlay"] is None
+    seeds = _delta_seeds(case, 64)[:30]
+    want = serve_bfs(port, seeds, 3, 8, device="cpu")
+    serve_bfs.routes.update(fused=0, dense=0)
+    got = serve_bfs(port, seeds, 3, 8, delta=empty, device="cpu")
+    assert serve_bfs.routes == {"fused": 1, "dense": 0}
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_serve_bfs_rejects_a_delta_of_another_base(delta_case):
+    from hypergraphdb_tpu_torch.ops import incremental as inc
+
+    other = inc.DeltaMemtable(delta_case["port"].num_atoms + 1,
+                              device="cpu").device()
+    with pytest.raises(ValueError, match="delta covers"):
+        serve_bfs(delta_case["port"], [0, 1], 1, 4, delta=other,
+                  device="cpu")
