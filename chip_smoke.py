@@ -89,9 +89,26 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     served route is timed over 10 warm calls, the overlay's share by CUDA
     events, K1's launches per served batch counted, and the dense route's
     peak device memory at 1024 lanes read.
+12. bench.py c7's joins (run before 11): the co-incidence CSR refused at
+    the default pair budget (:data:`JOIN_PAIR_BUDGET` is over 2^28 at
+    10M atoms), built on the card with it raised (seconds, peak memory)
+    and :data:`JOIN_ROW_CHECKS` of its rows (h1's and the dummy row
+    among them) equal to a host computation; c7's anchors (co width
+    2..512, every neighbour's row within the pad cap: from the whole
+    population, since c7's 8·K draws find none at 10M); triangle and
+    2-path counts over :data:`JOIN_K` anchors in 16-lane dispatches
+    (anchors/s, the first 128 lanes equal to a numpy host count); c7's
+    hub-heavy batch through the degree split, the flat padded executor
+    and the factorized relations (built on the card, timed), split and
+    factorized counts equal and equal to the host; then ``execute_join``
+    on the card against the CPU on a 2,000-entity graph: triangle,
+    2-path, star3 (bushy), link_var (a dedupe step) and seeds mode, full
+    binding tables equal. The join caches are freed at its end.
 11. The device's busy share of the main path (fused and staged), the
-    h1 ∩ h2 intersection, the pattern windows and the two served delta
-    routes, from ``torch.profiler``, after every timed phase.
+    h1 ∩ h2 intersection, the pattern windows, the two served delta
+    routes, a join triangle window and a hub-heavy split dispatch, from
+    ``torch.profiler``, after every timed phase; the join's binary
+    searches are named ranges, their device time logged.
 
 Every log line carries the card's name and power limit. The last lines are
 the card line, one JSON line of kernel records and the result
@@ -106,6 +123,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -186,11 +204,12 @@ class Smoke:
         return start.elapsed_time(end) / reps
 
     def profile_later(self, name: str, fn, unprofiled_ms: float,
-                      reps: int = 1) -> None:
+                      reps: int = 1, setup=None, teardown=None) -> None:
         """Queue ``fn`` for :func:`phase_profiles`: ``reps`` runs under
         ``torch.profiler``, set against ``unprofiled_ms``, the wall time of
-        one run without it."""
-        self.profiles.append((name, fn, unprofiled_ms, reps))
+        one run without it; ``setup`` and ``teardown``, where given, run
+        just before and after, outside the profile."""
+        self.profiles.append((name, fn, unprofiled_ms, reps, setup, teardown))
 
     @staticmethod
     def bound_ms(nbytes: int, ops: int) -> float:
@@ -2064,6 +2083,505 @@ def phase_delta(s: Smoke, full, info, truth: dict, records: dict) -> None:
         "k2_hop_64_ms": k2_ms, "launches_per_overlay_batch": per_batch}))
 
 
+#: bench.py c7's parameters (``bench_c7``): anchors drawn by
+#: ``default_rng(JOIN_SEED)``, JOIN_K of them in JOIN_LANES-lane dispatches,
+#: co width bound JOIN_MAX_DEG, executor caps JOIN_ROW_CAP / JOIN_PAD_CAP,
+#: the host truth on the first JOIN_BASE_N anchors
+JOIN_SEED, JOIN_K, JOIN_LANES = 43, 1024, 16
+JOIN_MAX_DEG, JOIN_ROW_CAP, JOIN_PAD_CAP = 512, 1 << 20, 2048
+JOIN_BASE_N = 128
+#: timed windows of each shape and mode: c7 runs 8, cut to 2 for time
+JOIN_REPS, C7_REPS = 2, 8
+#: the pair budget the phase raises HG_JOIN_MAX_NBR_PAIRS to (the 10M
+#: snapshot's co-incidence relation is over the default 2^28)
+JOIN_PAIR_BUDGET = 1 << 29
+#: co rows held against the incidence and target CSRs: random rows from
+#: ``default_rng(JOIN_ROW_SEED)``, h1's and the dummy row
+JOIN_ROW_CHECKS, JOIN_ROW_SEED = 1000, 5
+#: the small graph the engine runs on the card and on the CPU alike
+JOIN_SMALL = dict(n_entities=2_000, n_links=8_000)
+
+
+def join_pattern(shape: str, a0):
+    """bench.py c7's two shapes through the anchor ``a0``: the triangle
+    a–y, y–z, z–a and the 2-path a–y, y–z."""
+    from hypergraphdb_tpu_torch.join import ConjunctivePattern, JoinAtom
+
+    if shape == "triangle":
+        atoms = (JoinAtom("co", "y", int(a0)), JoinAtom("co", "y", "z"),
+                 JoinAtom("co", "z", int(a0)))
+    else:
+        atoms = (JoinAtom("co", "y", int(a0)), JoinAtom("co", "z", "y"))
+    return ConjunctivePattern(vars=("y", "z"), atoms=atoms)
+
+
+def join_host_counts(off64, flat, shape: str, aa):
+    """The numpy host truth over the same co-incidence CSR rows: a
+    triangle counts, for each y in row(a), the members of row(a) found in
+    row(y) (binary search, so a hub neighbour's row is not re-sorted); a
+    2-path enumerates (y, z) with z in row(y) and z ≠ a."""
+    import numpy as np
+
+    out = np.zeros(len(aa), dtype=np.int64)
+    for i, a in enumerate(aa):
+        row = flat[off64[a]: off64[a + 1]]
+        if shape == "triangle":
+            n = 0
+            for y in row:
+                ry = flat[off64[y]: off64[y + 1]]
+                pos = np.minimum(np.searchsorted(ry, row), max(len(ry) - 1, 0))
+                n += int((ry[pos] == row).sum()) if len(ry) else 0
+            out[i] = n
+        else:
+            out[i] = sum(int((flat[off64[y]: off64[y + 1]] != a).sum())
+                         for y in row)
+    return out
+
+
+def co_row_from_targets(snap, u: int):
+    """Atom ``u``'s co-incidence row computed on the host from the
+    incidence and target CSRs: the sorted unique targets of the links
+    that hold ``u``, ``u`` excluded."""
+    import numpy as np
+
+    links = snap.incidence_row(u).astype(np.int64)
+    starts = snap.tgt_offsets[links].astype(np.int64)
+    lens = snap.tgt_offsets[links + 1] - starts
+    idx = np.repeat(starts - np.cumsum(lens) + lens, lens) + np.arange(
+        lens.sum())
+    row = np.unique(snap.tgt_flat[idx])
+    return row[row != u]
+
+
+def best_window(s: Smoke, fn, reps: int):
+    """``(seconds, result)`` of the fastest of ``reps`` runs of ``fn``,
+    each ended by a synchronise (c7's best-of-n)."""
+    torch = s.torch
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if best is None or dt < best[0]:
+            best = (dt, out)
+    return best
+
+
+def neighbour_max_width(s: Smoke, snap, all_w):
+    """For every atom, the widest co row among its co-neighbours (0 for an
+    empty row), from the cached co-incidence CSR, on the card."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops import join as oj
+
+    torch = s.torch
+    N = snap.num_atoms
+    off, flat = oj.neighbor_csr_device(snap, s.dev)
+    off = off.long()
+    n_e = int(snap._nbr_csr[0][N])
+    owner = torch.repeat_interleave(torch.arange(N, device=s.dev),
+                                    off[1: N + 1] - off[:N], output_size=n_e)
+    w = torch.from_numpy(np.asarray(all_w, dtype=np.int64)).to(s.dev)
+    out = torch.zeros(N, dtype=torch.int64, device=s.dev).scatter_reduce_(
+        0, owner, w[flat[:n_e].long()], "amax")
+    return out.cpu().numpy()
+
+
+@contextmanager
+def pair_budget(value):
+    """``HG_JOIN_MAX_NBR_PAIRS`` set to ``value`` (unset for None) inside
+    the block, and as it was after."""
+    import os
+
+    saved = os.environ.pop("HG_JOIN_MAX_NBR_PAIRS", None)
+    if value is not None:
+        os.environ["HG_JOIN_MAX_NBR_PAIRS"] = str(value)
+    try:
+        yield
+    finally:
+        os.environ.pop("HG_JOIN_MAX_NBR_PAIRS", None)
+        if saved is not None:
+            os.environ["HG_JOIN_MAX_NBR_PAIRS"] = saved
+
+
+def rebuild_co(s: Smoke, snap) -> None:
+    """The co-incidence CSR built again under the raised pair budget (the
+    join phase frees it; a queued profile needs it)."""
+    from hypergraphdb_tpu_torch.ops import join as oj
+
+    with pair_budget(JOIN_PAIR_BUDGET):
+        oj.neighbor_csr_device(snap, s.dev)
+
+
+def lane_results(s: Smoke, exs):
+    """Counts (int64) and trunc flags of a window's executions, host-side."""
+    import numpy as np
+
+    torch = s.torch
+    counts = torch.cat([ex.counts for ex in exs]).cpu().numpy()
+    return (counts.astype(np.int64),
+            torch.cat([ex.trunc for ex in exs]).cpu().numpy())
+
+
+def phase_join(s: Smoke, snap, info) -> dict:
+    """bench.py c7 on the card: the co-incidence build (refused at the
+    default pair budget, built with it raised and checked row by row),
+    anchored triangle and 2-path counts over 1024 anchors, the hub-heavy
+    batch in three modes, then the engine on the card against the CPU on
+    a small graph. The join caches are freed at the end."""
+    from hypergraphdb_tpu_torch.join import JoinUnsupported
+    from hypergraphdb_tpu_torch.ops import join as oj
+
+    K, lanes = JOIN_K, JOIN_LANES
+    base_n = min(JOIN_BASE_N, K)
+    pairs = oj.nbr_pair_count(snap)
+    rec: dict = {"nbr_pairs": pairs, "default_budget": oj.NBR_MAX_PAIRS,
+                 "budget": JOIN_PAIR_BUDGET,
+                 "cuts": {"reps": [C7_REPS, JOIN_REPS]}}
+    s.log(f"join: cut from bench c7: reps {C7_REPS} -> {JOIN_REPS}; K "
+          f"{K}, {lanes} lanes, max_deg {JOIN_MAX_DEG}, row_cap "
+          f"{JOIN_ROW_CAP}, pad_cap {JOIN_PAD_CAP}, base_n {base_n} as c7")
+    try:
+        with pair_budget(None):
+            try:
+                oj.neighbor_csr(snap, device=s.dev)
+            except JoinUnsupported as e:
+                s.log(f"join: the default budget refuses: {e}")
+            else:
+                raise AssertionError("the co-incidence build was not refused "
+                                     f"at the default budget ({pairs} pairs)")
+        with pair_budget(JOIN_PAIR_BUDGET):
+            join_c7(s, snap, info, rec)
+    finally:
+        oj.release_join_caches(snap)
+    s.log("join record " + json.dumps(rec))
+    return rec
+
+
+def join_c7(s: Smoke, snap, info, rec: dict) -> None:
+    """Phase 12 under the raised pair budget: the build, its row check,
+    the anchor pool, triangle and 2-path windows, the hub-heavy batch and
+    the card-against-CPU cases, their numbers into ``rec``."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.join import plan_join, split_constants
+    from hypergraphdb_tpu_torch.ops import join as oj
+
+    torch = s.torch
+    N = snap.num_atoms
+    K, lanes = JOIN_K, JOIN_LANES
+    base_n = min(JOIN_BASE_N, K)
+    pairs = rec["nbr_pairs"]
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    oj.neighbor_csr_device(snap, s.dev)
+    torch.cuda.synchronize()
+    rec["nbr_build_s"] = time.perf_counter() - t0
+    rec["nbr_peak_above_bytes"] = torch.cuda.max_memory_allocated() \
+        - before
+    rec["resident_before_bytes"] = before
+    off, flat = oj.neighbor_csr(snap, s.dev)
+    off64 = off.astype(np.int64)
+    rec["nbr_edges"] = int(off64[N])
+    s.log(f"join: co-incidence CSR built on the card in "
+          f"{rec['nbr_build_s']:.3f} s (host copy included): "
+          f"{rec['nbr_edges']} entries from {pairs} pairs; peak "
+          f"{rec['nbr_peak_above_bytes'] / 2**30:.3f} GiB above the "
+          f"{before / 2**30:.3f} GiB resident")
+
+    h1 = hub_rows(snap)[0][0]
+    rows = np.concatenate([np.random.default_rng(JOIN_ROW_SEED).integers(
+        0, N, JOIN_ROW_CHECKS - 2), [h1, N]])
+    bad = [int(u) for u in rows
+           if not np.array_equal(flat[off64[u]: off64[u + 1]],
+                                 co_row_from_targets(snap, int(u)))]
+    s.expect(not bad, f"co rows differ from the target CSR at {bad[:5]}")
+    s.log(f"join: {len(rows)} co rows (h1 {h1} of "
+          f"{off64[h1 + 1] - off64[h1]} entries, the dummy row) equal "
+          f"their host computation")
+
+    # the anchor rule of bench.py c7: bounded co rows whose
+    # neighbours' rows also fit the pad. c7 scans only 8·K random
+    # draws of the bounded entities (a host loop); at 10M atoms none
+    # of them qualifies, so the same rule is applied to every bounded
+    # entity, on the card, and the draw is kept for its count
+    r = np.random.default_rng(JOIN_SEED)
+    e0, l0 = info["entities"]
+    all_w = off64[1: N + 1] - off64[:N]
+    widths = all_w[e0:l0]
+    bounded = np.flatnonzero(
+        (widths >= 2) & (widths <= JOIN_MAX_DEG)) + e0
+    drawn = bounded[r.integers(0, len(bounded),
+                               size=min(8 * K, len(bounded)))]
+    nbr_max = neighbour_max_width(s, snap, all_w)
+    n_drawn_ok = int((nbr_max[drawn] <= JOIN_PAD_CAP).sum())
+    cand = bounded[nbr_max[bounded] <= JOIN_PAD_CAP]
+    rec["anchor_pool"] = {"bounded": len(bounded), "drawn": len(drawn),
+                          "drawn_servable": n_drawn_ok,
+                          "servable": len(cand)}
+    s.log(f"join: anchor pool: {len(bounded)} entities of co width 2.."
+          f"{JOIN_MAX_DEG}; of c7's {len(drawn)} draws {n_drawn_ok} "
+          f"have every neighbour's row within {JOIN_PAD_CAP}; of all "
+          f"{len(bounded)}, {len(cand)} do (the anchors are drawn "
+          f"from these)")
+    s.expect(len(cand) > 0, "c7: no device-servable anchors")
+    anchors = cand[r.integers(0, len(cand), size=K)].astype(np.int64)
+
+    def run(plan, consts, **kw):
+        return oj.execute_join(snap, plan, consts, top_r=0,
+                               count_only=True, row_cap=JOIN_ROW_CAP,
+                               pad_cap=JOIN_PAD_CAP, var_pad_max=True,
+                               device=s.dev, **kw)
+
+    for shape, n_consts in (("triangle", 2), ("path2", 1)):
+        pat = join_pattern(shape, anchors[0])
+        sig, c0 = split_constants(pat)
+        plan = plan_join(snap, pat, sig, c0)
+        consts = np.repeat(anchors[:, None], n_consts, axis=1).astype(
+            np.int32)
+        if K % lanes:
+            consts = np.concatenate(
+                [consts, np.repeat(consts[:1], lanes - K % lanes, 0)])
+
+        def window(n=len(consts), plan=plan, consts=consts):
+            return [run(plan, consts[i: i + lanes])
+                    for i in range(0, n, lanes)]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lane_results(s, window(min(lanes, K)))
+        warm_s = time.perf_counter() - t0
+        dt, exs = best_window(s, window, JOIN_REPS)
+        counts, trunc = lane_results(s, exs)
+        counts, trunc = counts[:K], trunc[:K]
+        t0 = time.perf_counter()
+        hc = join_host_counts(off64, flat, shape, anchors[:base_n])
+        host_s = time.perf_counter() - t0
+        exact = ~trunc[:base_n]
+        agree = bool(np.array_equal(counts[:base_n][exact], hc[exact]))
+        rec[shape] = {
+            "device_anchors_per_sec": K / dt, "window_s": dt,
+            "first_window_16_s": warm_s,
+            "bindings_total": int(counts[~trunc].sum()),
+            "n_truncated": int(trunc.sum()),
+            "differential_equal": agree, "host_checked": int(base_n),
+            "host_s": host_s, "plan": plan.describe(),
+            "host_syncs": sum(ex.host_syncs for ex in exs),
+        }
+        s.log(f"join {shape}: {K / dt:.1f} anchors/s (best of "
+              f"{JOIN_REPS} windows of {K} anchors, {dt:.4f} s; the "
+              f"first 16 anchors {warm_s:.3f} s); bindings "
+              f"{rec[shape]['bindings_total']}, truncated "
+              f"{rec[shape]['n_truncated']}, plan {plan.describe()}; "
+              f"equal to the host on {int(exact.sum())} of {base_n} "
+              f"untruncated lanes: {agree} (host {host_s:.2f} s)")
+        s.expect(agree, f"join {shape} differs from the host counts")
+        if shape == "triangle":
+            tri_ms = dt * 1e3
+            s.profile_later(
+                f"join triangle window ({K} anchors)", window, tri_ms,
+                setup=lambda: rebuild_co(s, snap),
+                teardown=lambda: oj.release_join_caches(snap))
+
+    rec["hub_heavy"] = join_hub_heavy(s, snap, r, cand, off64, flat,
+                                      all_w, e0, l0, run)
+    rec["cuda_vs_cpu"] = join_cuda_cpu_check(s)
+
+
+def join_hub_heavy(s: Smoke, snap, r, cand, off64, flat, all_w, e0, l0,
+                   run) -> dict:
+    """bench.py c7's hub-heavy batch: triangles through 8 anchors of co
+    width in (max_deg, 4 max_deg] and 8 tail anchors, one 16-lane
+    dispatch run three ways — the degree split, the flat padded executor
+    (``hub_split=False``) and the split over the factorized relations."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.join import plan_join, split_constants
+    from hypergraphdb_tpu_torch.ops import join as oj
+
+    torch = s.torch
+    lanes = JOIN_LANES
+    hub_thr = JOIN_MAX_DEG
+    hub_cap = 4 * hub_thr
+    n_hub = max(lanes // 2, 1)
+    w_ent = all_w[e0:l0]
+    hub_pool = np.flatnonzero((w_ent > hub_thr) & (w_ent <= hub_cap)) + e0
+    s.expect(len(hub_pool) > 0, "c7: no hub anchors in the band")
+    hub_anchors = hub_pool[r.integers(0, len(hub_pool), size=n_hub)]
+    tail_anchors = cand[r.integers(0, len(cand), size=lanes - n_hub)]
+    anchors = np.concatenate([hub_anchors, tail_anchors]).astype(np.int64)
+    pat = join_pattern("triangle", anchors[0])
+    sig, c0 = split_constants(pat)
+    plan = plan_join(snap, pat, sig, c0)
+    consts = np.repeat(anchors[:, None], 2, axis=1).astype(np.int32)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fact = oj.factorized_relations(snap, s.dev)
+    torch.cuda.synchronize()
+    out = {
+        "hub_threshold": hub_thr, "hub_lanes": n_hub,
+        "tail_lanes": lanes - n_hub,
+        "max_hub_width": int(all_w[hub_anchors].max()),
+        "fact_build_s": time.perf_counter() - t0,
+        "fact_peak_above_bytes": torch.cuda.max_memory_allocated() - before,
+        "fact_entries": fact["co"].entries,
+        "fact_entries_flat": fact["co"].entries_flat,
+        "fact_groups": fact["co"].n_groups,
+        "fact_tgt_groups": fact["tgt"].n_groups,
+    }
+    s.log(f"join hub-heavy: factorized relations built on the card in "
+          f"{out['fact_build_s']:.3f} s (host copies included; peak "
+          f"{out['fact_peak_above_bytes'] / 2**30:.3f} GiB above "
+          f"{before / 2**30:.3f}): co {fact['co'].n_groups} groups, "
+          f"{fact['co'].entries} entries for {fact['co'].entries_flat} "
+          f"closed-row entries; tgt {fact['tgt'].n_groups} groups")
+
+    modes = {
+        "split": dict(hub_threshold=hub_thr, factorized=False),
+        "pr10": dict(hub_split=False, factorized=False),
+        "fact": dict(hub_threshold=hub_thr, factorized=True),
+    }
+    res = {}
+    for mode, kw in modes.items():
+        lane_results(s, [run(plan, consts, **kw)])          # warm
+        dt, ex = best_window(s, lambda kw=kw: run(plan, consts, **kw),
+                             JOIN_REPS)
+        counts, trunc = lane_results(s, [ex])
+        res[mode] = (counts, trunc)
+        served = lanes - int(trunc.sum())
+        out[f"{mode}_anchors_per_sec"] = served / dt
+        out[f"{mode}_raw_per_sec"] = lanes / dt
+        out[f"{mode}_truncated"] = int(trunc.sum())
+        out[f"{mode}_hub_lanes_dispatched"] = ex.hub_lanes
+        if mode == "split":
+            s.profile_later("join hub-heavy split (16 lanes)",
+                            lambda kw=kw: run(plan, consts, **kw), dt * 1e3,
+                            setup=lambda: rebuild_co(s, snap),
+                            teardown=lambda: oj.release_join_caches(snap))
+        s.log(f"join hub-heavy {mode}: {served / dt:.1f} exactly served "
+              f"anchors/s ({lanes / dt:.1f} raw, {dt * 1e3:.3f} ms the "
+              f"dispatch), truncated {int(trunc.sum())}, hub lanes "
+              f"{ex.hub_lanes}")
+    (sc, st), (fc, ft) = res["split"], res["fact"]
+    ok = ~(st | ft)
+    out["n_truncated"] = int(st.sum())
+    out["factorized_equal"] = bool(np.array_equal(sc[ok], fc[ok]))
+    hc = join_host_counts(off64, flat, "triangle", anchors)
+    exact = ~st
+    out["differential_equal"] = bool(
+        np.array_equal(sc[exact], hc[exact])) and bool(exact.any())
+    s.log(f"join hub-heavy: split truncated {out['n_truncated']} (pr10 "
+          f"{out['pr10_truncated']}); factorized equal to flat on "
+          f"{int(ok.sum())} lanes: {out['factorized_equal']}; split equal "
+          f"to the host on {int(exact.sum())} lanes: "
+          f"{out['differential_equal']}")
+    s.expect(out["factorized_equal"], "factorized counts differ from flat")
+    s.expect(out["differential_equal"], "hub-heavy split differs from host")
+    return out
+
+
+def join_cuda_cpu_check(s: Smoke) -> dict:
+    """The engine on the card against the same engine on the CPU, on the
+    port's generator at a small size: the co-incidence CSR and the
+    factorized relations built on each, then triangle, 2-path, star3
+    (bushy forced), link_var (a dedupe step) and seeds mode under the
+    default shapes, the degree split (hub and row-split steps), the
+    factorized relations and truncating caps — full bindings, counts,
+    trunc and ``top_r = 16`` tuples equal."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.join import (
+        ConjunctivePattern,
+        JoinAtom,
+        plan_join,
+        split_constants,
+    )
+    from hypergraphdb_tpu_torch.models import dbpedia_snapshot
+    from hypergraphdb_tpu_torch.ops import join as oj
+
+    devs = (s.dev, "cpu")
+    snaps, info = {}, None
+    for d in devs:
+        snaps[d], info = dbpedia_snapshot(**JOIN_SMALL)
+    small = snaps["cpu"]
+    N = small.num_atoms
+    csr = {d: oj.neighbor_csr(snaps[d], device=d) for d in devs}
+    fact = {d: oj.factorized_relations(snaps[d], device=d) for d in devs}
+    for a, b in zip(*csr.values()):
+        s.expect(np.array_equal(a, b), "co CSR differs, card vs CPU")
+    for rel in ("co", "tgt"):
+        for f in ("group_of", "offsets", "flat"):
+            s.expect(np.array_equal(getattr(fact[s.dev][rel], f),
+                                    getattr(fact["cpu"][rel], f)),
+                     f"factorized {rel}.{f} differs, card vs CPU")
+    off64 = csr["cpu"][0].astype(np.int64)
+    w = off64[1: N + 1] - off64[:N]
+    e0, l0 = info["entities"]
+    ent = np.arange(e0, l0)
+    ent = ent[w[e0:l0] >= 2]
+    rng = np.random.default_rng(9)
+    anchors = np.concatenate([[ent[np.argmax(w[ent])]],
+                              rng.choice(ent, size=7, replace=False)])
+    a0 = int(anchors[0])
+    co = lambda v, k: JoinAtom("co", v, k)  # noqa: E731
+    pats = {
+        "triangle": (ConjunctivePattern(("y", "z"), (
+            co("y", a0), co("y", "z"), co("z", a0))), {}),
+        "path2": (ConjunctivePattern(("y", "z"), (
+            co("y", a0), co("z", "y"))), {}),
+        "star3": (ConjunctivePattern(("y", "z", "w"), (
+            co("y", a0), co("z", a0), co("w", a0))), {"bushy": True}),
+        "link_var": (ConjunctivePattern(("l", "y"), (
+            JoinAtom("inc", "l", a0), JoinAtom("tgt", "y", "l"))), {}),
+    }
+    modes = {
+        "default": dict(var_pad_max=True),
+        "split": dict(hub_threshold=64, pad_cap=64, var_pad_max=True),
+        "fact": dict(factorized=True, var_pad_max=True),
+        "caps": dict(row_cap=64, pad_cap=16),
+    }
+    cases = []
+    for name, (pat, plan_kw) in pats.items():
+        sig, c0 = split_constants(pat)
+        plan = plan_join(small, pat, sig, c0, **plan_kw)
+        consts = np.repeat(anchors[:, None], sig.n_consts, axis=1).astype(
+            np.int32)
+        consts[-1] = N - 1                       # a pad lane's garbage
+        for mode, kw in modes.items():
+            cases.append((f"{name}/{mode}", plan, consts,
+                          dict(n_real=len(anchors) - 1, **kw)))
+    tri = ConjunctivePattern(("x", "y", "z"), (
+        co("x", "y"), co("y", "z"), co("z", "x")))
+    cases.append(("seeds/triangle", plan_join(small, tri, seed_var="x"),
+                  np.zeros((1, 0), np.int32),
+                  dict(seeds=ent[:256].astype(np.int32), row_cap=1 << 18,
+                       var_pad_max=True)))
+    n_rows = 0
+    for name, plan, consts, kw in cases:
+        got = {}
+        for d in devs:
+            ex = oj.execute_join(snaps[d], plan, consts, top_r=16, full=True,
+                                 device=d, **kw)
+            got[d] = [t.cpu().numpy() for t in (
+                ex.counts, ex.trunc, ex.tuples, ex.cols, ex.lanes, ex.valid)
+            ] + [np.asarray([ex.hub_lanes, ex.host_syncs])]
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(got[s.dev], got["cpu"]))
+        s.expect(same, f"join {name}: the card differs from the CPU")
+        n_rows += int(got["cpu"][5].sum())
+    s.log(f"join: card equal to the CPU in all {len(cases)} cases (small "
+          f"graph of {N} atoms, {n_rows} binding rows compared)")
+    return {"cases": len(cases), "equal": True, "binding_rows": n_rows}
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
@@ -2074,24 +2592,40 @@ def phase_profiles(s: Smoke) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch = s.torch
-    for name, fn, unprofiled_ms, reps in s.profiles:
+    for name, fn, unprofiled_ms, reps, setup, teardown in s.profiles:
+        if setup is not None:
+            setup()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        if teardown is not None:
+            teardown()
+        events = prof.key_averages()
+        # a named range shows on the device timeline too, spanning its
+        # kernels and the gaps between them: not an operation of its own
+        rows = [e for e in events if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("join.")]
         rows.sort(key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / reps
         n_ops = sum(e.count for e in rows) / reps
         top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} "
-                        f"ms x{e.count}" for e in rows[:5])
+                        f"ms x{e.count}" for e in rows[:8])
         s.log(f"profile {name} ({reps} runs): device busy {busy_ms:.4f} ms "
               f"a run of {unprofiled_ms:.3f} ms wall unprofiled "
               f"({100 * busy_ms / unprofiled_ms:.1f} %), {n_ops:.1f} device "
               f"operations a run; top: {top}")
+        # named ranges (the join's binary searches): device time of the
+        # operations launched inside each
+        ranges = [e for e in events if e.key.startswith("join.")
+                  and e.device_type == DeviceType.CPU]
+        if ranges:
+            s.log(f"profile {name}: " + "; ".join(
+                f"{e.key} {e.device_time_total / 1e3 / reps:.3f} ms a run "
+                f"({100 * e.device_time_total / 1e3 / reps / busy_ms:.1f} % "
+                f"of busy) x{e.count / reps:.0f}" for e in ranges))
 
 
 def main(argv: list[str]) -> int:
@@ -2125,6 +2659,7 @@ def main(argv: list[str]) -> int:
         phase_pattern(s, snap, info)
         phase_k3_timing(s, snap, n_k3, records)
         phase_delta(s, snap, info, truth, records)
+        phase_join(s, snap, info)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)
