@@ -100,13 +100,34 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     (anchors/s, the first 128 lanes equal to a numpy host count); c7's
     hub-heavy batch through the degree split, the flat padded executor
     and the factorized relations (built on the card, timed), split and
-    factorized counts equal and equal to the host; then ``execute_join``
-    on the card against the CPU on a 2,000-entity graph: triangle,
-    2-path, star3 (bushy), link_var (a dedupe step) and seeds mode, full
-    binding tables equal. The join caches are freed at its end.
+    factorized counts equal and equal to the host; the 2-path once more
+    with a value window (kind 0, ranks below :data:`JOIN_WINDOW_HI`) on
+    the variable it binds last, counts equal to a windowed host count and
+    at most the unwindowed ones; then ``execute_join`` on the card against
+    the CPU on a 2,000-entity graph: triangle (also with value windows on
+    both variables), 2-path, star3 (bushy), link_var (a dedupe step) and
+    seeds mode, full binding tables equal. The join caches are freed at
+    its end.
+13. The value plane (run after 12, before 11): the device rank and kind
+    columns and ``value_columns`` against numpy on sampled rows (h1, the
+    dummy row, the last link); the kind-0 value index column built
+    (seconds, the host sort and the upload timed alone, bytes), sorted
+    and holding exactly the live atoms; bench.py c9's traffic
+    (:data:`C9_REQUESTS` requests, windows of :data:`C9_WINDOW` + 1
+    entity ranks, range and top-k both orders) through
+    ``serve_range_batch`` in 1024-lane batches and one 64- and one
+    256-lane batch, against a numpy oracle, requests/s host to host over
+    10 warm windows; the same traffic over phase 10's held-back links in
+    a delta column and the rest in the base; typed and anchored lanes
+    (h1, phase 12's hub-heavy anchors) on the card against the CPU, the
+    covered ones against numpy; bench.py c3's value leg
+    (``incident_value_range`` over ranks [16, 48)) counts against numpy,
+    ``incident_value_pattern``'s five ops against numpy on the first 128
+    queries, the row pack against the columns, execute-only queries/s.
 11. The device's busy share of the main path (fused and staged), the
     h1 ∩ h2 intersection, the pattern windows, the two served delta
-    routes, a join triangle window and a hub-heavy split dispatch, from
+    routes, a join triangle window and a hub-heavy split dispatch, a
+    1024-lane range batch and a window of c3's value leg, from
     ``torch.profiler``, after every timed phase; the join's binary
     searches are named ranges, their device time logged.
 
@@ -1312,6 +1333,21 @@ def host_pattern(snap, pair, th):
     return got.astype(np.int64)
 
 
+def c3_pairs(snap, info):
+    """``(pairs, th)``: bench.py c3's anchor pairs (the first two targets of
+    random links of the most common property type) and that type."""
+    import numpy as np
+
+    th = top_property_type(snap, info)
+    r = np.random.default_rng(PATTERN_SEED)
+    cands = snap.type_set(th)
+    links = cands[r.integers(0, len(cands), size=PATTERN_PAIRS)]
+    starts = snap.tgt_offsets[links].astype(np.int64)
+    pairs = np.stack([snap.tgt_flat[starts], snap.tgt_flat[starts + 1]],
+                     axis=1).astype(np.int32)
+    return pairs, th
+
+
 def phase_pattern(s: Smoke, snap, info) -> None:
     """bench.py c3 on the card: plan, execute and collect 1024 typed anchor
     pairs; then a few requests through the served pattern."""
@@ -1324,13 +1360,7 @@ def phase_pattern(s: Smoke, snap, info) -> None:
     )
 
     torch = s.torch
-    th = top_property_type(snap, info)
-    r = np.random.default_rng(PATTERN_SEED)
-    cands = snap.type_set(th)
-    links = cands[r.integers(0, len(cands), size=PATTERN_PAIRS)]
-    starts = snap.tgt_offsets[links].astype(np.int64)
-    pairs = np.stack([snap.tgt_flat[starts], snap.tgt_flat[starts + 1]],
-                     axis=1).astype(np.int32)
+    pairs, th = c3_pairs(snap, info)
     pool = ThreadPoolExecutor(max_workers=1)
     host = pool.submit(lambda: [host_pattern(snap, p, th) for p in pairs])
 
@@ -2100,6 +2130,8 @@ JOIN_PAIR_BUDGET = 1 << 29
 JOIN_ROW_CHECKS, JOIN_ROW_SEED = 1000, 5
 #: the small graph the engine runs on the card and on the CPU alike
 JOIN_SMALL = dict(n_entities=2_000, n_links=8_000)
+#: the windowed 2-path: ranks below this on the variable bound last
+JOIN_WINDOW_HI = 1_000_000
 
 
 def join_pattern(shape: str, a0):
@@ -2115,11 +2147,12 @@ def join_pattern(shape: str, a0):
     return ConjunctivePattern(vars=("y", "z"), atoms=atoms)
 
 
-def join_host_counts(off64, flat, shape: str, aa):
+def join_host_counts(off64, flat, shape: str, aa, keep=None):
     """The numpy host truth over the same co-incidence CSR rows: a
     triangle counts, for each y in row(a), the members of row(a) found in
     row(y) (binary search, so a hub neighbour's row is not re-sorted); a
-    2-path enumerates (y, z) with z in row(y) and z ≠ a."""
+    2-path enumerates (y, z) with z in row(y) and z ≠ a, and, where
+    ``keep`` (a flag per atom) is given, ``keep[z]``."""
     import numpy as np
 
     out = np.zeros(len(aa), dtype=np.int64)
@@ -2133,8 +2166,12 @@ def join_host_counts(off64, flat, shape: str, aa):
                 n += int((ry[pos] == row).sum()) if len(ry) else 0
             out[i] = n
         else:
-            out[i] = sum(int((flat[off64[y]: off64[y + 1]] != a).sum())
-                         for y in row)
+            for y in row:
+                z = flat[off64[y]: off64[y + 1]]
+                ok = z != a
+                if keep is not None:
+                    ok &= keep[z]
+                out[i] += int(ok.sum())
     return out
 
 
@@ -2338,18 +2375,27 @@ def join_c7(s: Smoke, snap, info, rec: dict) -> None:
                                pad_cap=JOIN_PAD_CAP, var_pad_max=True,
                                device=s.dev, **kw)
 
-    for shape, n_consts in (("triangle", 2), ("path2", 1)):
+    # the 2-path once more with a value window on the variable it binds
+    # last: kind 0, ranks below JOIN_WINDOW_HI (entities only)
+    win_of = {"path2_window": {"z": (0, 0, "gte", JOIN_WINDOW_HI, "lt")}}
+    keep = (snap.value_rank < JOIN_WINDOW_HI) & (snap.value_kind == 0)
+    counts_of = {}
+    for shape, n_consts in (("triangle", 2), ("path2", 1),
+                            ("path2_window", 1)):
         pat = join_pattern(shape, anchors[0])
         sig, c0 = split_constants(pat)
         plan = plan_join(snap, pat, sig, c0)
+        vwin = win_of.get(shape)
+        s.expect(vwin is None or plan.order[-1] in vwin,
+                 f"join {shape}: the window is not on the last variable")
         consts = np.repeat(anchors[:, None], n_consts, axis=1).astype(
             np.int32)
         if K % lanes:
             consts = np.concatenate(
                 [consts, np.repeat(consts[:1], lanes - K % lanes, 0)])
 
-        def window(n=len(consts), plan=plan, consts=consts):
-            return [run(plan, consts[i: i + lanes])
+        def window(n=len(consts), plan=plan, consts=consts, vwin=vwin):
+            return [run(plan, consts[i: i + lanes], value_windows=vwin)
                     for i in range(0, n, lanes)]
 
         torch.cuda.synchronize()
@@ -2359,8 +2405,11 @@ def join_c7(s: Smoke, snap, info, rec: dict) -> None:
         dt, exs = best_window(s, window, JOIN_REPS)
         counts, trunc = lane_results(s, exs)
         counts, trunc = counts[:K], trunc[:K]
+        counts_of[shape] = counts
         t0 = time.perf_counter()
-        hc = join_host_counts(off64, flat, shape, anchors[:base_n])
+        hc = join_host_counts(off64, flat, shape.split("_")[0],
+                              anchors[:base_n],
+                              keep=keep if vwin is not None else None)
         host_s = time.perf_counter() - t0
         exact = ~trunc[:base_n]
         agree = bool(np.array_equal(counts[:base_n][exact], hc[exact]))
@@ -2381,6 +2430,14 @@ def join_c7(s: Smoke, snap, info, rec: dict) -> None:
               f"equal to the host on {int(exact.sum())} of {base_n} "
               f"untruncated lanes: {agree} (host {host_s:.2f} s)")
         s.expect(agree, f"join {shape} differs from the host counts")
+        if vwin is not None:
+            rec[shape]["window"] = list(vwin["z"])
+            s.expect(bool((counts <= counts_of["path2"]).all()),
+                     "the windowed 2-path counts more than the 2-path")
+            s.log(f"join path2 windowed: {K / dt:.1f} anchors/s against "
+                  f"{rec['path2']['device_anchors_per_sec']:.1f} without "
+                  f"the window; bindings {rec[shape]['bindings_total']} "
+                  f"of {rec['path2']['bindings_total']}")
         if shape == "triangle":
             tri_ms = dt * 1e3
             s.profile_later(
@@ -2427,6 +2484,7 @@ def join_hub_heavy(s: Smoke, snap, r, cand, off64, flat, all_w, e0, l0,
     fact = oj.factorized_relations(snap, s.dev)
     torch.cuda.synchronize()
     out = {
+        "anchors": anchors.tolist(),
         "hub_threshold": hub_thr, "hub_lanes": n_hub,
         "tail_lanes": lanes - n_hub,
         "max_hub_width": int(all_w[hub_anchors].max()),
@@ -2558,6 +2616,14 @@ def join_cuda_cpu_check(s: Smoke) -> dict:
         for mode, kw in modes.items():
             cases.append((f"{name}/{mode}", plan, consts,
                           dict(n_real=len(anchors) - 1, **kw)))
+        if name == "triangle":
+            # value windows on both variables (entity ranks 0..1999)
+            win = {"y": (0, 100, "gte", None, None),
+                   "z": (0, None, None, 1000, "lt")}
+            for mode in ("default", "split"):
+                cases.append((f"{name}/{mode}/window", plan, consts,
+                              dict(n_real=len(anchors) - 1,
+                                   value_windows=win, **modes[mode])))
     tri = ConjunctivePattern(("x", "y", "z"), (
         co("x", "y"), co("y", "z"), co("z", "x")))
     cases.append(("seeds/triangle", plan_join(small, tri, seed_var="x"),
@@ -2580,6 +2646,446 @@ def join_cuda_cpu_check(s: Smoke) -> dict:
     s.log(f"join: card equal to the CPU in all {len(cases)} cases (small "
           f"graph of {N} atoms, {n_rows} binding rows compared)")
     return {"cases": len(cases), "equal": True, "binding_rows": n_rows}
+
+
+#: bench.py c9's traffic: C9_REQUESTS requests from default_rng(C9_SEED),
+#: windows [lo, lo + C9_WINDOW] over the entity ranks, a third each range,
+#: top-k ascending and top-k descending (limit C9_LIMIT), top_r C9_TOP_R
+C9_REQUESTS, C9_SEED, C9_WINDOW, C9_LIMIT, C9_TOP_R = 4096, 29, 24, 8, 16
+#: c9's bucket shapes: the main dispatch width and the other two
+C9_BATCH, C9_OTHER_BATCHES = 1024, (64, 256)
+#: warm windows of the whole traffic timed host to host
+C9_WINDOWS = 10
+#: bench.py c3's value leg: kind 0, ranks in [lo, hi) (property ids)
+C3_VALUE_LO, C3_VALUE_HI = 16, 48
+#: rows of the device rank and kind columns held against numpy
+VALUE_ROW_CHECKS, VALUE_ROW_SEED = 1000, 13
+#: typed lanes of the filter batch: entity windows this wide (covered)
+FILTER_WIDTH, FILTER_LANES = 14, 16
+
+
+def c9_requests(n_entities: int):
+    """``(lo, kind)`` of c9's requests: ``kind`` 0 range, 1 top-k
+    ascending, 2 top-k descending."""
+    import numpy as np
+
+    r = np.random.default_rng(C9_SEED)
+    los = r.integers(0, n_entities - C9_WINDOW, size=C9_REQUESTS)
+    return los, r.integers(0, 3, size=C9_REQUESTS)
+
+
+def c9_batches(los, kinds, width: int):
+    """Host bounds of the requests in ``width``-lane batches: ``[(first
+    request, bounds)]``, windows ``[lo, lo + C9_WINDOW]`` gte/lte."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.value_index import lane_bounds
+
+    out = []
+    for i in range(0, len(los), width):
+        lo = los[i: i + width].astype(np.uint64)
+        n = len(lo)
+        out.append((i, lane_bounds(
+            width, lo, np.zeros(n, bool), lo + np.uint64(C9_WINDOW),
+            np.ones(n, bool), desc=kinds[i: i + width] == 2)))
+    return out
+
+
+def range_oracle(h_rank, h_gid, lo: int, hi: int, desc: bool, upto: int,
+                 win_pad: int):
+    """``(window total, first upto gids)`` of an unfiltered ``[lo, hi]``
+    window over the host column (``h_rank`` ascending, gids ascending
+    within a rank): ascending, or by rank descending with gids ascending
+    within a rank. Of a window wider than ``win_pad``, a descending lane
+    sees its last ``win_pad`` entries only: a rank tie across that edge
+    keeps the largest gids of the tie (at 10M atoms c9's windows hold no
+    tie)."""
+    import numpy as np
+
+    a = int(np.searchsorted(h_rank, np.uint64(lo), "left"))
+    b = int(np.searchsorted(h_rank, np.uint64(hi), "right"))
+    if not desc:
+        return b - a, h_gid[a: min(b, a + upto)]
+    start = max(a, b - win_pad)
+    seen = np.lexsort((h_gid[start:b], ~h_rank[start:b]))
+    return b - a, h_gid[start:b][seen][:upto]
+
+
+def first_r_row(head, top_r: int):
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.setops import SENTINEL
+
+    row = np.full(top_r, int(SENTINEL), np.int64)
+    row[: len(head)] = head
+    return row
+
+
+def serve_all(s: Smoke, snap, base, delta, batches, top_r=C9_TOP_R):
+    """Every batch through ``serve_range_batch``, results on the host:
+    ``[(first request, counts, first_r, covered, window_total)]``."""
+    from hypergraphdb_tpu_torch.ops.value_index import serve_range_batch
+
+    outs = [(i, serve_range_batch(snap, base, delta, b, top_r=top_r,
+                                  device=s.dev)) for i, b in batches]
+    return [(i, *(t.cpu().numpy() for t in o)) for i, o in outs]
+
+
+def check_c9(s: Smoke, results, los, kinds, h_rank, h_gid, what: str):
+    """Every real lane's window total, and first_r up to its limit, equal
+    to the host column's oracle."""
+    from hypergraphdb_tpu_torch.ops.value_index import range_win_pad
+
+    for i, counts, first_r, covered, total in results:
+        for j in range(min(len(counts), len(los) - i)):
+            q = i + j
+            upto = C9_TOP_R if kinds[q] == 0 else min(C9_LIMIT, C9_TOP_R)
+            n, head = range_oracle(h_rank, h_gid, int(los[q]),
+                                   int(los[q]) + C9_WINDOW, kinds[q] == 2,
+                                   upto, range_win_pad(C9_TOP_R))
+            s.expect(int(total[j]) == n,
+                     f"{what}: request {q} window total {total[j]} != {n}")
+            s.expect(list(first_r[j][:upto]) == list(first_r_row(head, upto)),
+                     f"{what}: request {q} first_r differs from the oracle")
+
+
+def phase_values(s: Smoke, snap, info, join_rec: dict) -> dict:
+    """The value plane on the 10M snapshot: the device value columns, the
+    kind-0 value index column, bench.py c9's range and top-k traffic,
+    the same traffic over a base and a delta column, typed and anchored
+    lanes on the card against the CPU, and c3's value leg."""
+    import dataclasses
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops import setops
+    from hypergraphdb_tpu_torch.ops.snapshot import rank_words
+    from hypergraphdb_tpu_torch.ops.value_index import (
+        lane_bounds,
+        range_win_pad,
+        serve_range_batch,
+    )
+    from hypergraphdb_tpu_torch.storage import value_index as svi
+
+    torch = s.torch
+    t_phase = time.perf_counter()
+    N = snap.num_atoms
+    e0, l0 = info["entities"]
+    rec: dict = {}
+
+    # -- the columns
+    dsnap = snap.device(s.dev)
+    h1 = hub_rows(snap)[0][0]
+    rows = np.concatenate([np.random.default_rng(VALUE_ROW_SEED).integers(
+        0, N, VALUE_ROW_CHECKS - 3), [h1, N, N - 1]])
+    rows_dev = torch.from_numpy(rows).to(s.dev)
+    want_rank = rank_words(snap.value_rank[rows])
+    vcols = setops.value_columns(snap, s.dev)
+    s.expect(np.array_equal(dsnap.value_rank[rows_dev].cpu().numpy(),
+                            want_rank)
+             and np.array_equal(dsnap.value_kind[rows_dev].cpu().numpy(),
+                                snap.value_kind[rows]),
+             "device rank or kind column differs from numpy")
+    packed = vcols[rows_dev].cpu().numpy()
+    s.expect(np.array_equal(packed[:, 0], want_rank)
+             and np.array_equal(packed[:, 1], snap.value_kind[rows]),
+             "value_columns differs from numpy")
+
+    live = np.flatnonzero((snap.value_kind[:N] == 0) & (snap.type_of[:N] >= 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    col = svi.value_index_column(snap, 0, s.dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the host sort alone, on the same triples (also the oracle's order)
+    t0 = time.perf_counter()
+    order = np.lexsort((live, np.zeros(len(live), np.uint64),
+                        snap.value_rank[live]))
+    sort_s = time.perf_counter() - t0
+    h_rank, h_gid = snap.value_rank[live][order], live[order]
+    host = [np.empty(col.rank.shape[0], np.int64),
+            np.empty(col.rank.shape[0], np.int64),
+            np.empty(col.gids.shape[0], np.int32)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in host:
+        torch.from_numpy(a).to(s.dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    n = col.n
+    col_bytes = sum(t.numel() * t.element_size()
+                    for t in (col.rank, col.rank2, col.gids))
+    r, r2, g = col.rank[:n], col.rank2[:n], col.gids[:n]
+    sorted_ok = bool(((r[1:] > r[:-1]) | ((r[1:] == r[:-1]) & (
+        (r2[1:] > r2[:-1]) | ((r2[1:] == r2[:-1]) & (g[1:] > g[:-1])))))
+        .all())
+    perm_ok = bool(torch.equal(torch.sort(g).values,
+                               torch.from_numpy(live.astype(np.int32))
+                               .to(s.dev)))
+    pads_ok = bool((col.rank[n:] == int(svi.RANK_PAD)).all()
+                   and (col.gids[n:] == int(svi.GID_PAD)).all())
+    s.expect(sorted_ok and perm_ok and pads_ok and n == len(live),
+             "value index column is not the sorted live atoms")
+    s.expect(np.array_equal(col.gids[: min(n, 1 << 16)].cpu().numpy(),
+                            h_gid[: 1 << 16]),
+             "value index column's order differs from np.lexsort")
+    rec["column"] = {"entries": n, "slots": int(col.rank.shape[0]),
+                     "bytes": col_bytes, "build_s": build_s,
+                     "host_sort_s": sort_s, "upload_s": upload_s}
+    s.log(f"values: {len(rows)} rows of the device rank and kind columns "
+          f"and value_columns ({tuple(vcols.shape)} int64) equal numpy "
+          f"(h1 {h1}, the dummy row, the last link); kind-0 column built in "
+          f"{build_s:.3f} s (host sort alone {sort_s:.3f} s, upload of its "
+          f"{col_bytes} bytes alone {upload_s:.3f} s): {n} entries in "
+          f"{col.rank.shape[0]} slots, sorted by (rank, rank2, gid), gids "
+          f"the live atoms")
+
+    # -- bench.py c9's traffic over the whole column, an empty delta
+    empty = svi._sorted_device_column(0, np.zeros(0, np.uint64),
+                                      np.zeros(0, np.int64), minimum=32,
+                                      device=s.dev)
+    los, kinds = c9_requests(l0 - e0)
+    s.expect(range_win_pad(C9_TOP_R) == 16, "win_pad rule changed")
+    main = c9_batches(los, kinds, C9_BATCH)
+    whole = serve_all(s, snap, col, empty, main)
+    check_c9(s, whole, los, kinds, h_rank, h_gid, "c9")
+    for width in C9_OTHER_BATCHES:
+        part = c9_batches(los[:width], kinds[:width], width)
+        check_c9(s, serve_all(s, snap, col, empty, part), los, kinds,
+                 h_rank, h_gid, f"c9 {width}-lane batch")
+    secs = []
+    serve_all(s, snap, col, empty, main)                 # warm
+    for _ in range(C9_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_all(s, snap, col, empty, main)
+        secs.append(time.perf_counter() - t0)
+    rps = [C9_REQUESTS / t for t in secs]
+    rec["c9"] = {"requests": C9_REQUESTS, "batch": C9_BATCH,
+                 "requests_per_s_median": float(np.median(rps)),
+                 "min": min(rps), "max": max(rps),
+                 "window_s": secs, "kinds": np.bincount(kinds).tolist()}
+    s.log(f"values c9: {C9_REQUESTS} requests (range / top-k asc / top-k "
+          f"desc {np.bincount(kinds).tolist()}) in {C9_BATCH}-lane "
+          f"batches, and 64- and 256-lane batches, equal the numpy oracle; "
+          f"{np.median(rps):.1f} requests/s host to host (median of "
+          f"{C9_WINDOWS} warm windows, min {min(rps):.1f}, max "
+          f"{max(rps):.1f})")
+    one = main[0][1]
+
+    def range_batch():
+        out = serve_range_batch(snap, col, empty, one, top_r=C9_TOP_R,
+                                device=s.dev)
+        return [t.cpu() for t in out]
+
+    batch_ms = served_ms(s, range_batch)
+    s.log(f"values: one {C9_BATCH}-lane range batch host to host "
+          f"{spread(batch_ms)}")
+    s.profile_later(f"range batch ({C9_BATCH} lanes)", range_batch,
+                    float(np.median(batch_ms)))
+
+    # -- base + delta: phase 10's held-back links in the delta column
+    held = np.flatnonzero(snap.is_link[:N])[-DELTA_LINKS:]
+    is_held = np.zeros(N, dtype=bool)
+    is_held[held] = True
+    base_ids = live[~is_held[live]]
+    t0 = time.perf_counter()
+    base = svi._sorted_device_column(0, snap.value_rank[base_ids], base_ids,
+                                     device=s.dev)
+    delta = svi._sorted_device_column(0, snap.value_rank[held], held,
+                                      minimum=32, device=s.dev)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    split = serve_all(s, snap, base, delta, main)
+    # a descending window past the gather pad whose last win_pad entries
+    # start inside a rank tie: each column keeps the gids its own end
+    # reached, so a split may change first_r there (none at 10M atoms)
+    pad = range_win_pad(C9_TOP_R)
+    a_idx = np.searchsorted(h_rank, los.astype(np.uint64), "left")
+    b_idx = np.searchsorted(h_rank, (los + C9_WINDOW).astype(np.uint64),
+                            "right")
+    edge = np.maximum(b_idx - pad, 1)
+    torn = (kinds == 2) & (b_idx - a_idx > pad) & (
+        h_rank[edge - 1] == h_rank[np.minimum(edge, len(h_rank) - 1)])
+    for (i, c1, f1, cov1, t1), (_, c2, f2, cov2, t2) in zip(whole, split):
+        both = cov1 & cov2
+        keep = ~np.concatenate([torn[i: i + C9_BATCH],
+                                np.zeros(max(0, i + C9_BATCH - len(torn)),
+                                         bool)])
+        s.expect(np.array_equal(f1[keep], f2[keep])
+                 and np.array_equal(t1, t2),
+                 f"base + delta differs from the whole column at batch {i}")
+        s.expect(np.array_equal(c1[both], c2[both]),
+                 f"base + delta counts differ on covered lanes, batch {i}")
+    # one-rank windows over the link ranks meet both columns; ascending
+    # only: past the gather pad a descending tie keeps the gids each
+    # column's end reached, which a split moves (as in the reference)
+    lo_links = np.arange(64, dtype=np.uint64)
+    wide = lane_bounds(64, lo_links, np.zeros(64, bool), lo_links,
+                       np.ones(64, bool))
+    (_, *wa), = serve_all(s, snap, col, empty, [(0, wide)])
+    (_, *wb), = serve_all(s, snap, base, delta, [(0, wide)])
+    s.expect(np.array_equal(wa[1], wb[1]) and np.array_equal(wa[3], wb[3]),
+             "base + delta differs on the link ranks 0..63")
+    rec["delta"] = {"held_links": len(held), "torn": int(torn.sum()),
+                    "base_entries": base.n,
+                    "delta_entries": delta.n, "build_s": split_s}
+    s.log(f"values base + delta: {base.n} base and {delta.n} delta entries "
+          f"(phase 10's held-back links; built in {split_s:.3f} s); c9's "
+          f"{C9_REQUESTS} requests ({int(torn.sum())} descending windows "
+          f"torn at a rank tie left out of the first_r check) and 64 "
+          f"one-rank link windows give the whole column's first_r and "
+          f"window totals, counts equal where both are covered")
+
+    # -- filters: typed entity windows (covered), typed and anchored lanes
+    # over c3's link window (wide): the card against the CPU
+    th = top_property_type(snap, info)
+    no_entity_type = 1                      # a property type: links only
+    anchors = [h1] + [int(a) for a in join_rec["hub_heavy"]["anchors"]]
+    k = FILTER_LANES
+    f_lo = np.concatenate([los[:2 * k].astype(np.uint64),
+                           np.full(2 * len(anchors) + 2, C3_VALUE_LO,
+                                   np.uint64)])
+    f_hi = np.concatenate([los[:2 * k].astype(np.uint64)
+                           + np.uint64(FILTER_WIDTH),
+                           np.full(2 * len(anchors) + 2, C3_VALUE_HI,
+                                   np.uint64)])
+    n_f = len(f_lo)
+    type_vec = np.concatenate([np.zeros(k), np.full(k, no_entity_type),
+                               np.full(len(anchors), -1),
+                               np.full(len(anchors), th), [th, -1]])
+    anchor = np.concatenate([np.full(2 * k, -1), anchors, anchors,
+                             [-1, -1]])
+    hi_right = np.concatenate([np.ones(2 * k, bool),
+                               np.zeros(n_f - 2 * k, bool)])
+    fb = lane_bounds(setops._bucket(n_f, minimum=64), f_lo,
+                     np.zeros(n_f, bool), f_hi,
+                     hi_right, type_vec=type_vec, anchor=anchor,
+                     desc=np.arange(n_f) % 2 == 1)
+    card = [t.cpu().numpy() for t in serve_range_batch(
+        snap, col, empty, fb, top_r=C9_TOP_R, device=s.dev)]
+    cpu_col = dataclasses.replace(col, rank=col.rank.cpu(),
+                                  rank2=col.rank2.cpu(), gids=col.gids.cpu())
+    cpu_empty = dataclasses.replace(empty, rank=empty.rank.cpu(),
+                                    rank2=empty.rank2.cpu(),
+                                    gids=empty.gids.cpu())
+    cpu = [t.numpy() for t in serve_range_batch(
+        snap, cpu_col, cpu_empty, fb, top_r=C9_TOP_R, device="cpu")]
+    for a, b, name in zip(card, cpu, ("counts", "first_r", "covered",
+                                      "window_total")):
+        s.expect(a.dtype == b.dtype and np.array_equal(a, b),
+                 f"filter batch: {name} differs, card vs CPU")
+    counts, first_r, covered, total = card
+    n_cov = 0
+    for j in range(n_f):
+        if not covered[j]:
+            continue
+        n_cov += 1
+        lo_j, hi_j = int(f_lo[j]), int(f_hi[j])
+        a = int(np.searchsorted(h_rank, np.uint64(lo_j), "left"))
+        b = int(np.searchsorted(h_rank, np.uint64(hi_j),
+                                "right" if hi_right[j] else "left"))
+        ids = h_gid[a:b]
+        if type_vec[j] >= 0:
+            ids = ids[snap.type_of[ids] == type_vec[j]]
+        if anchor[j] >= 0:
+            ids = ids[np.isin(ids, snap.incidence_row(int(anchor[j])))]
+        if j % 2 == 1:   # descending; every entity rank is distinct
+            ids = ids[::-1]
+        s.expect(int(counts[j]) == len(ids) and list(first_r[j]) == list(
+            first_r_row(ids[:C9_TOP_R], C9_TOP_R)),
+                 f"filter lane {j} differs from numpy")
+    s.expect(n_cov >= 2 * k and not covered[2 * k: n_f].any(),
+             "filter batch: unexpected covered lanes")
+    rec["filters"] = {"lanes": n_f, "covered": n_cov,
+                      "anchors": len(anchors), "type": th}
+    s.log(f"values filters: {n_f} lanes ({2 * k} typed entity windows of "
+          f"width {FILTER_WIDTH + 1}, type 0 and type {no_entity_type}; "
+          f"{n_f - 2 * k} typed and anchored lanes at h1 and c7's "
+          f"{len(anchors) - 1} hub-heavy anchors over [{C3_VALUE_LO}, "
+          f"{C3_VALUE_HI}), type {th}) equal on the card and the CPU, all "
+          f"four outputs; the {n_cov} covered lanes equal numpy")
+    del cpu_col, cpu_empty
+
+    # -- bench.py c3's value leg on the pattern phase's plan
+    pairs, _ = c3_pairs(snap, info)
+    plan = setops.plan_pattern(snap, pairs, None, device=s.dev)
+    ell = setops.ell_targets(snap, s.dev)
+
+    def value_exec(vc=None):
+        return [setops.incident_value_range(
+            dsnap, ell, anchors_dev, pad, 0, C3_VALUE_LO, C3_VALUE_HI,
+            "gte", "lt", True, None, vc) for _, anchors_dev, pad in
+            plan.buckets]
+
+    outs = value_exec()
+    outs_v = value_exec(vcols)
+    for (rw, kp, tie, cnt), (rv, kv, tv, cv) in zip(outs, outs_v):
+        s.expect(torch.equal(rw, rv) and torch.equal(kp, kv)
+                 and torch.equal(cnt, cv) and not tie.any() and not tv.any(),
+                 "c3 value leg: the row pack differs from the columns")
+    got = np.zeros(PATTERN_PAIRS, np.int64)
+    for (sel, _, _), (_, _, _, cnt) in zip(plan.buckets, outs):
+        got[sel] = cnt.cpu().numpy()
+    in_win = (snap.value_rank >= C3_VALUE_LO) & (snap.value_rank < C3_VALUE_HI)
+    want = np.asarray([int(in_win[host_pattern(snap, p, None)].sum())
+                       for p in pairs])
+    s.expect(np.array_equal(got, want), "c3 value leg counts differ "
+             "from numpy")
+    # each op at rank C3_VALUE_LO: the masks of the first 128 queries
+    n_masks = 0
+    for sel, anchors_dev, pad in plan.buckets:
+        pick = np.flatnonzero(sel < 128)
+        if not len(pick):
+            continue
+        av = anchors_dev.cpu().numpy()
+        masks = {op: setops.incident_value_pattern(
+            dsnap, ell, anchors_dev, pad, 0, C3_VALUE_LO, op, True)
+            for op in setops.VALUE_OPS}
+        rows0 = masks["eq"][0].cpu().numpy()
+        for j in pick:
+            row = rows0[j]
+            other = snap.incidence_row(int(av[j, 1]))
+            pos = np.minimum(np.searchsorted(other, row),
+                             max(len(other) - 1, 0))
+            ok = (row != int(setops.SENTINEL)) & (
+                other[pos] == row if len(other) else False)
+            v = snap.value_rank[np.where(ok, row, N)].astype(np.int64)
+            want_of = {"eq": v == C3_VALUE_LO, "lt": v < C3_VALUE_LO,
+                       "lte": v <= C3_VALUE_LO, "gt": v > C3_VALUE_LO,
+                       "gte": v >= C3_VALUE_LO}
+            for op, (_, definite, tie) in masks.items():
+                s.expect(not bool(tie[j].any()) and np.array_equal(
+                    definite[j].cpu().numpy(), ok & want_of[op]),
+                    f"c3 value pattern {op}: query {sel[j]} differs")
+                n_masks += 1
+
+    def value_window():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PATTERN_REPS):
+            last = value_exec(vcols)
+        torch.cuda.synchronize()
+        return PATTERN_PAIRS * PATTERN_REPS / (time.perf_counter() - t0), last
+
+    value_window()                                         # warm
+    qps = [value_window()[0] for _ in range(PATTERN_WINDOWS)]
+    med = float(np.median(qps))
+    rec["c3_value"] = {"queries_per_s": qps, "median": med,
+                       "bindings": int(got.sum())}
+    s.log(f"values c3 value leg: {PATTERN_PAIRS} queries, kind 0 ranks "
+          f"[{C3_VALUE_LO}, {C3_VALUE_HI}) exact, counts equal numpy "
+          f"({int(got.sum())} links in all), row pack equal to the columns, "
+          f"{len(setops.VALUE_OPS)} ops' masks equal numpy on {n_masks} "
+          f"query rows; execute-only {med:.1f} queries/s (windows of "
+          f"{PATTERN_REPS} executions: {[round(q) for q in qps]})")
+    s.profile_later(f"c3 value leg window ({PATTERN_REPS} executions)",
+                    lambda: value_window(),
+                    PATTERN_PAIRS * PATTERN_REPS / med * 1e3)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    s.log(f"values phase: {rec['phase_s']:.1f} s in all; record "
+          + json.dumps({k: v for k, v in rec.items() if k != "c9"}))
+    return rec
 
 
 def phase_profiles(s: Smoke) -> None:
@@ -2659,7 +3165,8 @@ def main(argv: list[str]) -> int:
         phase_pattern(s, snap, info)
         phase_k3_timing(s, snap, n_k3, records)
         phase_delta(s, snap, info, truth, records)
-        phase_join(s, snap, info)
+        join_rec = phase_join(s, snap, info)
+        phase_values(s, snap, info, join_rec)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -2,7 +2,8 @@
 
 The port's copy of ``dbpedia_snapshot`` from
 ``hypergraphdb_tpu/models/generators.py``: the same random draws in the same
-order, so one seed gives the same topology arrays in both packages.
+order, so one seed gives the same arrays in both packages, value ranks
+included.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ def dbpedia_snapshot(
     Id layout: [0] entity-type atom, [1..P] property-type atoms,
     [T..T+n_entities) entity nodes, then links. Each link's first target is
     zipf-skewed (hubs), the rest uniform; a link's type is its property.
+    Value ranks: an entity's is its index among the entities, a link's its
+    property id (every kind byte 0), so value windows meet real skew.
 
     Returns (snapshot, info) where info has the id ranges and type handles.
     """
@@ -51,8 +54,13 @@ def dbpedia_snapshot(
     subj = e0 + (r.zipf(zipf_a, size=n_links) % n_entities)
     tgt_flat[tgt_offsets[l0:-1][:n_links]] = subj  # first slot of each link
 
+    value_rank = np.zeros(N, dtype=np.uint64)
+    value_rank[l0:] = props.astype(np.uint64)
+    value_rank[e0:l0] = np.arange(n_entities, dtype=np.uint64)
+
     snap = CSRSnapshot.from_tables(
-        type_of, is_link, tgt_offsets, tgt_flat.astype(np.int32)
+        type_of, is_link, tgt_offsets, tgt_flat.astype(np.int32),
+        value_rank=value_rank,
     )
     info = {
         "entity_type": 0,

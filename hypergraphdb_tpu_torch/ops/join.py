@@ -13,7 +13,7 @@ Per step::
     keys    = column j of the table (or a per-request constant)
     cand    = CSR row gather of keys           (R, pad)   — expansion
     cand   &= cand ∈ row(other)                per filter — leapfrog
-    cand   &= type/distinct masks
+    cand   &= type/value-window/distinct masks
     table'  = compact survivors into the next row bucket
 
 Truncation honesty: a CSR row wider than the expansion pad, or a
@@ -56,8 +56,10 @@ What differs from the reference, and why:
   cannot wrap.
 - Real lanes' constants must be atom ids in ``[0, N]`` (checked on the
   host); the reference clamps device indices instead.
-- Value windows need the snapshot's value columns, which the port does
-  not carry yet: :func:`execute_join` raises for them.
+- A value window's bounds are compared as the port's rank words (one
+  int64 per 64-bit rank, ``ops/snapshot.rank_words``), against the device
+  snapshot's rank and kind columns; the reference compares two uint32
+  words each.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ from hypergraphdb_tpu_torch.ops.setops import (
     _bucket,
     segment_member_mask,
 )
-from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
+from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot, rank_word
 
 #: default binding-table row cap (rows per batch, all requests pooled)
 DEFAULT_ROW_CAP = 1 << 15
@@ -496,6 +498,24 @@ def _filter_masks(cand, cmask, safe, key_of, filt_sel, filt_offsets,
     return cmask
 
 
+def _value_window_mask(cmask, safe, value_cols, value_win, value_ops):
+    """Rank-window leapfrog: each candidate's rank word and kind byte
+    against the window, applied before compaction so out-of-window
+    candidates never take binding rows. ``value_cols`` is ``(rank words,
+    kinds)`` (N+1,) each, ``value_win`` ``(kind, lo word, hi word)``;
+    cross-kind comparisons are always False."""
+    v = value_cols[0][safe]
+    cmask = cmask & (value_cols[1][safe] == value_win[0])
+    lo_op, hi_op = value_ops
+    if lo_op is not None:
+        cmask = cmask & (v >= value_win[1] if lo_op == "gte"
+                         else v > value_win[1])
+    if hi_op is not None:
+        cmask = cmask & (v <= value_win[2] if hi_op == "lte"
+                         else v < value_win[2])
+    return cmask
+
+
 def _distinct_masks(cmask, cand, cols, consts, lanes, n_distinct_cols,
                     distinct_consts):
     for j in range(n_distinct_cols):
@@ -545,6 +565,10 @@ def join_expand_step(
     distinct_consts: bool,       # candidates must differ from every constant
     dedupe: bool,                # expansion rows may repeat values (tgt)
     exp_irref: bool = False,     # expansion rows are CLOSED (factorized co)
+    value_cols: Optional[tuple] = None,  # (rank words, kinds) (N+1,) each
+    value_win: Optional[tuple] = None,   # (kind, lo word, hi word)
+    value_ops: Optional[tuple] = None,   # (lo_op|None, hi_op|None): a value
+    # window on THIS step's candidates; None applies none
 ) -> tuple:
     """Bind ONE variable for every binding row of a K-request batch:
     expand candidates from the keyed CSR row, leapfrog-intersect against
@@ -590,6 +614,9 @@ def join_expand_step(
                           filt_offsets, filt_flats, filt_groups)
     if type_handle >= 0:
         cmask = cmask & (type_of[safe] == type_handle)
+    if value_ops is not None:
+        cmask = _value_window_mask(cmask, safe, value_cols, value_win,
+                                   value_ops)
     cmask = _distinct_masks(cmask, cand, cols, consts, lanes_c,
                             n_distinct_cols, distinct_consts)
     row_n = cmask.sum(dim=1)
@@ -653,6 +680,9 @@ def join_hub_expand(
     n_distinct_cols: int,
     distinct_consts: bool,
     exp_irref: bool = False,
+    value_cols: Optional[tuple] = None,
+    value_win: Optional[tuple] = None,
+    value_ops: Optional[tuple] = None,
     row_widths: Optional[np.ndarray] = None,  # host widths of the rows
     # (0 where not valid): groups then skip rows already exhausted
     group_slots: int = DEFAULT_SLOT_BUDGET,   # candidate slots a group
@@ -660,9 +690,9 @@ def join_hub_expand(
     """The degree-split twin of :func:`join_expand_step` for HUB rows: a
     dense-frontier expansion that streams each keyed row in fixed
     ``block``-wide tiles instead of one padded gather — a row of ANY
-    width expands without width truncation. Filters/type/distinct masks
-    apply per tile; survivors stream-compact into one pooled ``rows_out``
-    buffer through a running cursor, tile by tile and row-major within a
+    width expands without width truncation. Filters/type/value/distinct
+    masks apply per tile; survivors stream-compact into one pooled
+    ``rows_out`` buffer through a running cursor, tile by tile and row-major within a
     tile, so each lane's survivors arrive in ascending candidate order.
     Returns the same ``(cols', lanes', valid', lane_counts, lane_trunc)``
     contract — ``lane_counts`` stay exact even when the pooled buffer
@@ -721,6 +751,9 @@ def join_hub_expand(
                               filt_offsets, filt_flats, filt_groups)
         if type_handle >= 0:
             cmask = cmask & (type_of[safe] == type_handle)
+        if value_ops is not None:
+            cmask = _value_window_mask(cmask, safe, value_cols, value_win,
+                                       value_ops)
         cmask = _distinct_masks(cmask, cand, g_cols, consts, lanes_c,
                                 n_distinct_cols, distinct_consts)
         counts += _lane_add(n_lanes, g_lanes, cmask.sum(dim=1))
@@ -922,7 +955,7 @@ class _ChainCtx:
 
     def __init__(self, snap, dsnap, device, K, A, consts, consts_dev, n_real,
                  distinct, row_cap, pad_cap, var_pad_max, slot_budget,
-                 hub_block, fact, fact_dev):
+                 vwindows, hub_block, fact, fact_dev):
         self.snap = snap
         self.dsnap = dsnap
         self.device = device
@@ -936,6 +969,7 @@ class _ChainCtx:
         self.pad_cap = pad_cap
         self.var_pad_max = var_pad_max
         self.slot_budget = slot_budget
+        self.vwindows = vwindows
         self.hub_block = hub_block
         self.fact = fact
         self.fact_dev = fact_dev
@@ -950,6 +984,19 @@ class _ChainCtx:
             return o, f, g, self.fact[rel].closed
         o, f = _rel_arrays(self.snap, self.dsnap, rel, self.device)
         return o, f, None, False
+
+    def value_window(self, var: str) -> dict:
+        """The keyword arguments that put ``var``'s value window on the
+        step binding it (none where it has no window)."""
+        win = self.vwindows.get(var)
+        if win is None:
+            return {}
+        kind, lo_r, lo_op, hi_r, hi_op = win
+        return dict(
+            value_cols=(self.dsnap.value_rank, self.dsnap.value_kind),
+            value_win=(int(kind), rank_word(lo_r or 0), rank_word(hi_r or 0)),
+            value_ops=(lo_op, hi_op),
+        )
 
     def widths_of(self, rel: str, keys: np.ndarray) -> np.ndarray:
         return _rel_widths_of(self.snap, rel, keys, self.fact, self.device)
@@ -1008,6 +1055,7 @@ def _run_chain(ctx: _ChainCtx, steps, cols, lanes, valid, *,
             n_distinct_cols=int(cols.shape[1]) if ctx.distinct else 0,
             distinct_consts=ctx.distinct and ctx.A > 0,
             exp_irref=exp_irref,
+            **ctx.value_window(s.var),
         )
         use_hub = hub and not s.dedupe and s.source_key.kind == "const"
         use_row_split = hub and not s.dedupe and \
@@ -1269,15 +1317,18 @@ def execute_join(
     space, sum the counts). ``n_real`` marks lanes past it as padding:
     they count nothing and their constants are never read as rows.
 
-    ``value_windows`` (value-rank windows on a variable's candidates)
-    raise :class:`JoinUnsupported`: the port's snapshot has no value
-    columns yet."""
-    if value_windows:
-        raise JoinUnsupported(
-            "value windows need the snapshot's value columns, which the "
-            "port does not carry yet (ROADMAP queue 1, items 3 and 5); "
-            "serve this join on the host path"
-        )
+    ``value_windows`` maps a plan variable to a value-rank window ``(kind,
+    lo_rank, lo_op, hi_rank, hi_op)`` (64-bit ranks, ops gt/gte and
+    lt/lte, None = open), applied as a candidate filter INSIDE the step
+    binding that variable, so out-of-window candidates never take binding
+    rows. Callers own kind exactness: fixed-width kinds only, since rank
+    ties of variable-width kinds would drop true matches silently."""
+    vwindows = dict(value_windows or {})
+    for var, (kind, lo_r, lo_op, hi_r, hi_op) in vwindows.items():
+        if not 0 <= int(kind) < 256 or lo_op not in (None, "gt", "gte") \
+                or hi_op not in (None, "lt", "lte"):
+            raise ValueError(f"bad value window on {var!r}: kind must be a "
+                             "byte, lo_op gt/gte/None, hi_op lt/lte/None")
     dev = resolve_device(device)
     dsnap = snap.device(dev)
     K, A = (int(consts.shape[0]), int(consts.shape[1]))
@@ -1292,8 +1343,8 @@ def execute_join(
     fact, fact_dev = _resolve_factorized(snap, factorized, dev)
     ctx = _ChainCtx(
         snap, dsnap, dev, K, A, consts, consts_dev, n_real, plan.distinct,
-        row_cap, pad_cap, var_pad_max, slot_budget, hub_block, fact,
-        fact_dev,
+        row_cap, pad_cap, var_pad_max, slot_budget, vwindows, hub_block,
+        fact, fact_dev,
     )
     kw = dict(top_r=top_r, full=full, count_only=count_only)
     if getattr(plan, "bags", None) is not None:

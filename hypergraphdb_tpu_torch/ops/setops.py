@@ -1,8 +1,7 @@
 """Sorted-set operators: the conjunctive-pattern lane and the n-way sorted
 intersection.
 
-The port of ``hypergraphdb_tpu/ops/setops.py`` (its value-pushdown kernels
-excepted: the port's snapshot carries no value columns yet). The
+The port of ``hypergraphdb_tpu/ops/setops.py``. The
 conjunctive pattern ``And(type, incident(a), incident(b), ...)`` gathers the
 smallest anchor's incidence row per query into a (K, pad) SENTINEL-padded
 matrix and tests every candidate link against the other anchors: through
@@ -10,6 +9,13 @@ the ELL target matrix (one W-wide row compare per candidate) when every
 link is at most :data:`ELL_MAX_WIDTH` wide, else by a binary search straight
 into the incidence CSR (the zigzag route). None of it is a TPU kernel in the
 reference; it is plain PyTorch here.
+
+The value pushdown (:func:`incident_value_pattern`,
+:func:`incident_value_range`) adds a predicate on each candidate's value
+rank to the ELL route. Ranks compare as the port's rank words (one int64
+per 64-bit rank, ``ops/snapshot.rank_words``); bounds are given as 64-bit
+ranks. For variable-width kinds a rank tie cannot decide the predicate: tied
+candidates come back in a separate tie mask, never in the definite one.
 
 :func:`device_intersect_sorted` is the planner's large-intersection step.
 On the card every call with more than one array launches K3
@@ -31,7 +37,12 @@ import numpy as np
 import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot, DeviceSnapshot
+from hypergraphdb_tpu_torch.ops.snapshot import (
+    CSRSnapshot,
+    DeviceSnapshot,
+    rank_word,
+    rank_words,
+)
 
 SENTINEL = np.int32(np.iinfo(np.int32).max)
 
@@ -243,6 +254,117 @@ def incident_intersection_ell(dev: DeviceSnapshot, tgt_ell: torch.Tensor,
     if type_handle is not None:
         mask = mask & (dev.type_of[safe] == type_handle)
     return rows0, mask
+
+
+def value_columns(snap: CSRSnapshot,
+                  device: str | torch.device = DEFAULT_DEVICE
+                  ) -> torch.Tensor:
+    """Dense (N+1, 2) int64 row pack of ``[rank word, kind]``, built on
+    ``device`` once and cached on the snapshot per device: the value
+    predicates fetch a candidate's rank and kind in one 16-byte row gather
+    instead of two column gathers (the reference's (N+1, 4) uint32 pack of
+    ``[rank_hi, rank_lo, kind, 0]``)."""
+    dev = resolve_device(device)
+    cache = snap.__dict__.setdefault("_value_cols", {})
+    key = str(dev)
+    if key not in cache:
+        n1 = snap.num_atoms + 1
+        cols = np.zeros((n1, 2), dtype=np.int64)
+        cols[:, 0] = rank_words(snap.value_rank[:n1])
+        kind = snap.value_kind[:n1]
+        cols[: len(kind), 1] = kind
+        cache[key] = torch.from_numpy(cols).to(dev)
+    return cache[key]
+
+
+#: the comparison ops of one value bound
+VALUE_OPS = ("eq", "lt", "lte", "gt", "gte")
+
+
+def _candidate_values(dev: DeviceSnapshot, rows0, mask, vcols):
+    """Rank words and kinds of the candidates (the dummy row where
+    ``mask`` is off), from the row pack ``vcols`` when given."""
+    safe = torch.where(mask, rows0, dev.type_of.shape[0] - 1)
+    if vcols is not None:
+        packed = vcols[safe]
+        return packed[..., 0], packed[..., 1]
+    return dev.value_rank[safe], dev.value_kind[safe]
+
+
+def incident_value_pattern(
+    dev: DeviceSnapshot,
+    tgt_ell: torch.Tensor,    # (N+1, W) int32
+    anchors: torch.Tensor,    # (K, P) int32: anchors[:, 0] is the base
+    pad_len: int,
+    kind: int,                # the value kind byte
+    rank: int,                # the query's 64-bit rank
+    op: str,                  # eq | lt | lte | gt | gte
+    exact: bool,              # fixed-width kind: rank order is value order
+    type_handle: Optional[int] = None,
+    vcols: Optional[torch.Tensor] = None,  # value_columns row pack
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The conjunctive incident pattern with a value predicate on each
+    candidate link, compared through the order-preserving ranks. For
+    fixed-width kinds (``exact``) the rank comparison is the value
+    comparison; otherwise rank ties come back in the tie mask for the
+    host to decide. Returns ``(candidate rows, definite mask, tie
+    mask)``."""
+    if op not in VALUE_OPS:
+        raise ValueError(f"value op {op!r} is not one of {VALUE_OPS}")
+    rows0, mask = incident_intersection_ell(dev, tgt_ell, anchors, pad_len,
+                                            type_handle)
+    v, vk = _candidate_values(dev, rows0, mask, vcols)
+    mask = mask & (vk == kind)
+    q = rank_word(rank)
+    gt, eq = v > q, v == q
+    if exact:
+        keep = {"eq": eq, "lt": ~gt & ~eq, "lte": ~gt, "gt": gt,
+                "gte": gt | eq}[op]
+        return rows0, mask & keep, torch.zeros_like(mask)
+    strict = {"eq": torch.zeros_like(eq), "lt": ~gt & ~eq,
+              "lte": ~gt & ~eq, "gt": gt, "gte": gt}[op]
+    return rows0, mask & strict, mask & eq
+
+
+def incident_value_range(
+    dev: DeviceSnapshot,
+    tgt_ell: torch.Tensor,    # (N+1, W) int32
+    anchors: torch.Tensor,    # (K, P) int32: anchors[:, 0] is the base
+    pad_len: int,
+    kind: int,                # the value kind byte
+    lo: int,                  # lower-bound 64-bit rank
+    hi: int,                  # upper-bound 64-bit rank
+    lo_op: str,               # gt | gte
+    hi_op: str,               # lt | lte
+    exact: bool,
+    type_handle: Optional[int] = None,
+    vcols: Optional[torch.Tensor] = None,  # value_columns row pack
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both bounds of a value window in one pass: the incident
+    intersection and the rank gathers run once. Returns ``(candidate
+    rows, definite mask, tie mask, counts)``, counts (K,) int32 of the
+    definite survivors. For variable-width kinds only candidates strictly
+    inside the window are definite; a rank tie at either bound goes to the
+    tie mask."""
+    if lo_op not in ("gt", "gte") or hi_op not in ("lt", "lte"):
+        raise ValueError(f"bad window ops ({lo_op}, {hi_op}): lower must "
+                         "be gt/gte, upper lt/lte")
+    rows0, mask = incident_intersection_ell(dev, tgt_ell, anchors, pad_len,
+                                            type_handle)
+    v, vk = _candidate_values(dev, rows0, mask, vcols)
+    mask = mask & (vk == kind)
+    q_lo, q_hi = rank_word(lo), rank_word(hi)
+    gt_lo, eq_lo = v > q_lo, v == q_lo
+    gt_hi, eq_hi = v > q_hi, v == q_hi
+    if exact:
+        keep_lo = gt_lo | eq_lo if lo_op == "gte" else gt_lo
+        keep_hi = ~gt_hi if hi_op == "lte" else ~gt_hi & ~eq_hi
+        keep = mask & keep_lo & keep_hi
+        return (rows0, keep, torch.zeros_like(keep),
+                keep.sum(dim=1, dtype=torch.int32))
+    keep = mask & gt_lo & ~gt_hi & ~eq_hi
+    tie = mask & (eq_lo | eq_hi)
+    return rows0, keep, tie, keep.sum(dim=1, dtype=torch.int32)
 
 
 def compact(rows: torch.Tensor, mask: torch.Tensor, top_r: int):

@@ -10,22 +10,59 @@ and row ``N`` is a dummy row that absorbs padding):
 - ``tgt_offsets[N+2]``, ``tgt_flat``, ``tgt_src`` — target CSR: the ordered
   targets of each link atom, and its source link per entry.
 - ``type_of[N+1]``, ``is_link[N+1]``, ``arity[N+1]``.
+- ``value_rank[N+1]`` (uint64), ``value_kind[N+1]`` (uint8),
+  ``value_rank2[N+1]`` (uint64) and ``value_ambig[N+1]`` (bool): each atom's
+  order-preserving 64-bit value rank (payload bytes 0..8 of its key), the
+  key's kind byte, the second rank word (payload bytes 8..16, the tie-break
+  of variable-width kinds) and whether that pair fails to stand in for the
+  whole key.
 - ``by_type``: type handle → sorted array of atom ids (``type_set``).
 
-Value columns (ranks, kinds) are not carried yet; ``pack(graph)`` waits for
-the port's own graph layer. :meth:`CSRSnapshot.from_reference_arrays` takes
-the reference snapshot's numpy columns as a plain dict, so both packages can
-run on one structure.
+On the device a 64-bit rank is ONE int64 with its sign bit flipped
+(:func:`rank_words`): signed order is then the unsigned rank order, where
+the reference splits each rank into two uint32 words (JAX without x64 has
+no uint64) and compares them hi then lo. :func:`reference_words` maps the
+port's words back to that pair.
+
+``pack(graph)`` waits for the port's own graph layer.
+:meth:`CSRSnapshot.from_reference_arrays` takes the reference snapshot's
+numpy columns as a plain dict, so both packages can run on one structure.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, fields
+from typing import Optional
 
 import numpy as np
 import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
+#: the sign bit a rank word flips
+_SIGN = np.uint64(1 << 63)
+
+
+def rank_words(ranks) -> np.ndarray:
+    """64-bit ranks (uint64) as the port's rank words: int64 with the sign
+    bit flipped, so one signed compare orders them as the ranks."""
+    return (np.asarray(ranks, dtype=np.uint64) ^ _SIGN).view(np.int64)
+
+
+def rank_word(rank: int) -> int:
+    """One 64-bit rank, a python int in ``[0, 2**64)``, as a rank word."""
+    rank = int(rank)
+    if not 0 <= rank < 1 << 64:
+        raise ValueError(f"rank {rank} is not a 64-bit unsigned value")
+    return rank - (1 << 63)
+
+
+def reference_words(words) -> tuple[np.ndarray, np.ndarray]:
+    """The port's rank words back to the reference's ``(hi, lo)`` uint32
+    pair of each 64-bit rank."""
+    r = np.ascontiguousarray(words, dtype=np.int64).view(np.uint64) ^ _SIGN
+    return ((r >> np.uint64(32)).astype(np.uint32),
+            (r & np.uint64(0xFFFFFFFF)).astype(np.uint32))
 
 
 def _pad_to(arr: np.ndarray, multiple: int, fill) -> np.ndarray:
@@ -88,6 +125,17 @@ class CSRSnapshot:
     type_of: np.ndarray
     is_link: np.ndarray
     arity: np.ndarray
+    value_rank: np.ndarray
+    value_kind: np.ndarray = field(
+        default_factory=lambda: np.empty(0, np.uint8))
+    #: empty on snapshots without the tie-break word: their variable-width
+    #: columns cannot certify device exactness
+    value_rank2: np.ndarray = field(
+        default_factory=lambda: np.empty(0, np.uint64))
+    #: consulted for variable-width kinds only: a fixed-width kind's single
+    #: rank word is exact by construction
+    value_ambig: np.ndarray = field(
+        default_factory=lambda: np.empty(0, bool))
     by_type: dict[int, np.ndarray] = field(default_factory=dict)
     n_edges_inc: int = 0    # real (unpadded) incidence entries
     n_edges_tgt: int = 0    # real (unpadded) target entries
@@ -96,8 +144,12 @@ class CSRSnapshot:
     REFERENCE_FIELDS = (
         "version", "num_atoms", "inc_offsets", "inc_links", "inc_src",
         "tgt_offsets", "tgt_flat", "tgt_src", "type_of", "is_link", "arity",
+        "value_rank", "value_kind", "value_rank2", "value_ambig",
         "n_edges_inc", "n_edges_tgt",
     )
+    #: the value columns' dtypes; all but ``value_rank`` may be empty
+    VALUE_DTYPES = {"value_rank": np.uint64, "value_kind": np.uint8,
+                    "value_rank2": np.uint64, "value_ambig": np.bool_}
 
     @staticmethod
     def from_tables(
@@ -105,11 +157,20 @@ class CSRSnapshot:
         is_link: np.ndarray,      # (N,) bool
         tgt_offsets: np.ndarray,  # (N+1,) int — target CSR offsets
         tgt_flat: np.ndarray,     # (E,) int — ordered targets per link
+        value_rank: Optional[np.ndarray] = None,   # (N,) uint64 ranks
+        value_kind: Optional[np.ndarray] = None,   # (N,) uint8 kind bytes
+        value_rank2: Optional[np.ndarray] = None,  # (N,) uint64 tie-break
+        value_ambig: Optional[np.ndarray] = None,  # (N,) bool ambiguity
         version: int = 0,
         pad_multiple: int = 128,
     ) -> "CSRSnapshot":
         """Assemble a snapshot directly from columnar tables (the bulk
-        path the benchmark generators use to build 10M-atom graphs)."""
+        path the benchmark generators use to build 10M-atom graphs).
+
+        Callers that give kinds but neither the tie-break word nor the
+        ambiguity flags carry no keys to derive them from: their
+        variable-width atoms are marked ambiguous, so no device window
+        over them claims exactness."""
         N = len(type_of)
         type_col = np.full(N + 1, -1, dtype=np.int32)
         type_col[:N] = type_of
@@ -118,6 +179,25 @@ class CSRSnapshot:
         arity = np.zeros(N + 1, dtype=np.int32)
         lens = np.asarray(tgt_offsets[1:]) - np.asarray(tgt_offsets[:-1])
         arity[:N] = lens.astype(np.int32)
+        value = {}
+        for name, col in (("value_rank", value_rank),
+                          ("value_kind", value_kind),
+                          ("value_rank2", value_rank2),
+                          ("value_ambig", value_ambig)):
+            value[name] = np.zeros(N + 1, dtype=CSRSnapshot.VALUE_DTYPES[name])
+            if col is not None:
+                value[name][:N] = col
+        if value_ambig is None and value_kind is not None \
+                and value_rank2 is None:
+            # imported here: the storage module imports this one
+            from hypergraphdb_tpu_torch.storage.value_index import (
+                FIXED_WIDTH_KINDS,
+            )
+
+            kinds = value["value_kind"][:N]
+            fixed = np.isin(kinds, np.frombuffer(bytes(FIXED_WIDTH_KINDS),
+                                                 dtype=np.uint8))
+            value["value_ambig"][:N] = (kinds != 0) & ~fixed
         off = np.zeros(N + 2, dtype=np.int32)
         off[1 : N + 1] = np.asarray(tgt_offsets[1:], dtype=np.int32)
         off[N + 1] = off[N]
@@ -141,6 +221,7 @@ class CSRSnapshot:
             type_of=type_col,
             is_link=link_col,
             arity=arity,
+            **value,
             by_type=_group_by_type(type_col[:N]),
             n_edges_inc=e_inc,
             n_edges_tgt=e_tgt,
@@ -165,10 +246,15 @@ class CSRSnapshot:
             if cols[k].shape != (N + 2,):
                 raise ValueError(f"{k} must have N+2 = {N + 2} entries, "
                                  f"got {cols[k].shape}")
-        for k in ("type_of", "is_link", "arity"):
+        for k in ("type_of", "is_link", "arity", "value_rank"):
             if cols[k].shape != (N + 1,):
                 raise ValueError(f"{k} must have N+1 = {N + 1} entries, "
                                  f"got {cols[k].shape}")
+        for k, dtype in CSRSnapshot.VALUE_DTYPES.items():
+            if cols[k].shape not in ((N + 1,), (0,)):
+                raise ValueError(f"{k} must have N+1 = {N + 1} entries or "
+                                 f"none, got {cols[k].shape}")
+            cols[k] = cols[k].astype(dtype, copy=False)
         return CSRSnapshot(
             version=int(d["version"]),
             num_atoms=N,
@@ -216,7 +302,10 @@ def cached_index64(holder, name: str) -> torch.Tensor:
 
 @dataclass
 class DeviceSnapshot:
-    """The tensor twin of a :class:`CSRSnapshot` (topology columns)."""
+    """The tensor twin of a :class:`CSRSnapshot`: the topology columns,
+    the rank words (int64, :func:`rank_words`) and the kind bytes (uint8;
+    zeros where the host column is not N+1 long). The second rank word
+    stays on the host: the value index's columns carry it."""
 
     num_atoms: int
     inc_offsets: torch.Tensor
@@ -228,16 +317,22 @@ class DeviceSnapshot:
     type_of: torch.Tensor
     is_link: torch.Tensor
     arity: torch.Tensor
+    value_rank: torch.Tensor
+    value_kind: torch.Tensor
 
     @staticmethod
     def from_host(snap: CSRSnapshot,
                   device: str | torch.device = DEFAULT_DEVICE
                   ) -> "DeviceSnapshot":
         dev = resolve_device(device)
-        cols = {
-            f.name: torch.from_numpy(np.ascontiguousarray(getattr(snap, f.name)))
-            for f in fields(DeviceSnapshot) if f.name != "num_atoms"
-        }
+        n1 = snap.num_atoms + 1
+        host = {f.name: getattr(snap, f.name) for f in fields(DeviceSnapshot)
+                if f.name != "num_atoms"}
+        host["value_rank"] = rank_words(snap.value_rank)
+        if len(snap.value_kind) != n1:
+            host["value_kind"] = np.zeros(n1, dtype=np.uint8)
+        cols = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in host.items()}
         return DeviceSnapshot(num_atoms=snap.num_atoms, **cols).to(dev)
 
     def index64(self, name: str) -> torch.Tensor:

@@ -240,6 +240,105 @@ def test_typed_and_duplicate_target_patterns(graph):
         assert _rows(t, pplan, p, 0) == join.host_join(graph, p)
 
 
+# ------------------------------------------------------------ value windows
+
+
+def _rank_of(g, value):
+    """``(kind byte, 64-bit rank)`` of a value's key in the graph."""
+    from hypergraphdb_tpu.utils.ordered_bytes import rank64
+
+    key = g.typesystem.infer(value).to_key(value)
+    return key[0], rank64(key[1:])
+
+
+def test_value_window_filters_candidates(graph):
+    """``tests/test_value_index.py``'s join scenario: a co-incidence
+    variable windowed to ints in [103, 108), lo only and hi only: full
+    binding tables equal to the reference's, counts to the host's."""
+    from hypergraphdb_tpu.join.planner import try_single_var_join
+
+    vn = [int(graph.add(100 + i)) for i in range(12)]
+    anchor = vn[0]
+    for i in range(1, 12):
+        graph.add_link([anchor, vn[i]], value=f"l{i}")
+    cond = c.And(c.CoIncident(anchor), c.AtomValue(103, "gte"),
+                 c.AtomValue(108, "lt"))
+    plan_obj = try_single_var_join(
+        graph, [c.CoIncident(anchor)], fallback=None,
+        value_conds=[c.AtomValue(103, "gte"), c.AtomValue(108, "lt")])
+    snap, port, p, rplan, pplan = _plans(graph, plan_obj.pattern)
+    kind, lo = _rank_of(graph, 103)
+    _, hi = _rank_of(graph, 108)
+    var0 = pplan.order[0]
+    consts = [plan_obj.consts]
+    cases = {
+        "both": ((kind, lo, "gte", hi, "lt"), 5),
+        "lo": ((kind, lo, "gte", None, None), 9),
+        "hi": ((kind, None, None, hi, "lt"), 7),
+        "lo_gt_hi_lte": ((kind, lo, "gt", hi, "lte"), 5),
+        "other_kind": ((ord("s"), lo, "gte", None, None), 0),
+    }
+    assert len(sorted(int(h) for h in graph.find_all(cond))) == 5
+    for name, (win, want) in cases.items():
+        _, t = _run_both(snap, port, rplan, pplan, consts, top_r=16,
+                         full=True, value_windows={var0: win})
+        assert int(t.counts[0]) == want, name
+        assert not bool(t.trunc[0])
+    _, t = _run_both(snap, port, rplan, pplan, consts, top_r=16, full=True)
+    assert int(t.counts[0]) == 11
+
+
+WINDOW_MODES = {
+    "tail": dict(var_pad_max=True),
+    "split": dict(hub_threshold=8, var_pad_max=True),
+    "unsplit": dict(hub_split=False, pad_cap=40),
+    "fact_split": dict(factorized=True, hub_threshold=8, pad_cap=40),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(WINDOW_MODES))
+@pytest.mark.parametrize("shape", ["link_var", "path2", "triangle"])
+def test_value_windows_match_reference_by_mode(graph, shape, mode):
+    """Windows on the first and the last bound variable, through the tail
+    chain, the degree split (hub chain, row-split steps), the flat padded
+    executor and the factorized relations; link ids carry int values,
+    nodes strings. Full binding tables equal to the reference's."""
+    hub, nodes = _build_hub(graph)
+    anchors = [hub] + nodes[3:9]
+    snap, port, p, rplan, pplan = _plans(graph, SHAPES[shape](hub))
+    first, last = pplan.order[0], pplan.order[-1]
+    s_kind, s_lo = _rank_of(graph, "n20")
+    _, s_hi = _rank_of(graph, "n60")
+    i_kind, i_lo = _rank_of(graph, 40)
+    _, i_hi = _rank_of(graph, 120)
+    win = {v: ((i_kind, i_lo, "gte", i_hi, "lt") if v == "l"
+               else (s_kind, s_lo, "gt", s_hi, "lte"))
+           for v in (first, last)}
+    kw = dict(WINDOW_MODES[mode], top_r=16, full=True, row_cap=1 << 16)
+    _, t = _run_both(snap, port, rplan, pplan, _consts(p, anchors),
+                     value_windows=win, **kw)
+    _, t0 = _run_both(snap, port, rplan, pplan, _consts(p, anchors), **kw)
+    assert (t.counts <= t0.counts).all()
+    assert int(t.counts.sum()) < int(t0.counts.sum())
+
+
+def test_value_windows_on_a_bushy_plan(graph):
+    nodes = _build(graph, seed=5)
+    a, b = nodes[4], nodes[11]
+    p = join.extract_pattern(graph, STAR_OF_STARS(a, b))
+    snap, port, p, rplan, pplan = _plans(graph, p, bushy=True)
+    assert pplan.describe().startswith("bushy[")
+    kind, lo = _rank_of(graph, "n30")
+    win = {"z": (kind, lo, "gte", None, None),
+           "u": (kind, None, None, lo, "lt")}
+    consts = [join.split_constants(p)[1]]
+    _, t = _run_both(snap, port, rplan, pplan, consts, top_r=8, full=True,
+                     var_pad_max=True, value_windows=win)
+    _, t0 = _run_both(snap, port, rplan, pplan, consts, top_r=8, full=True,
+                      var_pad_max=True)
+    assert int(t.counts[0]) < int(t0.counts[0])
+
+
 # ---------------------------------------------------------------- declines
 
 
@@ -272,10 +371,15 @@ def test_value_windows_and_bad_constants_raise(graph):
     nodes = _build(graph, seed=2)
     snap, port, p, rplan, pplan = _plans(graph, SHAPES["path2"](nodes[3]))
     cv = _consts(p, [nodes[3]])
-    with pytest.raises(JoinUnsupported, match="value"):
-        pj.execute_join(port, pplan, cv, device="cpu",
-                        value_windows={"y": (1, 0, "gte", None, None)})
-    pj.execute_join(port, pplan, cv, device="cpu", value_windows={})
+    kind, lo = _rank_of(graph, "n10")
+    for win in ({"y": (kind, lo, "gte", None, None)}, {}):
+        _run_both(snap, port, rplan, pplan, cv, top_r=16, full=True,
+                  var_pad_max=True, value_windows=win)
+    for bad in ((256, 0, "gte", None, None), (kind, 0, "lt", None, None),
+                (kind, None, None, 5, "gte")):
+        with pytest.raises(ValueError, match="value window"):
+            pj.execute_join(port, pplan, cv, device="cpu",
+                            value_windows={"y": bad})
     for bad in (-1, port.num_atoms + 1):
         with pytest.raises(ValueError, match="atom ids"):
             pj.execute_join(port, pplan, np.asarray([[bad]], np.int32),
