@@ -1653,12 +1653,12 @@ def split_snapshot(snap, n_held: int):
     return base, [(int(h), flat[off[h] : off[h + 1]]) for h in held]
 
 
-def delta_csr(memtable, n1: int):
-    """A memtable's entries as host CSRs: ``(inc_off, inc_links, tgt_off,
-    tgt_flat)``, incidence rows by atom and target rows by link."""
+def delta_csr(hd: dict, n1: int):
+    """A memtable's entries (its ``host_delta()``) as host CSRs:
+    ``(inc_off, inc_links, tgt_off, tgt_flat)``, incidence rows by atom and
+    target rows by link."""
     import numpy as np
 
-    hd = memtable.host_delta()
     out = []
     for row, col in (("inc_src", "inc_links"), ("tgt_src", "tgt_flat")):
         order = np.argsort(hd[row], kind="stable")
@@ -1880,7 +1880,8 @@ def phase_delta(s: Smoke, full, info, truth: dict, records: dict) -> None:
     dense_seeds[H1_LANE] = h1
     host_lanes = range(H1_LANE + 1)
     pool = ThreadPoolExecutor(max_workers=4)
-    csr_big, csr_small = delta_csr(big, N + 1), delta_csr(small, N + 1)
+    csr_big = delta_csr(big.host_delta(), N + 1)
+    csr_small = delta_csr(small.host_delta(), N + 1)
     no_dead = np.zeros(N + 1, dtype=bool)
     host_dead = {k: pool.submit(host_bfs_delta, base, csr_big, dead,
                                 int(dense_seeds[k]), HOPS)
@@ -3088,6 +3089,430 @@ def phase_values(s: Smoke, snap, info, join_rec: dict) -> dict:
     return rec
 
 
+#: bench.py c5's configuration (``bench_c5``, BASELINE config 5): entities
+#: and links built through ``bulk_import`` in chunks, the stream's batches,
+#: the reader's seeds and hops, ``default_rng(C5_SEED)`` for all of it
+C5_ENTITIES, C5_LINKS, C5_LOAD_CHUNK = 200_000, 400_000, 100_000
+C5_BATCHES, C5_BATCH_LINKS = 40, 10_000
+C5_K, C5_HOPS, C5_SEED = 256, 2, 11
+#: c5's ``enable_incremental`` arguments
+C5_MANAGER = dict(headroom=1.8, background=True, delta_bucket_min=1 << 18,
+                  compact_ratio=0.1, pack_pad_multiple=1 << 19)
+#: the compactions that must land inside the timed window (c5's reason
+#: for compact_ratio 0.1)
+C5_MIN_LIVE_COMPACTIONS = 2
+#: bounds of the phase's waits, seconds: the timed window (the reader stops
+#: reading), the writer's join after it, the final wait_compacted
+C5_WINDOW_LIMIT_S, C5_JOIN_S, C5_COMPACT_WAIT_S = 600.0, 60.0, 300.0
+#: batches after a swap whose whole bitmap is held against a host BFS over
+#: their pinned view; lanes of the final view checked against a host BFS
+#: over the graph's own incidence sets
+C5_SWAP_CHECKS, C5_HOST_SEEDS = 2, 8
+#: the final view's range batch: C5_RANGE_LANES lanes, the first half over
+#: the stream's values (each held by about 42 atoms, in base and delta),
+#: windows [lo, lo + C9_WINDOW]; the rest over base-only link values (one
+#: atom each), windows [lo, lo + C5_NARROW] that fit the gather pad;
+#: ascending ranges and top-k (limit C9_LIMIT) alternate;
+#: default_rng(C5_RANGE_SEED)
+C5_RANGE_LANES, C5_RANGE_SEED, C5_NARROW = 256, 31, 8
+
+
+def c5_links(r, e0: int, m: int):
+    """One of c5's link batches: ``m`` random entity pairs as target
+    lists."""
+    subj = r.integers(0, C5_ENTITIES, size=m)
+    obj = r.integers(0, C5_ENTITIES, size=m)
+    return [[e0 + int(a), e0 + int(b)] for a, b in zip(subj, obj)]
+
+
+def graph_bfs(g, seed: int, max_hops: int):
+    """Sorted ids one seed reaches within ``max_hops`` through the graph's
+    own incidence sets and target tuples (not a pack)."""
+    visited, frontier = {seed}, [seed]
+    for _ in range(max_hops):
+        nxt = set()
+        for a in frontier:
+            for link in g.get_incidence_set(a).array().tolist():
+                nxt.update(g.get_targets(link))
+        frontier = [x for x in nxt if x not in visited]
+        visited.update(frontier)
+    return sorted(visited)
+
+
+def view_bitmap(s: Smoke, view, seeds, max_hops: int):
+    """The (K, N+1) bool bitmap a host BFS over a pinned view (its base
+    plus its host delta, dead links and atoms dropped) gives, on the
+    card."""
+    import numpy as np
+
+    torch = s.torch
+    n1 = view.base.num_atoms + 1
+    dead = np.zeros(n1, dtype=bool)
+    dead[view.host_delta["dead"]] = True
+    dcsr = delta_csr(view.host_delta, n1)
+    lanes, ids = [], []
+    for k, seed in enumerate(seeds.tolist()):
+        reach = host_bfs_delta(view.base, dcsr, dead, int(seed), max_hops)
+        lanes.append(np.full(len(reach), k))
+        ids.append(reach)
+    want = torch.zeros((len(seeds), n1), dtype=torch.bool, device=s.dev)
+    want[torch.from_numpy(np.concatenate(lanes)).to(s.dev),
+         torch.from_numpy(np.concatenate(ids)).to(s.dev)] = True
+    return want
+
+
+def lane_words(torch, visited):
+    """A (K, R) bool bitmap as the fused path's (R, K/32) int32 words (bit
+    b of word w is lane 32·w + b)."""
+    K, R = visited.shape
+    words = torch.zeros((R, K // 32), dtype=torch.int32,
+                        device=visited.device)
+    for b in range(32):
+        words |= visited[b::32].T.to(torch.int32) << b
+    return words
+
+
+def int_value_oracle(g):
+    """The graph's int values from its by-value index: ``(ranks uint64,
+    gids int64)`` sorted by rank, then gid."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.graph import IDX_BY_VALUE
+    from hypergraphdb_tpu_torch.utils.ordered_bytes import rank64
+
+    ranks, gids = [], []
+    for key, hs in g.backend.get_index(IDX_BY_VALUE).bulk_items(lo=b"i"):
+        if key[:1] != b"i":
+            break
+        ranks.append(np.full(len(hs), rank64(key[1:]), dtype=np.uint64))
+        gids.append(hs)
+    ranks, gids = np.concatenate(ranks), np.concatenate(gids)
+    order = np.lexsort((gids, ranks))
+    return ranks[order], gids[order]
+
+
+def phase_ingest(s: Smoke) -> dict:
+    """bench.py c5 on the port's graph layer: the build through
+    ``bulk_import``, the snapshot manager with c5's arguments, a writer
+    thread streaming c5's batches while the reader runs c5's dense batches
+    on ``mgr.device(max_lag_edges)``, then the final view's checks."""
+    import threading
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.ops import fused_bfs, linemask
+    from hypergraphdb_tpu_torch.ops.incremental import bfs_levels_delta
+    from hypergraphdb_tpu_torch.ops.serving import bfs_serve_batch, serve_bfs
+    from hypergraphdb_tpu_torch.ops.value_index import (
+        lane_bounds,
+        serve_range_batch,
+    )
+    from hypergraphdb_tpu_torch.storage.value_index import value_index_column
+
+    torch = s.torch
+    t_phase = time.perf_counter()
+    g = HyperGraph()
+    r = np.random.default_rng(C5_SEED)
+    t0 = time.perf_counter()
+    e0 = int(g.bulk_import(values=np.arange(C5_ENTITIES).tolist())[0])
+    for st in range(0, C5_LINKS, C5_LOAD_CHUNK):
+        m = min(C5_LOAD_CHUNK, C5_LINKS - st)
+        g.bulk_import(values=list(range(st, st + m)),
+                      target_lists=c5_links(r, e0, m))
+    build_s = time.perf_counter() - t0
+    base_atoms = C5_ENTITIES + C5_LINKS
+    t0 = time.perf_counter()
+    mgr = g.enable_incremental(device=s.dev, **C5_MANAGER)
+    enable_s = time.perf_counter() - t0
+    at_start = mgr.compactions
+    s.log(f"ingest: c5 graph of {base_atoms} atoms ({g.handles.peek} ids) "
+          f"through bulk_import in {build_s:.2f} s "
+          f"({base_atoms / build_s:.0f} atoms/s); first pack and upload "
+          f"{enable_s:.2f} s: {mgr.base.num_atoms} ids, "
+          f"{mgr.base.n_edges_inc} incidence entries")
+
+    ingested = {"atoms": 0, "s": 0.0, "errors": []}
+    done = threading.Event()
+
+    def writer():
+        try:
+            t_w = time.perf_counter()
+            for _ in range(C5_BATCHES):
+                g.bulk_import(values=list(range(C5_BATCH_LINKS)),
+                              target_lists=c5_links(r, e0, C5_BATCH_LINKS))
+                ingested["atoms"] += C5_BATCH_LINKS
+            ingested["s"] = time.perf_counter() - t_w
+        except Exception as e:  # noqa: BLE001 - failed below
+            ingested["errors"].append(repr(e))
+        finally:
+            done.set()
+
+    seeds = (e0 + r.integers(0, C5_ENTITIES, size=C5_K)).astype(np.int32)
+
+    def idle_batch():
+        dev, delta = mgr.device()
+        _, vis = bfs_levels_delta(dev, delta,
+                                  torch.from_numpy(seeds).to(s.dev), C5_HOPS,
+                                  with_levels=False)
+        return bool(vis[0, 0])
+
+    idle_batch()  # warm-up, before the clock
+    idle_ms = served_ms(s, idle_batch, runs=3)  # no writer, no compaction
+
+    staleness, latencies, epochs, swap_checks = [], [], [], []
+    fresh = {"probes": 0, "hits": 0, "missed": []}
+    wt = threading.Thread(target=writer, name="c5-writer", daemon=True)
+    t0 = time.perf_counter()
+    wt.start()
+    last_epoch = mgr.compactions
+    trace = []  # per batch: seconds into the window, epoch, compacting
+    while not done.is_set() and time.perf_counter() - t0 < C5_WINDOW_LIMIT_S:
+        staleness.append(mgr.delta_edges)
+        tq = time.perf_counter()
+        trace.append((round(tq - t0, 3), mgr.compactions, mgr._compacting,
+                      staleness[-1], ingested["atoms"]))
+        view = None
+        if mgr.compactions != last_epoch and len(swap_checks) < C5_SWAP_CHECKS:
+            view = mgr.pinned_view(max_lag_edges=0, host_delta=True)
+            dev, delta = view.device, view.delta
+        else:
+            dev, delta = mgr.device(max_lag_edges=C5_BATCH_LINKS)
+        last_epoch = mgr.compactions if view is None else view.epoch
+        # c5's freshness probe: one end of a link added after the base
+        # pack, whose edges the device delta holds, seeds lane 0; the
+        # other end must come back visited
+        probe = None
+        for h in mgr.device_visible_new_atoms():
+            rec = g.store.get_link(h)
+            if rec is not None and len(rec) >= 5:
+                a, b = int(rec[3]), int(rec[4])
+                if a != b and a < dev.num_atoms and b < dev.num_atoms:
+                    seeds[0], probe = a, b
+                    break
+        batch = seeds.copy()
+        _, visited = bfs_levels_delta(dev, delta,
+                                      torch.from_numpy(batch).to(s.dev),
+                                      C5_HOPS, with_levels=False)
+        hit = bool(visited[0, probe or 0])  # one scalar back per batch
+        latencies.append(time.perf_counter() - tq)
+        epochs.append(mgr.compactions)
+        if probe is not None:
+            fresh["probes"] += 1
+            fresh["hits"] += hit
+            if not hit:
+                fresh["missed"].append((int(batch[0]), probe))
+        if view is not None:
+            # held (the view's tensors with it) and checked after the
+            # window: a host BFS here would stall the reader
+            swap_checks.append((len(latencies) - 1, view, batch, visited))
+        del view, dev, delta, visited
+    window_s = time.perf_counter() - t0
+    live = mgr.compactions - at_start
+    wt.join(timeout=C5_JOIN_S)
+    for i, (b, view, batch, visited) in enumerate(swap_checks):
+        want = view_bitmap(s, view, batch, C5_HOPS)
+        swap_checks[i] = {
+            "batch": b, "epoch": view.epoch,
+            "delta_edges": int(len(view.host_delta["inc_links"])),
+            "equal": bool(torch.equal(visited, want)),
+            "reached": int(want.sum())}
+        del view, visited, want
+    ingest_s = ingested["s"] or window_s  # a writer that never finished
+    lat_ms = np.asarray(latencies) * 1e3
+    swaps = [i for i in range(1, len(epochs)) if epochs[i] != epochs[i - 1]]
+    stats = mgr.compaction_stats[1:]
+    rec = {
+        "base_atoms": base_atoms, "build_s": build_s,
+        "build_atoms_per_s": base_atoms / build_s, "enable_s": enable_s,
+        "ingest_atoms": ingested["atoms"], "ingest_s": ingest_s,
+        "ingest_atoms_per_s": ingested["atoms"] / ingest_s,
+        "idle_batch_ms": idle_ms,
+        "window_s": window_s, "query_batches": len(latencies),
+        "query_batches_per_s": len(latencies) / window_s,
+        "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+        "latency_ms_p95": float(np.percentile(lat_ms, 95)),
+        "latency_ms_max": float(lat_ms.max()),
+        "swap_crossings": len(swaps),
+        "latency_ms_over_swap_max": (float(max(lat_ms[i] for i in swaps))
+                                     if swaps else None),
+        "staleness_mean": float(np.mean(staleness)),
+        "staleness_max": int(np.max(staleness)),
+        "fresh_probes": fresh["probes"], "fresh_hits": fresh["hits"],
+        "compactions": mgr.compactions, "live_compactions": live,
+        "compaction_stats": stats,
+        "full_uploads": mgr.full_uploads, "tail_uploads": mgr.tail_uploads,
+        "swap_checks": swap_checks, "trace": trace,
+    }
+    s.log(f"ingest: {rec['ingest_atoms']} atoms streamed in "
+          f"{rec['ingest_s']:.2f} s ({rec['ingest_atoms_per_s']:.0f} "
+          f"atoms/s) beside {rec['query_batches']} dense batches of "
+          f"{C5_K} seeds, {C5_HOPS} hops ({rec['query_batches_per_s']:.3f} "
+          f"batches/s; a batch alone {spread(idle_ms)}); latency p50 {rec['latency_ms_p50']:.2f} ms, p95 "
+          f"{rec['latency_ms_p95']:.2f} ms, max {rec['latency_ms_max']:.2f} "
+          f"ms, over a swap max {rec['latency_ms_over_swap_max']} ms "
+          f"({len(swaps)} crossings); staleness mean "
+          f"{rec['staleness_mean']:.0f}, max {rec['staleness_max']} delta "
+          f"entries; freshness {fresh['hits']}/{fresh['probes']}; "
+          f"compactions {mgr.compactions} ({live} in the window), extract "
+          f"s {[round(c['extract_s'], 3) for c in stats]}, assemble+swap s "
+          f"{[round(c['assemble_swap_s'], 3) for c in stats]}; memtable "
+          f"uploads {mgr.full_uploads} full, {mgr.tail_uploads} tail; "
+          f"swap checks {swap_checks}; per batch (s, epoch, compacting, "
+          f"delta entries, atoms streamed) {trace}")
+
+    s.expect(not wt.is_alive(),
+             f"ingest: deadlock, the writer was not joined within "
+             f"{C5_WINDOW_LIMIT_S + C5_JOIN_S:.0f} s of the window's start")
+    s.expect(not ingested["errors"], f"ingest: writer failed: "
+             f"{ingested['errors']}")
+    s.expect(fresh["probes"] > 0 and not fresh["missed"],
+             f"ingest: freshness probes {fresh['hits']}/{fresh['probes']}, "
+             f"missed (seed, target) {fresh['missed'][:5]}")
+    s.expect(live >= C5_MIN_LIVE_COMPACTIONS,
+             f"ingest: {live} compactions in the timed window, want "
+             f"{C5_MIN_LIVE_COMPACTIONS}")
+    s.expect(len(swap_checks) > 0 and all(c["equal"] for c in swap_checks),
+             f"ingest: swap-straddling batches against host BFS: "
+             f"{swap_checks}")
+
+    # -- the final view: one more c5 batch in its memtable, so the fused
+    # route's overlay has rows
+    s.expect(mgr.wait_compacted(timeout=C5_COMPACT_WAIT_S),
+             f"ingest: compaction still running after {C5_COMPACT_WAIT_S} s")
+    g.bulk_import(values=list(range(C5_BATCH_LINKS)),
+                  target_lists=c5_links(r, e0, C5_BATCH_LINKS))
+    view = mgr.pinned_view()
+    N = view.base.num_atoms
+    seeds_t = torch.from_numpy(seeds).to(s.dev)
+    _, dense = bfs_levels_delta(view.device, view.delta, seeds_t, C5_HOPS,
+                                with_levels=False)
+    for k in range(C5_HOST_SEEDS):
+        got = torch.nonzero(dense[k]).flatten().cpu().numpy()
+        s.expect(got.tolist() == graph_bfs(g, int(seeds[k]), C5_HOPS),
+                 f"ingest: final view's dense lane {k} != host BFS over the "
+                 f"graph's incidence sets")
+    fk = fused_bfs.serve_fused_kwargs(view.base, view.delta, C5_K, s.dev)
+    s.expect(not isinstance(fk, str), f"ingest: fused path declined: {fk}")
+    s.expect(fk["overlay"] is not None, "ingest: the final delta is empty")
+    ova = fk["overlay"].arrays
+    levels = sum(idx.shape[0] // w > 0 for lv, wd in (
+        (ova.levels1, fk["overlay"].widths1),
+        (ova.levels2, fk["overlay"].widths2)) for idx, w in zip(lv, wd))
+    # the served batch alone is counted: its route and its launches
+    reset_launches()
+    serve_bfs.routes.update(fused=0, dense=0)
+    counts, first_r = serve_bfs(view.base, seeds, C5_HOPS, SERVE_TOP_R,
+                                delta=view.delta, device=s.dev)
+    n_launch, routes = launches(), dict(serve_bfs.routes)
+    want_launch = {"gather_or": C5_HOPS * levels, "fused_hop": C5_HOPS,
+                   "membership": 0}
+    s.expect(routes == {"fused": 1, "dense": 0},
+             f"ingest: the final view's batch took routes {routes}")
+    s.expect(n_launch == want_launch,
+             f"ingest: the final view's batch launched {n_launch}, want "
+             f"{want_launch} ({C5_HOPS} hops, {levels} overlay levels)")
+    dc, df = bfs_serve_batch(view.device, view.delta, seeds_t, C5_HOPS,
+                             SERVE_TOP_R)
+    s.expect(np.array_equal(counts, dc.cpu().numpy())
+             and np.array_equal(first_r, df.cpu().numpy())
+             and np.array_equal(counts, dense.sum(1).cpu().numpy()),
+             "ingest: served fused route != served dense route")
+    # outside the counted batch: the fused bitmap itself, under a mask audit
+    kept = {}
+
+    def hook(h, visited, mask):
+        s.expect(torch.equal(mask, linemask.line_mask(visited)),
+                 f"ingest: fused mask entering hop {h} != line_mask")
+        if h == 1:
+            kept["hop1"] = (visited.clone(), mask.clone())
+
+    fused, _, _ = fused_bfs.bfs_fused(fk["plan"], seeds_t, fk["geom"],
+                                      C5_HOPS, False, True, hop_hook=hook,
+                                      overlay=fk["overlay"])
+    words = lane_words(torch, dense)
+    s.expect(torch.equal(fused[: N + 1], words)
+             and not bool(fused[N + 1:].any()),
+             "ingest: fused route (K2 + K1 overlay) != dense route")
+    ov = overlay_check(s, *kept["hop1"], fk["overlay"])
+    old, om = kept["hop1"]
+    out = torch.zeros_like(old)
+    omask = linemask.full_mask(*old.shape, s.dev)
+    got2 = fused_bfs.fused_hop(old, fk["plan"], out=out, mask=om,
+                               out_mask=omask)
+    s.expect(torch.equal(got2, fused_bfs.fused_hop_plain(old, fk["plan"]))
+             and torch.equal(omask, linemask.line_mask(got2)),
+             "ingest: K2 at the final view's hop 1 != plain")
+    s.log(f"ingest: final view (epoch {view.epoch}, {N} ids, "
+          f"{view.delta.inc_links.shape[0]}-entry delta bucket, "
+          f"{len(view.new_atoms)} new atoms): dense == host BFS over the "
+          f"graph's incidence sets at lanes 0..{C5_HOST_SEEDS - 1}; fused "
+          f"(K2 + K1 overlay) == dense on all {C5_K} lanes bit for bit; "
+          f"served fused (routes {routes}, launches {n_launch}) == served "
+          f"dense; overlay K1 "
+          f"bit-exact with plain over {ov['levels']} levels "
+          f"({ov['k1_ms']:.4f} ms a hop); K2 at hop 1 == plain")
+
+    # the value plane over the final view: base column + value delta
+    t0 = time.perf_counter()
+    col_d = mgr.value_delta(view, ord("i"))
+    delta_col_s = time.perf_counter() - t0
+    col_b = value_index_column(view.base, ord("i"), s.dev)
+    s.expect(col_d.covered == len(view.new_atoms)
+             and col_d.n == len(view.new_atoms) and col_d.device_exact,
+             f"ingest: value delta covers {col_d.covered} of "
+             f"{len(view.new_atoms)} new atoms, {col_d.n} entries")
+    rr = np.random.default_rng(C5_RANGE_SEED)
+    half = C5_RANGE_LANES // 2
+    los = np.concatenate([
+        rr.integers(0, C5_BATCH_LINKS - C9_WINDOW, size=half),
+        rr.integers(C5_ENTITIES, C5_LINKS - C9_WINDOW, size=half)])
+    width = np.repeat([C9_WINDOW, C5_NARROW], half).astype(np.uint64)
+    topk = np.arange(C5_RANGE_LANES) % 2 == 1
+    # an int's rank is its payload, the value with the sign bit flipped
+    lo_r = los.astype(np.uint64) + np.uint64(1 << 63)
+    bounds = lane_bounds(C5_RANGE_LANES, lo_r,
+                         np.zeros(C5_RANGE_LANES, bool), lo_r + width,
+                         np.ones(C5_RANGE_LANES, bool),
+                         desc=np.zeros(C5_RANGE_LANES, bool))
+    counts, first_r, covered, total = (
+        t.cpu().numpy() for t in serve_range_batch(
+            view.base, col_b, col_d, bounds, top_r=C9_TOP_R, device=s.dev))
+    h_rank, h_gid = int_value_oracle(g)
+    n_covered = 0
+    for q in range(C5_RANGE_LANES):
+        upto = min(C9_LIMIT, C9_TOP_R) if topk[q] else C9_TOP_R
+        n, head = range_oracle(h_rank, h_gid, int(lo_r[q]),
+                               int(lo_r[q] + width[q]), False, upto,
+                               C9_TOP_R)
+        s.expect(int(total[q]) == n and list(first_r[q][:upto])
+                 == list(first_r_row(head, upto)),
+                 f"ingest: range lane {q} (values {los[q]}..) != oracle")
+        if n <= C9_TOP_R:
+            n_covered += 1
+            s.expect(bool(covered[q]) and int(counts[q]) == n,
+                     f"ingest: range lane {q} not covered or miscounted")
+    s.expect(n_covered == C5_RANGE_LANES - half,
+             f"ingest: {n_covered} covered range lanes, want "
+             f"{C5_RANGE_LANES - half}")
+    s.log(f"ingest: value delta of kind 'i' over {col_d.n} new atoms in "
+          f"{delta_col_s:.3f} s; {C5_RANGE_LANES}-lane range batch over "
+          f"base ({col_b.n} entries) + delta == numpy oracle over the "
+          f"graph's int values ({n_covered} covered lanes, "
+          f"{int(total[:half].sum())} entries in the stream-value windows)")
+    rec.update(final_epoch=view.epoch, final_ids=N,
+               final_new_atoms=len(view.new_atoms), launches=n_launch,
+               overlay_k1_ms=ov["k1_ms"], value_delta_s=delta_col_s,
+               value_delta_entries=col_d.n, range_covered_lanes=n_covered)
+    del view, dense, fused, words, kept, fk, col_b, col_d
+    g.close()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    s.log(f"ingest phase: {rec['phase_s']:.1f} s in all; record "
+          + json.dumps(rec))
+    return rec
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
@@ -3167,6 +3592,7 @@ def main(argv: list[str]) -> int:
         phase_delta(s, snap, info, truth, records)
         join_rec = phase_join(s, snap, info)
         phase_values(s, snap, info, join_rec)
+        phase_ingest(s)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -16,6 +16,9 @@ A hop runs lane-transposed, rows for atoms and columns for seeds, so each
 gather reads whole rows; :func:`scatter_or` streams the relation in edge
 chunks of at most :data:`CHUNK_BYTES` of gathered rows. CUDA has no
 scatter-max on ``bool``, so the scatter runs on ``uint8`` views.
+:func:`scatter_relation` scatters a relation without its padding: a
+coarsely padded one (a snapshot manager pads to 2^19 entries) would send
+every pad entry into the dummy row, where the atomics serialise.
 """
 
 from __future__ import annotations
@@ -42,14 +45,27 @@ def scatter_or(out: torch.Tensor, dst: torch.Tensor, src: torch.Tensor,
                           v.index_select(0, src[s : s + step]), "amax")
 
 
+def scatter_relation(out: torch.Tensor, holder, dst_name: str,
+                     src_name: str, values: torch.Tensor,
+                     n: int | None) -> None:
+    """:func:`scatter_or` over the first ``n`` entries of one relation of
+    ``holder`` (a device snapshot or delta; ``None`` takes them all): the
+    rest is padding. A pad entry joins the dummy row to itself, which every
+    hop clears, so skipping it changes no other row."""
+    scatter_or(out, holder.index64(dst_name)[:n],
+               getattr(holder, src_name)[:n], values)
+
+
 def expand_frontier(dev: DeviceSnapshot, frontier: torch.Tensor) -> torch.Tensor:
     """One hop: frontier bitmap (..., N+1) bool → neighbor bitmap (..., N+1)."""
     shape = frontier.shape
     f = frontier.reshape(-1, shape[-1]).T.contiguous()
     link_active = torch.zeros_like(f)
-    scatter_or(link_active, dev.index64("inc_links"), dev.inc_src, f)
+    scatter_relation(link_active, dev, "inc_links", "inc_src", f,
+                     dev.n_inc)
     nbrs = torch.zeros_like(f)
-    scatter_or(nbrs, dev.index64("tgt_flat"), dev.tgt_src, link_active)
+    scatter_relation(nbrs, dev, "tgt_flat", "tgt_src", link_active,
+                     dev.n_tgt)
     nbrs[dev.num_atoms] = False  # clear the dummy slot
     return nbrs.T.reshape(shape)
 

@@ -16,31 +16,40 @@ the dummy row ``N``, and a tombstone mask over the id space.
 - :class:`DeltaMemtable` is the graph-free memtable half of the reference's
   ``SnapshotManager`` (:177): it buffers link records and removals and
   refreshes the device delta under the reference's bucket, tail-splice and
-  drift rules. Event wiring, compaction and pinned views belong to the
-  manager, which wraps it.
+  drift rules.
+- :class:`SnapshotManager` wraps one memtable per base epoch around a
+  graph (``core/graph.py``): it listens to the graph's events, compacts
+  (extract under the commit lock, assemble without it, swap), and hands
+  out (base, delta) device pairs and :class:`PinnedView` read units.
 
 The dense sweep keeps the reference's results, not its layout. The
 reference holds a (K, N+1) bool frontier and gathers a (K, E) bool array
 per relation: 49 GB at 1024 seeds over 10M atoms. Here seed lanes run in
 blocks of at most :data:`DENSE_LANE_BLOCK`, each an (N+1, lanes) bool
-frontier whose rows are atoms, through ``frontier.scatter_or`` (edge
-chunks, ``uint8`` views). Plain PyTorch: the reference has no Pallas
-kernel on this path.
+frontier whose rows are atoms, through ``frontier.scatter_relation`` (edge
+chunks, ``uint8`` views, padding skipped). Plain PyTorch: the reference
+has no Pallas kernel on this path.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch.core import events as ev
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from hypergraphdb_tpu_torch.ops.frontier import scatter_or
+from hypergraphdb_tpu_torch.ops.frontier import scatter_relation
 from hypergraphdb_tpu_torch.ops.setops import _bucket
-from hypergraphdb_tpu_torch.ops.snapshot import DeviceSnapshot, cached_index64
+from hypergraphdb_tpu_torch.ops.snapshot import (
+    CSRSnapshot,
+    DeviceSnapshot,
+    cached_index64,
+)
 
 #: seed lanes of one dense block: the (N+1, lanes) frontier, visited set
 #: and scatter targets stay a few bytes per atom and lane
@@ -62,6 +71,9 @@ class DeviceDelta:
     tgt_flat: torch.Tensor   # (D_tgt,) int32 — target of each target entry
     tgt_src: torch.Tensor    # (D_tgt,) int32 — its link
     dead: torch.Tensor       # (N+1,) bool tombstones
+    #: real entries of each relation, the rest padding (None: all real)
+    n_inc: Optional[int] = None
+    n_tgt: Optional[int] = None
 
     @property
     def n_atoms(self) -> int:
@@ -99,15 +111,16 @@ def _hop(dev: DeviceSnapshot, delta: DeviceDelta, f: torch.Tensor,
          live: torch.Tensor) -> torch.Tensor:
     """One hop over base ∪ delta on an (N+1, L) bool frontier; ``live`` is
     ``~delta.dead``."""
+    N = dev.num_atoms
     la = torch.zeros_like(f)
-    scatter_or(la, dev.index64("inc_links"), dev.inc_src, f)
-    scatter_or(la, delta.index64("inc_links"), delta.inc_src, f)
+    for holder in (dev, delta):
+        scatter_relation(la, holder, "inc_links", "inc_src", f, holder.n_inc)
     la &= live[:, None]  # dead links emit nothing
     nb = torch.zeros_like(f)
-    scatter_or(nb, dev.index64("tgt_flat"), dev.tgt_src, la)
-    scatter_or(nb, delta.index64("tgt_flat"), delta.tgt_src, la)
+    for holder in (dev, delta):
+        scatter_relation(nb, holder, "tgt_flat", "tgt_src", la, holder.n_tgt)
     nb &= live[:, None]
-    nb[dev.num_atoms] = False
+    nb[N] = False
     return nb
 
 
@@ -207,11 +220,11 @@ class DeltaMemtable:
     else everything (``full_uploads``). Thread-safe."""
 
     def __init__(self, capacity: int, bucket_min: int = BUCKET_MIN,
-                 device: str | torch.device = DEFAULT_DEVICE):
+                 device: str | torch.device = DEFAULT_DEVICE, epoch: int = 0):
         self.capacity = int(capacity)
         self.bucket_min = int(bucket_min)
         #: the base epoch the buffers belong to; a move forces a full upload
-        self.epoch = 0
+        self.epoch = int(epoch)
         self.torch_device = resolve_device(device)
         self._lock = threading.RLock()
         self._cols: dict[str, list[int]] = {c: [] for c in COLUMNS}
@@ -250,6 +263,16 @@ class DeltaMemtable:
             self._dead.discard(h)
             self._delta_dirty = True
             return True
+
+    def dead(self) -> set:
+        """A copy of the tombstoned ids."""
+        with self._lock:
+            return set(self._dead)
+
+    @property
+    def n_dead(self) -> int:
+        with self._lock:
+            return len(self._dead)
 
     def remove(self, h: int) -> None:
         """Tombstone id ``h`` (ignored outside the capacity)."""
@@ -317,7 +340,8 @@ class DeltaMemtable:
                         _padded(self._cols[c], bucket, N)).to(dev)
                     for c in COLUMNS}
             self.full_uploads += 1
-        self._device_delta = DeviceDelta(dead=dead, **cols)
+        self._device_delta = DeviceDelta(dead=dead, n_inc=cur_len,
+                                         n_tgt=cur_len, **cols)
         self._delta_dirty = False
         self._uploaded_marker = marker
 
@@ -369,5 +393,391 @@ def delta_from_reference(arrays: dict,
             v = _padded(v, size, N)
         return torch.from_numpy(np.ascontiguousarray(v, dtype=np.int32)).to(dev)
 
-    return DeviceDelta(dead=torch.from_numpy(dead).to(dev),
+    n = {} if size is None else {"n_inc": len(cols["inc_links"]),
+                                 "n_tgt": len(cols["tgt_flat"])}
+    return DeviceDelta(dead=torch.from_numpy(dead).to(dev), **n,
                        **{c: put(v) for c, v in cols.items()})
+
+
+# ------------------------------------------------------------ the manager
+
+
+class PinnedView(NamedTuple):
+    """One consistent read unit for a serving batch, captured under one
+    manager lock: the base snapshot, its device twin, the device delta and
+    the host memtable correction sets. A batch built from one view never
+    straddles a compaction swap. With ``host_delta`` asked for, the
+    memtable's host arrays (:meth:`DeltaMemtable.host_delta`) captured in
+    the same lock hold, after the device delta's refresh."""
+
+    base: CSRSnapshot
+    device: DeviceSnapshot
+    delta: Optional[DeviceDelta]  # None when pinned with sync_delta=False
+    epoch: int          # compaction count the pair belongs to
+    dead: set           # tombstoned ids not yet baked into the base
+    new_atoms: list     # handles added since the base pack, commit order
+    revalued: set       # atoms whose value was replaced since the pack
+    host_delta: Optional[dict] = None
+
+
+class SnapshotManager:
+    """The (base, delta) pair of one graph: an immutable packed base on
+    the device and a memtable of what committed since, merged at read
+    time (the LSM read model). Readers never stall on ingest: with
+    ``background=True`` a compaction holds the commit lock only to extract
+    the store's tables, and assembles the new base in a worker thread
+    while readers keep the old epoch's pair.
+
+    Each base epoch has its own :class:`DeltaMemtable` (its ``epoch`` the
+    compaction count), so a device delta of one epoch can never pair with
+    another epoch's base.
+
+    Locks: commit lock → manager lock → memtable lock, everywhere. Event
+    handlers run on the committing thread and take only the manager lock;
+    they never start a compaction (a flag defers it to the next read).
+
+    Device: every twin and delta lives on ``device``, the card unless the
+    caller asks for the CPU. A compaction uploads the new base's twin on
+    the compaction thread, before the swap, on the default stream: every
+    kernel of the port runs there, so a reader's later launches are ordered
+    after the upload, and the caching allocator reuses an old base's memory
+    only for work queued after the reader's. A reader keeps its
+    :class:`PinnedView` (the tensors it reads) until its batch has
+    synchronised."""
+
+    def __init__(self, graph, headroom: float = 2.0,
+                 compact_ratio: float = 0.5, background: bool = False,
+                 delta_bucket_min: int = BUCKET_MIN,
+                 pack_pad_multiple: int = 128,
+                 device: str | torch.device = DEFAULT_DEVICE):
+        self.graph = graph
+        self.headroom = headroom
+        self.compact_ratio = compact_ratio
+        self.background = background
+        #: the delta buckets' floor: a large one keeps one device shape
+        #: over a whole stream
+        self.delta_bucket_min = delta_bucket_min
+        #: id capacity and edge arrays round up to this multiple, so
+        #: successive bases keep their shapes
+        self.pack_pad_multiple = pack_pad_multiple
+        self.torch_device = resolve_device(device)
+        #: per pass: extract_s (commit lock held), assemble_swap_s,
+        #: total_s; entry 0 is the first pack
+        self.compaction_stats: list[dict] = []
+        self.base: Optional[CSRSnapshot] = None
+        self._lock = threading.RLock()
+        self._compact_cv = threading.Condition(self._lock)
+        self._compacting = False
+        self._compact_thread = None
+        self._mt = DeltaMemtable(0, delta_bucket_min, self.torch_device)
+        self._new_atoms: list[int] = []   # handles added since the pack
+        self._revalued: set[int] = set()
+        self._device_delta: Optional[DeviceDelta] = None
+        self._uploads_before = (0, 0)     # full, tail of retired memtables
+        self._uploaded_atoms = 0
+        self._pack_highwater = 0
+        self.compactions = 0
+        #: kind -> the cached delta value column (see value_delta)
+        self._value_delta: dict = {}
+        self._events = ((ev.HGAtomAddedEvent, self._on_added),
+                        (ev.HGAtomRemovedEvent, self._on_removed),
+                        (ev.HGAtomReplacedEvent, self._on_replaced))
+        for cls, fn in self._events:
+            graph.events.add_listener(cls, fn)
+        self._compact_sync()
+
+    def close(self) -> None:
+        """Wait for a compaction in flight and detach from the graph's
+        events."""
+        t = self._compact_thread
+        if t is not None and t.is_alive():
+            t.join()
+        for cls, fn in self._events:
+            self.graph.events.remove_listener(cls, fn)
+
+    @property
+    def full_uploads(self) -> int:
+        return self._uploads_before[0] + self._mt.full_uploads
+
+    @property
+    def tail_uploads(self) -> int:
+        return self._uploads_before[1] + self._mt.tail_uploads
+
+    @property
+    def _needs_recompact(self) -> bool:
+        return self._mt.needs_recompact
+
+    # -- event intake -----------------------------------------------------
+    def _on_added(self, g, event) -> None:
+        with self._lock:
+            h = int(event.handle)
+            if h < self._pack_highwater:
+                # an echo of a batch the last compaction already packed
+                return
+            self._new_atoms.append(h)
+            if h >= self._mt.capacity:
+                # past the bitmaps: the device cannot see it until the next
+                # compaction, which the flag asks the next read for
+                self._mt.needs_recompact = True
+                return
+            self._buffer_edges_locked(g, h)
+
+    def _buffer_edges_locked(self, g, h: int) -> None:
+        """Atom ``h``'s record into the memtable (the caller holds the
+        manager lock); one outside the capacity flags a compaction."""
+        rec = g.store.get_link(h)
+        if rec is not None:
+            self._mt.add_link(h, rec[3:])
+
+    def _on_removed(self, g, event) -> None:
+        with self._lock:
+            self._mt.remove(int(event.handle))
+
+    def _on_replaced(self, g, event) -> None:
+        # the device value ranks of this atom are stale
+        with self._lock:
+            self._revalued.add(int(event.handle))
+
+    # -- compaction -------------------------------------------------------
+    def _extract_locked(self) -> dict:
+        """The store's tables and the memtable's state at extraction. The
+        caller holds the commit lock, then the manager lock."""
+        g = self.graph
+        tables = CSRSnapshot.extract_tables(g)
+        return {
+            "tables": tables,
+            "highwater": tables["peek"],
+            "dead_at_extract": self._mt.dead(),
+            "revalued_at_extract": set(self._revalued),
+            "version": g._mutations,
+        }
+
+    def _assemble_and_swap(self, ext: dict) -> None:
+        """Assemble and upload the new base without a lock, then swap under
+        the manager lock. The new memtable is rebuilt from the store for
+        every atom past the high-water mark (ones that committed during the
+        assembly, or past the old capacity, are re-derived, not lost);
+        removals and replaces recorded after the extraction carry over."""
+        g = self.graph
+        hw = ext["highwater"]
+        pm = self.pack_pad_multiple
+        cap = max(int(hw * self.headroom), 1024)
+        cap = -(-cap // pm) * pm
+        base = CSRSnapshot.pack(g, version=ext["version"], capacity=cap,
+                                tables=ext["tables"], pad_multiple=pm)
+        twin = base.device(self.torch_device)
+        for name in ("inc_links", "tgt_flat"):  # what the dense sweep reads
+            twin.index64(name)
+        with self._lock:
+            old = self._mt
+            epoch = self.compactions + 1
+            mt = DeltaMemtable(base.num_atoms, self.delta_bucket_min,
+                               self.torch_device, epoch=epoch)
+            self._mt = mt
+            self._uploads_before = (
+                self._uploads_before[0] + old.full_uploads,
+                self._uploads_before[1] + old.tail_uploads)
+            self.base = base
+            self._pack_highwater = hw
+            self._new_atoms = [h for h in self._new_atoms if h >= hw]
+            for h in self._new_atoms:
+                self._buffer_edges_locked(g, h)
+            for h in old.dead() - ext["dead_at_extract"]:
+                mt.remove(h)
+            self._revalued -= ext["revalued_at_extract"]
+            self._device_delta = None
+            self._uploaded_atoms = 0
+            self._value_delta.clear()
+            self.compactions = epoch
+
+    def _compact_sync(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            with self.graph.txman._commit_lock:
+                with self._lock:
+                    ext = self._extract_locked()
+            t1 = time.perf_counter()
+            self._assemble_and_swap(ext)
+            t2 = time.perf_counter()
+        except BaseException:
+            self.graph.metrics.incr("compact.failures")
+            raise
+        self.compaction_stats.append({
+            "extract_s": t1 - t0,
+            "assemble_swap_s": t2 - t1,
+            "total_s": t2 - t0,
+        })
+        m = self.graph.metrics
+        m.incr("compact.passes")
+        m.observe("compact.extract_seconds", t1 - t0)
+        m.observe("compact.assemble_swap_seconds", t2 - t1)
+
+    def _request_compact(self) -> None:
+        if not self.background:
+            self._compact_sync()
+            return
+        with self._lock:
+            if self._compacting:
+                return
+            self._compacting = True
+
+        def work():
+            # only this function clears _compacting, after checking that no
+            # request coalesced into the flag meanwhile; the catch-up is
+            # bounded, so a steady stream cannot keep it running
+            try:
+                for _ in range(4):
+                    self._compact_sync()
+                    with self._lock:
+                        if not self._needs_recompact:
+                            break
+            finally:
+                with self._compact_cv:
+                    self._compacting = False
+                    self._compact_cv.notify_all()
+
+        t = threading.Thread(target=work, name="hgdb-compact", daemon=True)
+        with self._lock:
+            self._compact_thread = t
+        t.start()
+
+    def _maybe_compact(self) -> None:
+        with self._lock:
+            base_edges = max(self.base.n_edges_inc, 1)
+            # every host-corrected set counts, not only edges
+            memtable = (len(self._new_atoms) + len(self._revalued)
+                        + self._mt.n_dead)
+            need = (
+                self._needs_recompact
+                or self._mt.delta_edges > (self.compact_ratio * base_edges
+                                           + 4096)
+                or memtable > (self.compact_ratio
+                               * max(self.base.num_atoms, 1) + 4096)
+            )
+        if need:
+            self._request_compact()
+
+    def wait_compacted(self, timeout: Optional[float] = None) -> bool:
+        """Block until no compaction is in flight (its catch-up included);
+        False on ``timeout`` seconds."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._compact_cv:
+            while self._compacting:
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                if remaining is not None and remaining <= 0:
+                    return False
+                self._compact_cv.wait(remaining)
+            return True
+
+    # -- read views ---------------------------------------------------------
+    def _sync_device_delta_locked(self, max_lag_edges: int) -> DeviceDelta:
+        """The memtable's device delta, refreshed when it drifted past
+        ``max_lag_edges`` (the caller holds the manager lock)."""
+        mt = self._mt
+        before = (mt.full_uploads, mt.tail_uploads)
+        delta = mt.device(max_lag_edges)
+        if delta is not self._device_delta:
+            m = self.graph.metrics
+            if mt.full_uploads != before[0]:
+                m.incr("compact.full_uploads")
+            elif mt.tail_uploads != before[1]:
+                m.incr("compact.tail_uploads")
+            m.gauge("compact.delta_edges", mt.delta_edges)
+            self._device_delta = delta
+            self._uploaded_atoms = len(self._new_atoms)
+        return delta
+
+    def device(self, max_lag_edges: int = 0
+               ) -> tuple[DeviceSnapshot, DeviceDelta]:
+        """The current (base, delta) device pair. ``max_lag_edges`` bounds
+        staleness: the delta is re-uploaded only once the memtable drifted
+        more than that many entries from what the device holds."""
+        self._maybe_compact()
+        with self._lock:
+            delta = self._sync_device_delta_locked(max_lag_edges)
+            return self.base.device(self.torch_device), delta
+
+    def pinned_view(self, max_lag_edges: int = 0, sync_delta: bool = True,
+                    host_delta: bool = False) -> PinnedView:
+        """The serving read unit (:class:`PinnedView`). ``sync_delta=False``
+        skips the delta refresh (``delta=None``) for readers of the base and
+        the host corrections alone; ``host_delta=True`` adds the memtable's
+        host arrays."""
+        self._maybe_compact()
+        with self._lock:
+            delta = (self._sync_device_delta_locked(max_lag_edges)
+                     if sync_delta else None)
+            return PinnedView(
+                base=self.base,
+                device=self.base.device(self.torch_device),
+                delta=delta,
+                epoch=self.compactions,
+                dead=self._mt.dead(),
+                new_atoms=list(self._new_atoms),
+                revalued=set(self._revalued),
+                host_delta=self._mt.host_delta() if host_delta else None,
+            )
+
+    def value_delta(self, view: PinnedView, kind: int,
+                    max_lag_edges: int = 0):
+        """The value index's delta column of one value kind for ``view``:
+        its memtable atoms of that kind, sorted, on the device, covering a
+        prefix of ``view.new_atoms`` and never more. A cached column serves
+        while it falls at most ``max_lag_edges`` atoms short of the view;
+        ``view.new_atoms[col.covered:]`` and ``view.revalued`` are the host
+        correction the caller owes. Built without the manager lock (it
+        walks the store); the cache keeps the widest column."""
+        from hypergraphdb_tpu_torch.storage.value_index import (
+            build_delta_column,
+        )
+
+        kind = int(kind)
+        n_view = len(view.new_atoms)
+        with self._lock:
+            cached = self._value_delta.get(kind)
+        if (cached is not None and cached.epoch == view.epoch
+                and cached.covered <= n_view
+                and n_view - cached.covered <= max_lag_edges):
+            return cached
+        col = build_delta_column(self.graph, view.new_atoms, kind,
+                                 epoch=view.epoch, device=self.torch_device)
+        with self._lock:
+            prev = self._value_delta.get(kind)
+            if (prev is None or prev.epoch != view.epoch
+                    or prev.covered < col.covered):
+                self._value_delta[kind] = col
+        return col
+
+    def host_delta(self) -> dict:
+        """The memtable as host arrays: the epoch (compaction count), the
+        capacity, the four COO columns and the dead ids."""
+        with self._lock:
+            return self._mt.host_delta()
+
+    def device_visible_new_atoms(self) -> list[int]:
+        """New atoms whose edges the device delta already holds (the
+        buffers append in commit order): what a bounded-lag reader may
+        expect to see."""
+        with self._lock:
+            cap = self._mt.capacity
+            return [h for h in self._new_atoms[: self._uploaded_atoms]
+                    if h < cap]
+
+    def correction(self) -> tuple[set, list, set]:
+        """(dead, new_atoms, revalued): what a reader of the base drops
+        and re-evaluates on the host."""
+        with self._lock:
+            return self._mt.dead(), list(self._new_atoms), set(self._revalued)
+
+    def read_view(self) -> tuple[CSRSnapshot, set, list, set]:
+        """(base, dead, new_atoms, revalued) under one lock."""
+        self._maybe_compact()
+        with self._lock:
+            return (self.base, self._mt.dead(), list(self._new_atoms),
+                    set(self._revalued))
+
+    @property
+    def delta_edges(self) -> int:
+        with self._lock:
+            return self._mt.delta_edges

@@ -24,9 +24,11 @@ the reference splits each rank into two uint32 words (JAX without x64 has
 no uint64) and compares them hi then lo. :func:`reference_words` maps the
 port's words back to that pair.
 
-``pack(graph)`` waits for the port's own graph layer.
-:meth:`CSRSnapshot.from_reference_arrays` takes the reference snapshot's
-numpy columns as a plain dict, so both packages can run on one structure.
+:meth:`CSRSnapshot.pack` reads a port graph's committed store
+(``core/graph.py``); :meth:`CSRSnapshot.from_tables` assembles generated
+columns; :meth:`CSRSnapshot.from_reference_arrays` takes the reference
+snapshot's numpy columns as a plain dict, so both packages can run on one
+structure.
 """
 
 from __future__ import annotations
@@ -110,6 +112,58 @@ def _incidence_transpose(
     inc_offsets = np.zeros(N + 2, dtype=np.int32)
     np.cumsum(inc_counts, out=inc_offsets[1 : N + 2])
     return inc_offsets, pl.astype(np.int32), pt.astype(np.int32)
+
+
+def _value_columns(value_items, N: int) -> dict:
+    """The four value columns of an id space of ``N`` from the by-value
+    index's ``(key, handles)`` items (None: all zero): per key, the rank of
+    its payload (the key minus its kind byte), the kind byte, the second
+    rank word and, for variable-width kinds, whether the rank pair is
+    ambiguous. A handle under several keys takes its last key's values."""
+    from hypergraphdb_tpu_torch.storage.value_index import FIXED_WIDTH_KINDS
+    from hypergraphdb_tpu_torch.utils.ordered_bytes import rank_ambiguous
+
+    cols = {name: np.zeros(N + 1, dtype=dtype)
+            for name, dtype in CSRSnapshot.VALUE_DTYPES.items()}
+    if not value_items:
+        return cols
+    keys = [k for k, _ in value_items]
+    hs = np.concatenate([h for _, h in value_items]).astype(np.int64)
+    per_key = np.fromiter((len(h) for _, h in value_items), dtype=np.int64,
+                          count=len(keys))
+    # each key as 17 bytes, zero-padded: the kind byte, then the payload's
+    # first 16 bytes, whose two big-endian words are rank64 of payload
+    # bytes 0..8 and 8..16
+    head = np.frombuffer(b"".join(k[:17].ljust(17, b"\x00") for k in keys),
+                         dtype=np.uint8).reshape(-1, 17)
+    kind = head[:, 0].copy()
+    words = np.ascontiguousarray(head[:, 1:]).view(">u8")
+    rank = words[:, 0].astype(np.uint64)
+    rank2 = words[:, 1].astype(np.uint64)
+    var = (np.fromiter(map(len, keys), dtype=np.int64, count=len(keys)) > 0
+           ) & ~np.isin(kind, np.frombuffer(bytes(FIXED_WIDTH_KINDS),
+                                            dtype=np.uint8))
+    ambig = np.zeros(len(keys), dtype=bool)
+    for i in np.flatnonzero(var).tolist():
+        ambig[i] = rank_ambiguous(keys[i][1:])
+    key_of = np.repeat(np.arange(len(keys)), per_key)
+    keep = hs <= N
+    hs, key_of = hs[keep], key_of[keep]
+
+    def last(h, k):
+        """Each handle once, with the last of its keys (items come in key
+        order; a later key overwrites an earlier one)."""
+        i = len(h) - 1 - np.unique(h[::-1], return_index=True)[1]
+        return h[i], k[i]
+
+    h, k = last(hs, key_of)
+    cols["value_rank"][h] = rank[k]
+    cols["value_kind"][h] = kind[k]
+    cols["value_rank2"][h] = rank2[k]
+    v = var[key_of]
+    h, k = last(hs[v], key_of[v])
+    cols["value_ambig"][h] = ambig[k]
+    return cols
 
 
 @dataclass
@@ -264,6 +318,95 @@ class CSRSnapshot:
             **cols,
         )
 
+    # ------------------------------------------------------------------ pack
+    @staticmethod
+    def extract_tables(graph, value_ranks: bool = True) -> dict:
+        """The committed store as raw host tables: the one part of packing
+        that needs a consistent store. A background compaction holds the
+        commit lock for this alone and assembles (``pack(tables=...)``)
+        without it."""
+        from hypergraphdb_tpu_torch.core.graph import IDX_BY_VALUE
+
+        backend = graph.backend
+        ids, offsets, flat = backend.bulk_links()
+        value_items = None
+        if value_ranks:
+            idx = backend.get_index(IDX_BY_VALUE, create=False)
+            if idx is not None:
+                value_items = list(idx.bulk_items())
+        peek = int(getattr(graph.handles, "peek", 0))
+        return {
+            "ids": np.asarray(ids, dtype=np.int64),
+            "offsets": np.asarray(offsets, dtype=np.int64),
+            "flat": np.asarray(flat, dtype=np.int64),
+            "peek": max(peek, int(backend.max_handle())),
+            "value_items": value_items,
+        }
+
+    @staticmethod
+    def pack(graph, version: Optional[int] = None, pad_multiple: int = 128,
+             capacity: Optional[int] = None, value_ranks: bool = True,
+             tables: Optional[dict] = None) -> "CSRSnapshot":
+        """Pack the committed store into CSR arrays and value columns.
+
+        ``capacity`` over-allocates the id space, so atoms added after the
+        pack keep ids inside this snapshot's bitmaps (the delta's
+        prerequisite). ``tables`` (from :meth:`extract_tables`) separates
+        the store read from the assembly. Records are ``(type, value,
+        flags, *targets)``; the value columns come from the by-value index,
+        one rank per distinct key."""
+        if tables is None:
+            tables = CSRSnapshot.extract_tables(graph, value_ranks)
+        ids, offsets, flat = tables["ids"], tables["offsets"], tables["flat"]
+        N = tables["peek"] if capacity is None else max(tables["peek"],
+                                                        int(capacity))
+        type_of = np.full(N + 1, -1, dtype=np.int32)
+        is_link = np.zeros(N + 1, dtype=bool)
+        arity = np.zeros(N + 1, dtype=np.int32)
+
+        starts = offsets[:-1]
+        lens = offsets[1:] - starts
+        ok = lens >= 3
+        vids, vstarts, vlens = ids[ok], starts[ok], lens[ok]
+        type_of[vids] = flat[vstarts].astype(np.int32)
+        is_link[vids] = (flat[vstarts + 2] & 1).astype(bool)
+        arities = (vlens - 3).astype(np.int32)
+        arity[vids] = arities
+
+        # target entries: positions 3.. of each record, records ascending
+        pos = np.arange(int(vlens.sum())) - np.repeat(np.cumsum(vlens) - vlens,
+                                                      vlens)
+        tmask = pos >= 3
+        tgt_flat = flat[np.repeat(vstarts, vlens)[tmask] + pos[tmask]
+                        ].astype(np.int32)
+        tgt_src = np.repeat(vids, vlens)[tmask].astype(np.int32)
+        tgt_counts = np.zeros(N + 1, dtype=np.int64)
+        tgt_counts[vids] = arities
+        tgt_offsets = np.zeros(N + 2, dtype=np.int32)
+        np.cumsum(tgt_counts, out=tgt_offsets[1 : N + 2])
+        inc_offsets, inc_links, inc_src = _incidence_transpose(
+            tgt_src, tgt_flat, N)
+
+        value = _value_columns(tables["value_items"], N)
+        return CSRSnapshot(
+            version=version if version is not None else getattr(
+                graph, "_mutations", 0),
+            num_atoms=N,
+            inc_offsets=inc_offsets,
+            inc_links=_pad_to(inc_links, pad_multiple, N),
+            inc_src=_pad_to(inc_src, pad_multiple, N),
+            tgt_offsets=tgt_offsets,
+            tgt_flat=_pad_to(tgt_flat, pad_multiple, N),
+            tgt_src=_pad_to(tgt_src, pad_multiple, N),
+            type_of=type_of,
+            is_link=is_link,
+            arity=arity,
+            **value,
+            by_type=_group_by_type(type_of[:N]),
+            n_edges_inc=len(inc_links),
+            n_edges_tgt=len(tgt_flat),
+        )
+
     # ------------------------------------------------------------ host views
     def incidence_row(self, atom: int) -> np.ndarray:
         """The sorted ids of the links that target ``atom``."""
@@ -305,9 +448,13 @@ class DeviceSnapshot:
     """The tensor twin of a :class:`CSRSnapshot`: the topology columns,
     the rank words (int64, :func:`rank_words`) and the kind bytes (uint8;
     zeros where the host column is not N+1 long). The second rank word
-    stays on the host: the value index's columns carry it."""
+    stays on the host: the value index's columns carry it. ``n_inc`` and
+    ``n_tgt`` are the host snapshot's real entry counts: past them
+    ``inc_links`` and ``tgt_flat`` hold padding."""
 
     num_atoms: int
+    n_inc: int
+    n_tgt: int
     inc_offsets: torch.Tensor
     inc_links: torch.Tensor
     inc_src: torch.Tensor
@@ -327,13 +474,15 @@ class DeviceSnapshot:
         dev = resolve_device(device)
         n1 = snap.num_atoms + 1
         host = {f.name: getattr(snap, f.name) for f in fields(DeviceSnapshot)
-                if f.name != "num_atoms"}
+                if f.name not in _COUNTS}
         host["value_rank"] = rank_words(snap.value_rank)
         if len(snap.value_kind) != n1:
             host["value_kind"] = np.zeros(n1, dtype=np.uint8)
         cols = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in host.items()}
-        return DeviceSnapshot(num_atoms=snap.num_atoms, **cols).to(dev)
+        return DeviceSnapshot(num_atoms=snap.num_atoms,
+                              n_inc=snap.n_edges_inc, n_tgt=snap.n_edges_tgt,
+                              **cols).to(dev)
 
     def index64(self, name: str) -> torch.Tensor:
         """Column ``name`` as int64, the index type of PyTorch's scatters,
@@ -346,7 +495,11 @@ class DeviceSnapshot:
         asks for the CPU)."""
         dev = resolve_device(device)
         return DeviceSnapshot(
-            num_atoms=self.num_atoms,
+            **{c: getattr(self, c) for c in _COUNTS},
             **{f.name: getattr(self, f.name).to(dev)
-               for f in fields(self) if f.name != "num_atoms"},
+               for f in fields(self) if f.name not in _COUNTS},
         )
+
+
+#: the scalar fields of a :class:`DeviceSnapshot`; the rest are tensors
+_COUNTS = ("num_atoms", "n_inc", "n_tgt")

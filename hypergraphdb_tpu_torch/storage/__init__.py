@@ -1,1 +1,2 @@
-"""Storage-side structures of the port: the value index's device columns."""
+"""Storage of the port: the storage contract, the in-memory backend and
+the value index's device columns."""

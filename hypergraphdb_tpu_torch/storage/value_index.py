@@ -16,11 +16,10 @@ reference's two uint32 compares. A column holding any ambiguous key
 (payload over 16 bytes, or NUL among the first 16) clears
 ``device_exact``: its windows cannot be trusted on the device.
 
-What waits for the port's graph layer: ``value_key_of`` and
-``build_delta_column`` read a graph (an atom's key, the memtable's new
-atoms). Until then a delta column is built from explicit ``(ranks, gids)``
-through :func:`_sorted_device_column`, which both of the reference's
-column functions call.
+A delta column covers the snapshot manager's memtable atoms
+(:func:`build_delta_column`, through ``SnapshotManager.value_delta``); it
+and the base column share one constructor, :func:`_sorted_device_column`,
+so they share a layout.
 """
 
 from __future__ import annotations
@@ -171,3 +170,57 @@ def inc_csr_device(snap, device: str | torch.device = DEFAULT_DEVICE
         lambda twin: ((twin.inc_offsets, twin.inc_links) if twin is not None
                       else (torch.from_numpy(snap.inc_offsets).to(dev),
                             torch.from_numpy(snap.inc_links).to(dev))))
+
+
+def value_key_of(graph, h: int):
+    """One atom's order-preserving value key, or None when the atom is gone
+    or its value has no key: the probe of :func:`build_delta_column` and
+    of the host correction."""
+    from hypergraphdb_tpu_torch.core.errors import HGException
+    from hypergraphdb_tpu_torch.core.graph import HGLink
+
+    try:
+        v = graph.get(h)
+        if isinstance(v, HGLink):
+            v = v.value
+        at = graph.typesystem.get_type(graph.get_type_handle_of(h))
+        return at.to_key(v)
+    except (HGException, TypeError, ValueError):  # a racing delete
+        return None
+
+
+def build_delta_column(graph, new_atoms, kind: int, epoch: int,
+                       device: str | torch.device = DEFAULT_DEVICE
+                       ) -> ValueIndexColumn:
+    """The delta column of one kind over a captured prefix of the
+    memtable's new atoms, sorted and on ``device``. ``covered`` is the
+    whole scanned length: atoms of other kinds, gone atoms and keyless
+    values are scanned too (they add nothing), so the host residual is
+    exactly ``new_atoms[covered:]``."""
+    from hypergraphdb_tpu_torch.utils.ordered_bytes import (
+        rank128,
+        rank_ambiguous,
+    )
+
+    ranks: list[int] = []
+    ranks2: list[int] = []
+    gids: list[int] = []
+    kb = bytes([int(kind)])
+    fixed = int(kind) in FIXED_WIDTH_KINDS
+    exact = True
+    for h in new_atoms:
+        key = value_key_of(graph, int(h))
+        if key is not None and key[:1] == kb:
+            payload = key[1:]
+            r1, r2 = rank128(payload)
+            ranks.append(r1)
+            ranks2.append(r2)
+            gids.append(int(h))
+            if not fixed and rank_ambiguous(payload):
+                exact = False
+    return _sorted_device_column(
+        int(kind), np.asarray(ranks, dtype=np.uint64),
+        np.asarray(gids, dtype=np.int64), epoch=epoch,
+        covered=len(new_atoms), minimum=32,
+        ranks2=np.asarray(ranks2, dtype=np.uint64), exact=fixed or exact,
+        device=device)

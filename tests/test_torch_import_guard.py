@@ -1,6 +1,7 @@
 """The port stands alone: every module of ``hypergraphdb_tpu_torch`` and
-``chip_smoke.py`` imports with ``jax`` and ``hypergraphdb_tpu`` blocked, and
-none of their sources names either in an import."""
+``chip_smoke.py`` imports with ``jax``, ``hypergraphdb_tpu``, ``msgpack``
+and ``sortedcontainers`` blocked (the card's machine has none of them), and
+none of their sources names one in an import."""
 
 import ast
 import subprocess
@@ -9,6 +10,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "hypergraphdb_tpu_torch"
+#: top-level packages the port must never import
+BLOCKED = ("jax", "jaxlib", "hypergraphdb_tpu", "msgpack", "sortedcontainers")
 
 
 def _port_sources():
@@ -29,15 +32,14 @@ def test_port_imports_with_jax_and_reference_blocked():
     # check is on what the port's imports ADD to sys.modules
     script = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['hypergraphdb_tpu'] = None\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
         "before = set(sys.modules)\n"
         "import importlib\n"
         f"for name in {_module_names()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "new = set(sys.modules) - before\n"
-        "bad = [m for m in new if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'hypergraphdb_tpu')]\n"
+        f"bad = [m for m in new if m.split('.')[0] in {BLOCKED!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -59,6 +61,32 @@ def test_port_sources_name_no_jax_or_reference_import():
                 continue
             for m in mods:
                 top = m.split(".")[0]
-                if top in ("jax", "jaxlib", "hypergraphdb_tpu"):
+                if top in BLOCKED:
                     bad.append(f"{path.relative_to(ROOT)}: {m}")
     assert not bad, bad
+
+
+def test_graph_layer_runs_with_msgpack_and_sortedcontainers_blocked():
+    """The graph layer, the pack and the manager run end to end (list and
+    dict values, sorted indexes, a compaction) where neither package
+    imports."""
+    script = (
+        "import sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['sortedcontainers'] = None\n"
+        "from hypergraphdb_tpu_torch.core.graph import HyperGraph\n"
+        "g = HyperGraph()\n"
+        "a, b = g.add([1, 'x']), g.add({'k': 2.5})\n"
+        "g.add_link((a, b), value='l')\n"
+        "assert g.get(a) == [1, 'x'] and g.get(b) == {'k': 2.5}\n"
+        "mgr = g.enable_incremental(background=False, device='cpu')\n"
+        "g.add_link((b, a), value=3)\n"
+        "mgr._compact_sync()\n"
+        "assert mgr.compactions == 2 and mgr.base.n_edges_inc == 4\n"
+        "g.close()\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
