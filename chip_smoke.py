@@ -124,6 +124,32 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     (``incident_value_range`` over ranks [16, 48)) counts against numpy,
     ``incident_value_pattern``'s five ops against numpy on the first 128
     queries, the row pack against the columns, execute-only queries/s.
+14. bench.py c5 on the port's graph layer (after 13): the graph through
+    ``bulk_import``, the snapshot manager with c5's arguments, a writer
+    thread streaming c5's batches beside the reader's dense batches, the
+    final view against host BFS (see :func:`phase_ingest`).
+15. The query front door (after 14): ``tools/calibrate_duality.py``'s two
+    ``device_min_batch`` sweeps on the port (a 2-way intersection through
+    K3 against the host's, and one ``And(incident(hub), value > 500)``
+    through ``DeviceValueConjPlan`` against its host plan), logged beside
+    the port's default; the reference's ``dbpedia_like`` at 4x its
+    default scale (:data:`Q_ENTITIES` entities, :data:`Q_TRIPLES` links,
+    seed 13) through ``bulk_import``, packed, its three longest incidence
+    rows the hubs; bench.py c3's 1024 anchor pairs (``default_rng(42)``,
+    links of the most common property) through ``graph.find_all`` one
+    query at a time in two forms, ``And(AtomType(int), Incident,
+    Incident)`` and ``And(Incident, Incident, AtomValue(p))``, each
+    answer equal to numpy over the pack, queries/s; the hub queries (h1 ∩
+    h2, h1 ∩ h2 ∩ h3, int ∩ h1 ∩ h2, h1's value window) at the port's
+    default and on the host: equal to numpy and to each other, K3
+    launching exactly once a device-branch run and never on the host,
+    both timed host to host; the same after ``enable_incremental`` and a
+    batch of adds and removes on the hubs (the value plan's memtable
+    correction); then ``wordnet_like`` at its defaults:
+    ``HGBreadthFirstTraversal`` from 64 seeds at 1, 2 and 3 hops equal to
+    ``bfs_pull`` on the card (fused, K2; staged, K1), ``serve_bfs`` and
+    ``find_all(bfs)``, unbounded DFS equal to BFS. K3's record gains its
+    launches through ``find_all``; c3's two forms are profiled last.
 11. The device's busy share of the main path (fused and staged), the
     h1 ∩ h2 intersection, the pattern windows, the two served delta
     routes, a join triangle window and a hub-heavy split dispatch, a
@@ -3513,6 +3539,463 @@ def phase_ingest(s: Smoke) -> dict:
     return rec
 
 
+#: phase 15: bench.py c3's query shape through the front door, on the
+#: reference's ``dbpedia_like`` at 4x its default scale (2.4M atoms;
+#: BASELINE config 3's shape), ``default_rng(Q_SEED)``
+Q_ENTITIES, Q_TRIPLES, Q_PROPERTIES, Q_SEED = 400_000, 2_000_000, 64, 13
+#: build seconds past which the next run halves Q_TRIPLES (logged)
+Q_BUILD_LIMIT_S = 120.0
+#: the hub value window of (d) and (e): link values (property ids) in
+#: [lo, hi), c3's value leg
+Q_WINDOW = (16, 48)
+#: host-to-host runs of each hub query, at the default and on the host
+Q_REPS = 5
+#: (e): links added on h1 and h2 (values cycling through the properties),
+#: h1 links removed, default_rng(Q_EDIT_SEED)
+Q_NEW_LINKS, Q_DEAD_LINKS, Q_EDIT_SEED = 2_000, 50, 5
+#: (f): ``wordnet_like`` at its defaults (BASELINE config 1's shape), the
+#: traversal seeds (64 synsets from default_rng(WN_SEED)), the seeds also
+#: queried through find_all, and the seeds of the unbounded DFS vs BFS
+WN_SEEDS, WN_SEED, WN_FIND_SEEDS, WN_DFS_SEEDS = 64, 17, 16, 4
+#: the calibration sweeps (tools/calibrate_duality.py's, on the port)
+CAL_SIZES = (64, 256, 1_024, 4_096, 16_384, 65_536, 262_144)
+CAL_HUBS = (1_024, 8_192, 65_536, 262_144)
+CAL_ID_SPACE = 10_000_000
+
+
+def _host_ms(s: Smoke, fn, reps: int = 5) -> float:
+    """Mean host-to-host milliseconds of ``fn`` over ``reps`` runs after
+    one warm run (``tools/calibrate_duality._time``)."""
+    fn()
+    s.torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    s.torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _first_win(rows: dict):
+    """The first size whose device time beats its host time, or None."""
+    return next((n for n in sorted(rows)
+                 if rows[n]["device_ms"] < rows[n]["host_ms"]), None)
+
+
+def query_calibration(s: Smoke) -> dict:
+    """``tools/calibrate_duality.py``'s two ``device_min_batch`` sweeps on
+    the port: a 2-way intersection (an 8x larger partner) through
+    ``device_intersect_sorted`` (K3) against the host's
+    ``intersect_sorted``, and one ad-hoc ``And(incident(hub), value >
+    500)`` through ``DeviceValueConjPlan`` on the device against its host
+    plan, by hub size."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.config import (
+        HGConfiguration,
+        QueryConfig,
+    )
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.ops.setops import device_intersect_sorted
+    from hypergraphdb_tpu_torch.query import compiler as qc
+    from hypergraphdb_tpu_torch.query import dsl as q
+
+    rng = np.random.default_rng(11)
+
+    def sample(n):
+        return np.unique(rng.integers(0, CAL_ID_SPACE, size=int(n * 1.1))
+                         )[:n].astype(np.int64)
+
+    inter = {}
+    for n in CAL_SIZES:
+        a, b = sample(n), sample(min(n * 8, 8_000_000))
+        want = np.intersect1d(a, b)
+        s.expect(np.array_equal(
+            device_intersect_sorted([a, b], device=s.dev), want),
+            f"calibration: device intersection at {n} != np.intersect1d")
+        inter[n] = {
+            "host_ms": _host_ms(s, lambda: qc.intersect_sorted(None, a, b)),
+            "device_ms": _host_ms(
+                s, lambda: device_intersect_sorted([a, b], device=s.dev))}
+    cross_i = _first_win(inter)
+
+    g = HyperGraph(HGConfiguration(query=QueryConfig(device=str(s.dev))))
+    rng = np.random.default_rng(3)
+    spokes = list(g.add_nodes_bulk([f"s{i}" for i in range(1024)]))
+    hubs = {}
+    for n in CAL_HUBS:
+        hub = g.add(f"hub{n}")
+        g.bulk_import(
+            values=[int(x) for x in rng.integers(0, 1000, size=n)],
+            target_lists=[[int(hub), int(spokes[i % 1024])]
+                          for i in range(n)])
+        hubs[n] = hub
+    g.snapshot()  # the resident base
+    value = {}
+    for n, hub in hubs.items():
+        cq = qc.compile_query(g, q.and_(q.incident(hub), q.value(500, "gt")))
+        s.expect(isinstance(cq.plan, qc.DeviceValueConjPlan),
+                 f"calibration: {cq.plan.describe()} is no value pushdown")
+        g.config.query.device_min_batch = 0          # the device
+        on_dev = cq.plan.run(g)
+        dev_ms = _host_ms(s, lambda: cq.plan.run(g), reps=3)
+        g.config.query.device_min_batch = 1 << 60    # the host plan
+        s.expect(np.array_equal(on_dev, cq.plan.run(g)),
+                 f"calibration: value pushdown at {n} != its host plan")
+        value[n] = {"host_ms": _host_ms(s, lambda: cq.plan.run(g), reps=3),
+                    "device_ms": dev_ms}
+    g.close()
+    cross_v = _first_win(value)
+    default = QueryConfig().device_min_batch
+    # where the device never wins a sweep, the default stays 262,144
+    measured = (262_144 if cross_i is None or cross_v is None
+                else max(cross_i, cross_v))
+    for what, rows in (("intersection", inter), ("value conjunction",
+                                                 value)):
+        s.log(f"calibration, {what}: " + "; ".join(
+            f"{n}: host {r['host_ms']:.4f} ms, device {r['device_ms']:.4f} "
+            f"ms" for n, r in rows.items()))
+    s.log(f"calibration: crossovers intersection {cross_i}, value "
+          f"conjunction {cross_v}: device_min_batch {measured} by this run, "
+          + ("equal to" if measured == default else "not equal to")
+          + f" the port's default {default}")
+    return {"intersection": inter, "value_conj": value,
+            "crossover_intersection": cross_i,
+            "crossover_value_conj": cross_v, "default": default}
+
+
+def _device_runs(g, plan, dmb: int) -> int:
+    """K3 launches one run of ``plan`` makes at ``device_min_batch``
+    ``dmb``: one for an intersection whose smallest child's estimate
+    reaches it, none otherwise."""
+    from hypergraphdb_tpu_torch.query.compiler import IntersectPlan
+
+    if not isinstance(plan, IntersectPlan) or len(plan.children) < 2:
+        return 0
+    small = min(p.estimate(g) for p in plan.children)
+    return int(g.config.query.prefer_device and small >= dmb)
+
+
+def _values_of(g, n_properties: int):
+    """(ids + 1,) int64 array of each link's int value (-1 elsewhere),
+    from the by-value index."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.graph import IDX_BY_VALUE
+    from hypergraphdb_tpu_torch.utils.ordered_bytes import encode_int
+
+    out = np.full(g.handles.peek + 1, -1, dtype=np.int64)
+    idx = g.backend.get_index(IDX_BY_VALUE)
+    for p in range(n_properties):
+        out[idx.find(b"i" + encode_int(p)).array()] = p
+    return out
+
+
+def hub_queries(s: Smoke, g, hubs, rows, vals, what: str) -> dict:
+    """The hub queries of (d) through ``find_all`` at the graph's
+    ``device_min_batch`` and on the host, each against numpy over
+    ``rows`` (the hubs' incidence rows) and ``vals``: K3 must launch
+    exactly once a device-branch run and never on the host. Returns the
+    launches and times."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.query import dsl as hg
+    from hypergraphdb_tpu_torch.query.compiler import (
+        DeviceValueConjPlan,
+        compile_query,
+    )
+
+    h1, h2, h3 = hubs
+    lo, hi = Q_WINDOW
+
+    def fold(*rs):
+        out = rs[0]
+        for r in rs[1:]:
+            out = np.intersect1d(out, r)
+        return out.astype(np.int64)
+
+    r1, r2, r3 = rows
+    v1 = vals[r1]
+    cases = {
+        "h1&h2": (hg.and_(hg.incident(h1), hg.incident(h2)), fold(r1, r2)),
+        "h1&h2&h3": (hg.and_(hg.incident(h1), hg.incident(h2),
+                             hg.incident(h3)), fold(r1, r2, r3)),
+        # an atom with an int value is an int atom
+        "int&h1&h2": (hg.and_(hg.type_("int"), hg.incident(h1),
+                              hg.incident(h2)),
+                      fold(r1, r2)[vals[fold(r1, r2)] >= 0]),
+        "h1&window": (hg.and_(hg.incident(h1), hg.gte(lo), hg.lt(hi)),
+                      r1[(v1 >= lo) & (v1 < hi)].astype(np.int64)),
+    }
+    cfg = g.config.query
+    dmb = cfg.device_min_batch
+    out = {"launches": 0, "device_runs": 0}
+    for name, (cond, want) in cases.items():
+        plan = compile_query(g, cond).plan
+        dev_runs = _device_runs(g, plan, dmb)
+        reset_launches()
+        got = np.asarray(g.find_all(cond), dtype=np.int64)
+        n = launches()["membership"]
+        s.expect(n == dev_runs, f"{what} {name}: K3 launched {n} times, "
+                 f"{dev_runs} device-branch runs")
+        s.expect(np.array_equal(got, want), f"{what} {name}: find_all != "
+                 "numpy")
+        out["launches"] += n
+        out["device_runs"] += dev_runs
+        cfg.device_min_batch = 1 << 60
+        try:
+            reset_launches()
+            host = np.asarray(g.find_all(cond), dtype=np.int64)
+            s.expect(launches()["membership"] == 0,
+                     f"{what} {name}: K3 launched on the host plan")
+            s.expect(np.array_equal(host, got),
+                     f"{what} {name}: the host plan != the default plan")
+            t_host = served_ms(s, lambda: g.find_all(cond), runs=Q_REPS)
+        finally:
+            cfg.device_min_batch = dmb
+        t_dev = served_ms(s, lambda: g.find_all(cond), runs=Q_REPS)
+        est = sorted(round(p.estimate(g)) for p in getattr(
+            plan, "children", [plan]))
+        lane = ("; the value lane on the device" if isinstance(
+            plan, DeviceValueConjPlan) and plan.estimate(g) >= dmb else "")
+        s.log(f"{what} {name}: {len(got)} ids == numpy; plan "
+              f"{plan.describe()} (estimates {est}{lane}); at "
+              f"device_min_batch {dmb}: {dev_runs} device-branch run(s), "
+              f"K3 launches {n}, "
+              f"host to host median {np.median(t_dev):.3f} ms "
+              f"({[round(t, 3) for t in t_dev]}); host plan median "
+              f"{np.median(t_host):.3f} ms ({[round(t, 3) for t in t_host]})")
+        out[name] = {"ids": len(got), "device_runs": dev_runs,
+                     "launches": n, "ms": float(np.median(t_dev)),
+                     "host_ms": float(np.median(t_host))}
+    return out
+
+
+def phase_query(s: Smoke, records: dict) -> dict:
+    """Phase 15: the query front door (``find_all``) on the port's graph
+    layer. (b) the ``device_min_batch`` calibration; (a) a DBpedia-shaped
+    graph through ``dbpedia_like`` and its pack; (c) c3's 1024 anchor pairs,
+    one ``find_all`` each in two forms, against numpy; (d) the hub queries
+    at the port's default and on the host; (e) the same under incremental
+    mode after a batch of adds and removes; (f) the traversals on a
+    WordNet-shaped graph against the card's BFS."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.config import (
+        HGConfiguration,
+        QueryConfig,
+    )
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.models import dbpedia_like
+    from hypergraphdb_tpu_torch.query import dsl as hg
+
+    t_phase = time.perf_counter()
+    rec = {"calibration": query_calibration(s)}
+
+    # -- (a) the graph ------------------------------------------------------
+    g = HyperGraph(HGConfiguration(query=QueryConfig(device=str(s.dev))))
+    t0 = time.perf_counter()
+    ents, first_link = dbpedia_like(g, n_entities=Q_ENTITIES,
+                                    n_triples=Q_TRIPLES,
+                                    n_properties=Q_PROPERTIES, seed=Q_SEED)
+    build_s = time.perf_counter() - t0
+    n_atoms = Q_ENTITIES + Q_TRIPLES
+    t0 = time.perf_counter()
+    snap = g.snapshot()
+    pack_s = time.perf_counter() - t0
+    deg = np.diff(snap.inc_offsets[: snap.num_atoms + 1])
+    hubs = [int(h) for h in np.argsort(-deg, kind="stable")[:3]]
+    rows = [snap.incidence_row(h).astype(np.int64) for h in hubs]
+    s.log(f"query graph: dbpedia_like({Q_ENTITIES}, {Q_TRIPLES}, "
+          f"{Q_PROPERTIES}, seed {Q_SEED}): {n_atoms} atoms "
+          f"({g.handles.peek} ids) in {build_s:.2f} s "
+          f"({n_atoms / build_s:.0f} atoms/s"
+          + (f"; over the {Q_BUILD_LIMIT_S:.0f} s limit: halve Q_TRIPLES"
+             if build_s > Q_BUILD_LIMIT_S else "")
+          + f"); pack {pack_s:.2f} s ({snap.n_edges_inc} incidence "
+          f"entries); hubs {hubs}: rows {[len(r) for r in rows]}")
+    rec.update(build_s=build_s, atoms_per_s=n_atoms / build_s,
+               pack_s=pack_s, hubs=hubs, hub_rows=[len(r) for r in rows])
+    vals = _values_of(g, Q_PROPERTIES)
+    int_t = int(g.typesystem.handle_of("int"))
+
+    # -- (c) c3's anchor pairs, one find_all each ---------------------------
+    counts = np.bincount(vals[vals >= 0], minlength=Q_PROPERTIES)
+    p = int(np.argmax(counts))
+    cands = np.flatnonzero(vals == p)
+    r = np.random.default_rng(PATTERN_SEED)
+    links = cands[r.integers(0, len(cands), size=PATTERN_PAIRS)]
+    starts = snap.tgt_offsets[links].astype(np.int64)
+    pairs = np.stack([snap.tgt_flat[starts], snap.tgt_flat[starts + 1]],
+                     axis=1).astype(np.int64)
+    forms = {
+        "typed": lambda a, b: hg.and_(hg.type_("int"), hg.incident(a),
+                                      hg.incident(b)),
+        "valued": lambda a, b: hg.and_(hg.incident(a), hg.incident(b),
+                                       hg.eq(p)),
+    }
+    for form, make in forms.items():
+        conds = [make(int(a), int(b)) for a, b in pairs]
+        # the first query builds what later ones reuse (the type column)
+        t0 = time.perf_counter()
+        g.find_all(conds[0])
+        first_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        got = [g.find_all(c) for c in conds]
+        s.torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = launches()["membership"]
+        for (a, b), res in zip(pairs.tolist(), got):
+            want = np.intersect1d(snap.incidence_row(a),
+                                  snap.incidence_row(b)).astype(np.int64)
+            want = want[(snap.type_of[want] == int_t) if form == "typed"
+                        else (vals[want] == p)]
+            s.expect(np.array_equal(np.asarray(res, dtype=np.int64), want),
+                     f"c3 {form} ({a}, {b}): find_all != numpy")
+        qps = PATTERN_PAIRS / wall
+        s.log(f"c3 through find_all, {form} form: {PATTERN_PAIRS} queries "
+              f"== numpy ({sum(map(len, got))} ids; property {p}, "
+              f"{len(cands)} links), {qps:.1f} queries/s host to host after "
+              f"a first query of {first_s:.3f} s, K3 launches {k3}")
+        rec[f"c3_{form}_qps"] = qps
+        s.profile_later(f"c3 find_all, {form} form ({PATTERN_PAIRS} queries)",
+                        lambda conds=conds: [g.find_all(c) for c in conds],
+                        wall * 1e3)
+
+    # -- (d) the hub queries at the port's default ----------------------------
+    hub = hub_queries(s, g, hubs, rows, vals, "hub query")
+    s.expect(hub["device_runs"] >= 1,
+             f"no hub query reached the device branch at the default "
+             f"device_min_batch {g.config.query.device_min_batch}")
+    rec["hub"] = hub
+
+    # -- (e) incremental mode: adds and removes, the memtable correction ----
+    mgr = g.enable_incremental(device=s.dev)
+    h1, h2 = hubs[:2]
+    r = np.random.default_rng(Q_EDIT_SEED)
+    new = g.bulk_import(
+        values=[i % Q_PROPERTIES for i in range(Q_NEW_LINKS)],
+        target_lists=[[h1, h2] if i % 2 else [h1, int(ents[i])]
+                      for i in range(Q_NEW_LINKS)])
+    dead = r.choice(rows[0], size=Q_DEAD_LINKS, replace=False)
+    for link in dead.tolist():
+        g.remove(int(link))
+    rows_now = [g.get_incidence_set(h).array() for h in hubs]
+    vals = _values_of(g, Q_PROPERTIES)
+    s.log(f"incremental: {len(new)} links added on h1 and h2, "
+          f"{Q_DEAD_LINKS} h1 links removed; {mgr.delta_edges} delta "
+          f"entries, {len(mgr.correction()[0])} dead, compactions "
+          f"{mgr.compactions}")
+    inc = hub_queries(s, g, hubs, rows_now, vals, "incremental")
+    s.expect(mgr.compactions == 1, "a compaction folded the edits into the "
+             "base before the queries read them: no memtable correction")
+    rec["incremental"] = inc
+    n_find_all = hub["launches"] + inc["launches"]
+
+    # -- (f) the traversals against the card's BFS --------------------------
+    rec["traversals"] = query_traversals(s)
+    for k in records["kernels"]:
+        if k["name"] == "membership":
+            k["find_all_launches"] = n_find_all
+    s.log(f"K3 launches through find_all: {n_find_all} ((d) "
+          f"{hub['launches']}, (e) {inc['launches']})")
+
+    def close():
+        mgr.close()
+        g.close()
+
+    # the c3 profiles queued above run last (phase_profiles): the graph
+    # closes after the last of them
+    name, fn, ms, reps, setup, _ = s.profiles[-1]
+    s.profiles[-1] = (name, fn, ms, reps, setup, close)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    s.log(f"query phase: {rec['phase_s']:.1f} s in all; record "
+          + json.dumps({k: v for k, v in rec.items()
+                        if k not in ("calibration",)}))
+    return rec
+
+
+def query_traversals(s: Smoke) -> dict:
+    """(f): ``wordnet_like`` at its defaults; ``HGBreadthFirstTraversal``
+    from sampled seeds at 1, 2 and 3 hops against ``bfs_pull`` on the
+    card, fused (K2) and staged (K1), and ``serve_bfs``; ``find_all(bfs)``
+    on some seeds; unbounded DFS against unbounded BFS."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.algorithms.traversals import (
+        HGBreadthFirstTraversal,
+        HGDepthFirstTraversal,
+    )
+    from hypergraphdb_tpu_torch.core.config import (
+        HGConfiguration,
+        QueryConfig,
+    )
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.models import wordnet_like
+    from hypergraphdb_tpu_torch.ops.ellbfs import bfs_pull, visited_rows
+    from hypergraphdb_tpu_torch.ops.serving import serve_bfs
+    from hypergraphdb_tpu_torch.query import dsl as hg
+
+    g = HyperGraph(HGConfiguration(query=QueryConfig(device=str(s.dev))))
+    t0 = time.perf_counter()
+    syn, _ = wordnet_like(g)
+    build_s = time.perf_counter() - t0
+    snap = g.snapshot()
+    seeds = np.asarray(syn, dtype=np.int64)[np.random.default_rng(
+        WN_SEED).integers(0, len(syn), size=WN_SEEDS)].astype(np.int32)
+    out = {"build_s": build_s}
+    reach3 = []
+    for hops in (1, 2, 3):
+        t0 = time.perf_counter()
+        host = [sorted(a for _, a in HGBreadthFirstTraversal(
+            g, int(x), max_distance=hops)) for x in seeds.tolist()]
+        host_s = time.perf_counter() - t0
+        reset_launches()
+        fused = bfs_pull(snap, seeds, hops, device=s.dev)
+        staged = bfs_pull(snap, seeds, hops, fused=False, device=s.dev)
+        s.torch.cuda.synchronize()
+        n = launches()
+        s.expect(n["fused_hop"] > 0 and n["gather_or"] > 0,
+                 f"traversal {hops} hops: K1/K2 did not launch: {n}")
+        for res, how in ((fused, "fused"), (staged, "staged")):
+            got = visited_rows(res, snap.num_atoms, list(range(WN_SEEDS)))
+            for x, row, want in zip(seeds.tolist(), got, host):
+                s.expect(row[row != x].tolist() == want,
+                         f"traversal {hops} hops from {x}: bfs_pull "
+                         f"({how}) != HGBreadthFirstTraversal")
+        cnt, first = serve_bfs(snap, seeds[:SERVE_SEEDS], hops,
+                               SERVE_TOP_R, device=s.dev)
+        for x, c, f, want in zip(seeds.tolist(), cnt, first, host):
+            full = sorted(want + [x])
+            s.expect(int(c) == len(full) and f[: min(len(full),
+                                                     SERVE_TOP_R)].tolist()
+                     == full[:SERVE_TOP_R],
+                     f"traversal {hops} hops from {x}: serve_bfs != host")
+        for x, want in list(zip(seeds.tolist(), host))[:WN_FIND_SEEDS]:
+            s.expect(sorted(g.find_all(hg.bfs(x, max_distance=hops)))
+                     == want, f"find_all(bfs({x}, {hops})) != traversal")
+        s.log(f"traversal {hops} hops: {WN_SEEDS} seeds, mean reach "
+              f"{np.mean([len(h) for h in host]):.1f}; HGBreadthFirst"
+              f"Traversal {host_s:.3f} s == bfs_pull fused and staged "
+              f"(launches {n}) == serve_bfs ({SERVE_SEEDS} requests) == "
+              f"find_all(bfs) ({WN_FIND_SEEDS} seeds)")
+        out[f"hops{hops}"] = {"mean_reach": float(np.mean(
+            [len(h) for h in host])), "host_s": host_s, "launches": n}
+        reach3 = host
+    widest = np.argsort([-len(h) for h in reach3], kind="stable")
+    for i in widest[:WN_DFS_SEEDS].tolist():
+        x = int(seeds[i])
+        b = {a for _, a in HGBreadthFirstTraversal(g, x)}
+        d = [a for _, a in HGDepthFirstTraversal(g, x)]
+        s.expect(len(d) == len(set(d)) and set(d) == b,
+                 f"DFS from {x} != BFS ({len(d)} vs {len(b)})")
+    s.log(f"traversal: wordnet_like build {build_s:.2f} s "
+          f"({g.handles.peek} ids); unbounded DFS == BFS from "
+          f"{WN_DFS_SEEDS} seeds")
+    g.close()
+    return out
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
@@ -3593,6 +4076,7 @@ def main(argv: list[str]) -> int:
         join_rec = phase_join(s, snap, info)
         phase_values(s, snap, info, join_rec)
         phase_ingest(s)
+        phase_query(s, records)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -1,0 +1,261 @@
+"""Graph traversals: BFS/DFS iterators + adjacency-list generators.
+
+Re-expression of the reference's ``algorithms/`` package:
+``HGTraversal`` — an iterator of (parent-link, atom) pairs
+(``algorithms/HGTraversal.java:36``), ``HGBreadthFirstTraversal.java:29``
+(queue + examined map, advance :49-66), ``HGDepthFirstTraversal.java:28``,
+and the adjacency generators ``HGALGenerator``/``SimpleALGenerator.java:27``/
+``DefaultALGenerator.java:73`` (link & sibling predicates, ordered-link
+direction options, generate :504-509).
+
+These are the *host-plane* semantics oracle. The device plane runs the same
+frontier expansion as a batched pull BFS over the CSR snapshot
+(``ops/ellbfs.bfs_pull``, ``ops/serving.serve_bfs``); ``TraversalPlan`` in
+the query compiler walks these host traversals.
+"""
+
+from __future__ import annotations
+
+import heapq
+from collections import deque
+from typing import Callable, Iterator, Optional
+
+from hypergraphdb_tpu_torch.core.errors import NotFoundError
+from hypergraphdb_tpu_torch.core.handles import HGHandle
+
+LinkPredicate = Callable[["HyperGraph", HGHandle], bool]  # noqa: F821
+AtomPredicate = Callable[["HyperGraph", HGHandle], bool]  # noqa: F821
+
+
+class HGALGenerator:
+    """Adjacency-list generator: for an atom, yield (link, neighbor) pairs."""
+
+    def generate(self, atom: HGHandle) -> Iterator[tuple[HGHandle, HGHandle]]:
+        raise NotImplementedError
+
+
+class SimpleALGenerator(HGALGenerator):
+    """All siblings through all incident links (``SimpleALGenerator.java:27``)."""
+
+    def __init__(self, graph):
+        self.graph = graph
+
+    def generate(self, atom):
+        atom = int(atom)
+        for link in self.graph.get_incidence_set(atom):
+            for t in self.graph.get_targets(link):
+                if t != atom:
+                    yield (int(link), int(t))
+
+
+class DefaultALGenerator(HGALGenerator):
+    """Filtered/directed adjacency (``DefaultALGenerator.java:73``):
+
+    - ``link_predicate`` filters which incident links are followed,
+    - ``sibling_predicate`` filters which neighbors are yielded,
+    - ``return_preceeding``/``return_succeeding`` restrict, for *ordered*
+      links, to targets before/after the source atom's position (the
+      directed-hyperedge options),
+    - ``reverse_order`` walks a link's targets backwards.
+    """
+
+    def __init__(
+        self,
+        graph,
+        link_predicate: Optional[LinkPredicate] = None,
+        sibling_predicate: Optional[AtomPredicate] = None,
+        return_preceeding: bool = True,
+        return_succeeding: bool = True,
+        reverse_order: bool = False,
+    ):
+        self.graph = graph
+        self.link_predicate = link_predicate
+        self.sibling_predicate = sibling_predicate
+        self.return_preceeding = return_preceeding
+        self.return_succeeding = return_succeeding
+        self.reverse_order = reverse_order
+
+    def generate(self, atom):
+        g = self.graph
+        atom = int(atom)
+        for link in g.get_incidence_set(atom):
+            link = int(link)
+            if self.link_predicate is not None and not self.link_predicate(g, link):
+                continue
+            targets = g.get_targets(link)
+            # positions of the source atom in the link (may repeat)
+            pos = [i for i, t in enumerate(targets) if t == atom]
+            if not pos:
+                continue
+            lo, hi = min(pos), max(pos)
+            order = range(len(targets) - 1, -1, -1) if self.reverse_order else range(
+                len(targets)
+            )
+            for i in order:
+                t = targets[i]
+                if t == atom:
+                    continue
+                if not self.return_preceeding and i < hi:
+                    continue
+                if not self.return_succeeding and i > lo:
+                    continue
+                if self.sibling_predicate is not None and not self.sibling_predicate(
+                    g, t
+                ):
+                    continue
+                yield (link, int(t))
+
+
+class HGTraversal:
+    """Base traversal iterator of (parent_link, atom) pairs; the start atom
+    itself is not yielded (reference contract)."""
+
+    def __init__(
+        self,
+        graph,
+        start: HGHandle,
+        generator: Optional[HGALGenerator] = None,
+        max_distance: Optional[int] = None,
+    ):
+        self.graph = graph
+        self.start = int(start)
+        self.generator = generator or SimpleALGenerator(graph)
+        self.max_distance = max_distance
+
+    def __iter__(self) -> Iterator[tuple[Optional[HGHandle], HGHandle]]:
+        raise NotImplementedError
+
+
+class HGBreadthFirstTraversal(HGTraversal):
+    """Queue-based BFS (``HGBreadthFirstTraversal.java:29``)."""
+
+    def __iter__(self):
+        visited = {self.start}
+        q: deque[tuple[int, int]] = deque([(self.start, 0)])
+        while q:
+            atom, dist = q.popleft()
+            if self.max_distance is not None and dist >= self.max_distance:
+                continue
+            for link, nbr in self.generator.generate(atom):
+                if nbr in visited:
+                    continue
+                visited.add(nbr)
+                yield (link, nbr)
+                q.append((nbr, dist + 1))
+
+
+class HGDepthFirstTraversal(HGTraversal):
+    """Stack-based DFS (``HGDepthFirstTraversal.java:28``)."""
+
+    def __iter__(self):
+        if self.max_distance is not None and self.max_distance <= 0:
+            return
+        visited = {self.start}
+        # stack of (parent_link, atom, distance); yield on pop = preorder DFS
+        stack: list[tuple[int, int, int]] = [
+            (link, nbr, 1)
+            for link, nbr in reversed(list(self.generator.generate(self.start)))
+        ]
+        while stack:
+            link, atom, dist = stack.pop()
+            if atom in visited:
+                continue
+            visited.add(atom)
+            yield (link, atom)
+            if self.max_distance is None or dist < self.max_distance:
+                nbrs = list(self.generator.generate(atom))
+                for l, n in reversed(nbrs):
+                    if n not in visited:
+                        stack.append((l, n, dist + 1))
+
+
+class HyperTraversal:
+    """Link-as-node flattened traversal (``HyperTraversal.java:33``): yields
+    both atoms and the links between them as visited nodes."""
+
+    def __init__(self, graph, start: HGHandle, max_distance: Optional[int] = None):
+        self.graph = graph
+        self.start = int(start)
+        self.max_distance = max_distance
+
+    def __iter__(self):
+        visited = {self.start}
+        q: deque[tuple[int, int]] = deque([(self.start, 0)])
+        while q:
+            node, dist = q.popleft()
+            if self.max_distance is not None and dist >= self.max_distance:
+                continue
+            neighbors: list[tuple[int, int]] = []
+            for link in self.graph.get_incidence_set(node):
+                neighbors.append((int(link), int(link)))
+            try:
+                for t in self.graph.get_targets(node):
+                    neighbors.append((node, int(t)))
+            except NotFoundError:
+                pass  # a plain atom in the frontier has no targets —
+                # anything ELSE (storage fault, evaluation bug) propagates
+            for parent, nbr in neighbors:
+                if nbr in visited:
+                    continue
+                visited.add(nbr)
+                yield (parent, nbr)
+                q.append((nbr, dist + 1))
+
+
+# ---------------------------------------------------------------- classics
+
+
+def dijkstra(
+    graph,
+    start: HGHandle,
+    goal: HGHandle,
+    generator: Optional[HGALGenerator] = None,
+    weight: Optional[Callable[[HGHandle], float]] = None,
+) -> Optional[list[HGHandle]]:
+    """Shortest path (``GraphClassics.dijkstra`` :80). Returns the atom path
+    start..goal or None. ``weight`` maps a link handle to its edge weight."""
+    gen = generator or SimpleALGenerator(graph)
+    start, goal = int(start), int(goal)
+    dist: dict[int, float] = {start: 0.0}
+    prev: dict[int, int] = {}
+    heap: list[tuple[float, int]] = [(0.0, start)]
+    done: set[int] = set()
+    while heap:
+        d, atom = heapq.heappop(heap)
+        if atom in done:
+            continue
+        done.add(atom)
+        if atom == goal:
+            path = [goal]
+            while path[-1] != start:
+                path.append(prev[path[-1]])
+            return list(reversed(path))
+        for link, nbr in gen.generate(atom):
+            w = 1.0 if weight is None else float(weight(link))
+            nd = d + w
+            if nd < dist.get(nbr, float("inf")):
+                dist[nbr] = nd
+                prev[nbr] = atom
+                heapq.heappush(heap, (nd, nbr))
+    return None
+
+
+def has_cycles(graph, start: HGHandle, generator: Optional[HGALGenerator] = None) -> bool:
+    """Cycle detection from a start atom (``GraphClassics.hasCycles`` :40),
+    treating generated adjacency as directed edges."""
+    gen = generator or SimpleALGenerator(graph)
+    WHITE, GRAY, BLACK = 0, 1, 2
+    color: dict[int, int] = {}
+
+    def visit(a: int) -> bool:
+        color[a] = GRAY
+        for _, nbr in gen.generate(a):
+            st = color.get(nbr, WHITE)
+            if st == GRAY:
+                return True
+            if st == WHITE and visit(nbr):
+                return True
+        color[a] = BLACK
+        return False
+
+    return visit(int(start))

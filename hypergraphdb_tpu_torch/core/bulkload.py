@@ -13,7 +13,8 @@ appends.
   loader records the pre-image of every index and incidence cell it
   touches, and bumps those cells' versions, so such a transaction that
   read one fails validation instead of missing the load.
-- Per-atom added events fire only when someone listens.
+- Per-atom added events fire only when someone listens; user indexers
+  run through the normal ``maybe_index``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ def bulk_import(graph, values: Optional[Sequence[Any]] = None,
         IDX_BY_VALUE,
         _type_key,
     )
+    from hypergraphdb_tpu_torch.indexing.manager import (
+        indexers_of,
+        maybe_index,
+    )
 
     n = len(target_lists) if target_lists is not None else len(values)
     if n == 0:
@@ -54,6 +59,7 @@ def bulk_import(graph, values: Optional[Sequence[Any]] = None,
     atype = graph.typesystem.get_type(type_handle)
     backend = graph.backend
     txman = graph.txman
+    has_indexers = bool(indexers_of(graph, type_handle))
 
     with txman._commit_lock:
         r = graph.handles.make_many(n)
@@ -70,6 +76,10 @@ def bulk_import(graph, values: Optional[Sequence[Any]] = None,
                 txman._history.setdefault(cell, []).append(
                     (vnext, ("full", read_pre())))
 
+        def cap_user_idx(storage_name, key, idx):
+            cap(("idx", storage_name, key),
+                lambda: idx.find(key).array().copy())
+
         backend.commit_batch_begin()
         try:
             by_type = backend.get_index(IDX_BY_TYPE)
@@ -81,6 +91,7 @@ def bulk_import(graph, values: Optional[Sequence[Any]] = None,
             null_type = atype.name == "null"
             value_keys: set = set()
             touched_targets: set = set()
+            touched_user_idx: set = set()
             for i, h in enumerate(r):
                 v = values[i] if values is not None else None
                 vkey = atype.to_key(v)
@@ -106,6 +117,11 @@ def bulk_import(graph, values: Optional[Sequence[Any]] = None,
                             .copy())
                     backend.add_incidence_link(t, h)
                     touched_targets.add(t)
+                if has_indexers:
+                    maybe_index(graph, h, type_handle, v, targets or None,
+                                touched=touched_user_idx,
+                                before_write=(cap_user_idx if capturing
+                                              else None))
         except BaseException:
             backend.commit_batch_abort()
             # writes already applied are not rolled back in memory: keep the
@@ -125,6 +141,8 @@ def bulk_import(graph, values: Optional[Sequence[Any]] = None,
         versions[("idx", IDX_BY_TYPE, tkey)] = clock
         for vk in value_keys:
             versions[("idx", IDX_BY_VALUE, vk)] = clock
+        for name, key in touched_user_idx:
+            versions[("idx", name, key)] = clock
         for t in touched_targets:
             versions[("inc", t)] = clock
 

@@ -20,3 +20,7 @@ class TransactionAborted(HGException):
 
 class TypeError_(HGException):
     """Type-system violation (a value no type takes, an unknown type)."""
+
+
+class QueryError(HGException):
+    """Malformed or uncompilable query condition."""

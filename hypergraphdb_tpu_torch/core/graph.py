@@ -11,10 +11,13 @@ The port of the store path of ``hypergraphdb_tpu/core/graph.py``:
 - Handles are numbered as in the JAX package: bootstrap makes ``top``,
   ``null`` and the eight predefined type atoms, and every non-null value
   takes its own handle before its atom's record is written.
+- User indexers (``indexing/manager.py``) are kept on every write, and a
+  removed atom leaves every subgraph it was in.
+- Queries (``find_all``, ``find_one``, ``count``, ``get_one``) compile
+  through ``query/compiler.py``; its device plans run on
+  ``config.query.device``.
 
-Not ported: persistent backends, migrations, user indexers,
-subsumptions, subgraphs, the query layer (``find_all``, ``count``), the
-type column and the memory watcher.
+Not ported: persistent backends, migrations and the memory watcher.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator, Optional, Sequence
 
+from hypergraphdb_tpu_torch.atom.subgraph import IDX_SUBGRAPH, member_key
+from hypergraphdb_tpu_torch.atom.utilities import load_subsumptions
 from hypergraphdb_tpu_torch.core import events as ev
 from hypergraphdb_tpu_torch.core.config import HGConfiguration
 from hypergraphdb_tpu_torch.core.errors import HGException, NotFoundError
@@ -34,6 +39,12 @@ from hypergraphdb_tpu_torch.core.handles import (
 )
 from hypergraphdb_tpu_torch.core.store import HGStore
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE
+from hypergraphdb_tpu_torch.indexing.manager import (
+    load_indexers,
+    maybe_index,
+    maybe_unindex,
+)
+from hypergraphdb_tpu_torch.query.compiler import compile_query
 from hypergraphdb_tpu_torch.storage.api import (
     HGSortedResultSet,
     StorageBackend,
@@ -63,6 +74,9 @@ class HGLink:
     @property
     def arity(self) -> int:
         return len(self.targets)
+
+    def target_at(self, i: int) -> HGHandle:
+        return self.targets[i]
 
 
 @dataclass
@@ -112,7 +126,12 @@ class HyperGraph:
         self._snapshot_cache = None
         self._snapshot_mgr = None
         self._mutations = 0  # bumped on every committed structural change
+        self._type_column = None
         self._open = True
+        # restore registered indexers and the declared type hierarchy from
+        # the store, as a persistent backend needs at open
+        load_indexers(self)
+        load_subsumptions(self)
         self.events.dispatch(self, ev.HGOpenedEvent(graph=self))
 
     @staticmethod
@@ -133,6 +152,9 @@ class HyperGraph:
         if self._snapshot_mgr is not None:
             self._snapshot_mgr.close()
             self._snapshot_mgr = None
+        if self._type_column is not None:
+            self._type_column.close()
+            self._type_column = None
         self.backend.shutdown()
         self._open = False
 
@@ -225,6 +247,7 @@ class HyperGraph:
         self.store.get_index(IDX_BY_VALUE).add_entry(atype.to_key(value), h)
         for t in targets or ():
             self.store.add_incidence_link(t, h)
+        maybe_index(self, h, type_handle, value, targets)
 
     def _find_type_atom(self, name: str) -> Optional[HGHandle]:
         idx = self.store.get_index(IDX_TYPE_NAME, create=False)
@@ -277,6 +300,10 @@ class HyperGraph:
         self.stats.atom_loads += 1
         self.events.dispatch(self, ev.HGAtomLoadedEvent(h, value))
         return value
+
+    def get_one(self, condition) -> Any:
+        h = self.find_one(condition)
+        return None if h is None else self.get(h)
 
     def get_type_handle_of(self, handle: HGHandle) -> HGHandle:
         return self._record(handle)[0]
@@ -333,9 +360,13 @@ class HyperGraph:
                 new_value_handle = self.handles.make()
                 self.store.store_data(new_value_handle, new_type.store(inner))
             by_value.add_entry(new_type.to_key(inner), h)
+            targets = tuple(rec[3:])
             self.store.store_link(h, (int(new_type_handle),
                                       int(new_value_handle), flags)
-                                  + tuple(rec[3:]))
+                                  + targets)
+            maybe_unindex(self, h, old_type_handle, old_value,
+                          targets or None)
+            maybe_index(self, h, new_type_handle, inner, targets or None)
 
         self.txman.ensure_transaction(run)
         self._atom_cache.invalidate(h)
@@ -414,8 +445,13 @@ class HyperGraph:
             lrec = self.store.get_link(link)
             if lrec is None:
                 continue
-            self.store.store_link(
-                link, lrec[:3] + tuple(t for t in lrec[3:] if t != h))
+            old_targets = tuple(lrec[3:])
+            newt = tuple(t for t in old_targets if t != h)
+            # the user indexers run again: target positions shift
+            lvalue = self._load_value(lrec)
+            maybe_unindex(self, link, lrec[0], lvalue, old_targets)
+            self.store.store_link(link, lrec[:3] + newt)
+            maybe_index(self, link, lrec[0], lvalue, newt)
             self._atom_cache.invalidate(link)
             rewritten.add(link)
         atype = self.typesystem.get_type(type_handle)
@@ -425,6 +461,14 @@ class HyperGraph:
         self.store.get_index(IDX_BY_TYPE).remove_entry(_type_key(type_handle),
                                                        h)
         self.store.get_index(IDX_BY_VALUE).remove_entry(atype.to_key(value), h)
+        maybe_unindex(self, h, type_handle, value, targets or None)
+        # leave every subgraph, and if the atom is a subgraph, drop its
+        # member list
+        sub_idx = self.store.get_index(IDX_SUBGRAPH, create=False)
+        if sub_idx is not None:
+            for key in sub_idx.find_by_value(h):
+                sub_idx.remove_entry(key, h)
+            sub_idx.remove_all_entries(member_key(h))
         for t in targets:
             self.store.remove_incidence_link(t, h)
         self.store.remove_incidence_set(h)
@@ -435,6 +479,18 @@ class HyperGraph:
     def get_incidence_set(self, handle: HGHandle) -> HGSortedResultSet:
         """The sorted links that point at ``handle``."""
         return self.store.get_incidence_set(int(handle))
+
+    # -------------------------------------------------------------- queries
+    def find_all(self, condition) -> list[HGHandle]:
+        return list(compile_query(self, condition).execute())
+
+    def find_one(self, condition) -> Optional[HGHandle]:
+        for h in compile_query(self, condition).execute():
+            return h
+        return None
+
+    def count(self, condition) -> int:
+        return compile_query(self, condition).count()
 
     def atoms(self) -> Iterator[HGHandle]:
         """Every atom handle, ascending, as this thread's transaction sees
@@ -530,6 +586,15 @@ class HyperGraph:
     def incremental(self):
         """The active SnapshotManager, or None."""
         return self._snapshot_mgr
+
+    def type_column(self):
+        """The hot host handle → type column (``utils/typecolumn.py``),
+        built on first use."""
+        if self._type_column is None:
+            from hypergraphdb_tpu_torch.utils.typecolumn import TypeColumn
+
+            self._type_column = TypeColumn(self)
+        return self._type_column
 
     def snapshot(self, refresh: bool = False):
         """The packed host snapshot, cached until the next mutation; in

@@ -183,6 +183,9 @@ class HGStore:
             return HGSortedResultSet(base)
         return HGSortedResultSet(_merge_overlay(base, deltas, "cleared"))
 
+    def incidence_count(self, atom: HGHandle) -> int:
+        return len(self.get_incidence_set(atom))
+
     # ---- indexes --------------------------------------------------------
     def get_index(self, name: str, create: bool = True
                   ) -> Optional["TxIndexView"]:
@@ -190,6 +193,9 @@ class HGStore:
         if idx is None:
             return None
         return TxIndexView(self, name, idx)
+
+    def remove_index(self, name: str) -> None:
+        self.backend.remove_index(name)
 
     def index_names(self) -> list[str]:
         return self.backend.index_names()
@@ -254,3 +260,89 @@ class TxIndexView(HGIndex):
         if not deltas:
             return HGSortedResultSet(base)
         return HGSortedResultSet(_merge_overlay(base, deltas, "removed_all"))
+
+    def count(self, key: bytes) -> int:
+        """``len(find(key))``; a key this transaction chain has not
+        written is counted without building its array."""
+        key = bytes(key)
+        tx = self._tx()
+        if tx is None:
+            return self._backing.count(key)
+        if self._deltas_for(key):
+            return len(self.find(key))
+        tx.note_read(("idx", self.name, key))
+        return self._store.tx.idx_count_at(self.name, key, tx.start_version)
+
+    def key_count(self) -> int:
+        return self._backing.key_count()
+
+    def _touched_keys(self, tx, keep) -> set[bytes]:
+        """Keys of this index to re-read through :meth:`find`: the ones the
+        transaction chain wrote and the ones other commits moved past the
+        transaction's snapshot, filtered by ``keep``."""
+        touched: set[bytes] = set()
+        t = tx
+        while t is not None:
+            for (nm, k), d in t.idx.items():
+                if (nm == self.name and keep(k)
+                        and (d.added or d.removed or d.removed_all)):
+                    touched.add(k)
+            t = t.parent
+        touched.update(k for k in self._store.tx.idx_keys_changed_since(
+            self.name, tx.start_version) if keep(k))
+        return touched
+
+    def scan_keys(self):
+        tx = self._tx()
+        touched = (set() if tx is None
+                   else self._touched_keys(tx, lambda k: True))
+        if not touched:
+            yield from self._backing.scan_keys()
+            return
+        seen = set()
+        for k in self._backing.scan_keys():
+            seen.add(k)
+            if k not in touched or len(self.find(k)):
+                yield k
+        for k in sorted(touched - seen):
+            if len(self.find(k)):
+                yield k
+
+    def find_range(self, lo: Optional[bytes] = None,
+                   hi: Optional[bytes] = None, lo_inclusive: bool = True,
+                   hi_inclusive: bool = False) -> HGSortedResultSet:
+        base = self._backing.find_range(lo, hi, lo_inclusive,
+                                        hi_inclusive).array()
+        tx = self._tx()
+        if tx is None:
+            return HGSortedResultSet(base)
+
+        def in_range(k: bytes) -> bool:
+            if lo is not None and (k < lo or (k == lo and not lo_inclusive)):
+                return False
+            return hi is None or k < hi or (k == hi and hi_inclusive)
+
+        touched = self._touched_keys(tx, in_range)
+        if not touched:
+            return HGSortedResultSet(base)
+        vals = set(base.tolist())
+        for k in touched:
+            committed = set(self._backing.find(k).array().tolist())
+            merged = set(self.find(k).array().tolist())
+            vals -= committed - merged
+            vals |= merged
+        return HGSortedResultSet(np.asarray(sorted(vals), dtype=np.int64))
+
+    def find_by_value(self, value: HGHandle) -> list[bytes]:
+        keys = set(self._backing.find_by_value(int(value)))
+        t = self._tx()
+        while t is not None:
+            for (nm, k), d in t.idx.items():
+                if nm != self.name:
+                    continue
+                if int(value) in d.added:
+                    keys.add(k)
+                elif int(value) in d.removed or d.removed_all:
+                    keys.discard(k)
+            t = t.parent
+        return sorted(keys)

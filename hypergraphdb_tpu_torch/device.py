@@ -20,3 +20,15 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
             "run the plain PyTorch path"
         )
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two resolved devices are one: ``cuda`` without an index is
+    the current card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return a == b
+    cur = torch.cuda.current_device()
+    return ((cur if a.index is None else a.index)
+            == (cur if b.index is None else b.index))

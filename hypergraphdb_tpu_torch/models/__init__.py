@@ -1,3 +1,10 @@
-from hypergraphdb_tpu_torch.models.generators import dbpedia_snapshot
+from hypergraphdb_tpu_torch.models.generators import (
+    Entity,
+    Synset,
+    dbpedia_like,
+    dbpedia_snapshot,
+    wordnet_like,
+)
 
-__all__ = ["dbpedia_snapshot"]
+__all__ = ["Entity", "Synset", "dbpedia_like", "dbpedia_snapshot",
+           "wordnet_like"]

@@ -1,16 +1,71 @@
-"""Benchmark graph families, built straight into a snapshot.
+"""Benchmark graph families.
 
-The port's copy of ``dbpedia_snapshot`` from
-``hypergraphdb_tpu/models/generators.py``: the same random draws in the same
-order, so one seed gives the same arrays in both packages, value ranks
-included.
+The port's copies of ``hypergraphdb_tpu/models/generators.py``'s
+``dbpedia_snapshot`` (built straight into a snapshot), ``wordnet_like``
+and ``dbpedia_like`` (built through the graph's ingest API, so they double
+as ingest benchmarks): the same random draws in the same order, so one
+seed gives the same graph in both packages.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
+
+
+@dataclass(frozen=True)
+class Synset:
+    """WordNet-style node payload."""
+
+    lemma: str = ""
+    pos: str = "n"
+
+
+@dataclass(frozen=True)
+class Entity:
+    """DBpedia-style node payload."""
+
+    uri: str = ""
+
+
+#: WordNet relation inventory (name, approximate share of links)
+WORDNET_RELS = (
+    ("hypernym", 0.40),
+    ("hyponym", 0.25),
+    ("meronym", 0.12),
+    ("holonym", 0.08),
+    ("antonym", 0.05),
+    ("entailment", 0.05),
+    ("similar-to", 0.05),
+)
+
+
+def wordnet_like(graph, n_synsets: int = 20_000, n_relations: int = 40_000,
+                 seed: int = 11):
+    """WordNet-shaped typed graph: ``Synset`` nodes + binary relation links
+    whose VALUE is the relation name (so typed-incident queries exercise
+    the by-value/by-type paths). Returns (synset_handles, rel_handles)."""
+    r = np.random.default_rng(seed)
+    poses = np.array(["n", "v", "a", "r"])
+    synsets = graph.add_nodes_bulk([
+        Synset(f"lemma{i}", str(poses[i % 4])) for i in range(n_synsets)
+    ])
+    s0 = int(synsets[0])
+    names = [n for n, _ in WORDNET_RELS]
+    probs = np.array([p for _, p in WORDNET_RELS])
+    probs = probs / probs.sum()
+    rel_names = r.choice(names, size=n_relations, p=probs)
+    # hypernym chains give depth; the rest are zipf-skewed
+    src = r.zipf(1.2, size=n_relations) % n_synsets
+    dst = (src + r.integers(1, max(2, n_synsets // 10),
+                            size=n_relations)) % n_synsets
+    targets = [[s0 + int(a), s0 + int(b)] for a, b in zip(src, dst)]
+    rels = graph.add_links_bulk(targets, values=[str(n) for n in rel_names])
+    return synsets, rels
+
 
 
 def dbpedia_snapshot(
@@ -71,3 +126,31 @@ def dbpedia_snapshot(
         "total_arity": total,
     }
     return snap, info
+
+
+def dbpedia_like(graph, n_entities: int = 100_000, n_triples: int = 500_000,
+                 n_properties: int = 64, seed: int = 13, batch: int = 100_000):
+    """DBpedia-shaped graph at configurable scale: ``Entity`` nodes and
+    property links (value = property id). Ingests in batches so 10M-atom
+    builds stream. Returns (entity_handles, first_link_handle)."""
+    r = np.random.default_rng(seed)
+    entities = graph.bulk_import(
+        values=[Entity(f"e/{i}") for i in range(n_entities)]
+    )
+    e0 = int(entities[0])
+    first_link = None
+    remaining = n_triples
+    while remaining > 0:
+        m = min(batch, remaining)
+        remaining -= m
+        subj = r.zipf(1.1, size=m) % n_entities
+        obj = r.integers(0, n_entities, size=m)
+        props = r.integers(0, n_properties, size=m)
+        links = graph.bulk_import(
+            values=[int(p) for p in props],
+            target_lists=[[e0 + int(a), e0 + int(b)]
+                          for a, b in zip(subj, obj)],
+        )
+        if first_link is None:
+            first_link = int(links[0])
+    return entities, first_link

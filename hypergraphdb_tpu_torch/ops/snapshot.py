@@ -413,6 +413,11 @@ class CSRSnapshot:
         s, e = int(self.inc_offsets[atom]), int(self.inc_offsets[atom + 1])
         return self.inc_links[s:e]
 
+    def targets_row(self, atom: int) -> np.ndarray:
+        """The ordered targets of ``atom`` (empty for a node)."""
+        s, e = int(self.tgt_offsets[atom]), int(self.tgt_offsets[atom + 1])
+        return self.tgt_flat[s:e]
+
     def type_set(self, type_handle: int) -> np.ndarray:
         """The sorted ids of the atoms of one type (empty if none)."""
         return self.by_type.get(int(type_handle), np.empty(0, dtype=np.int32))

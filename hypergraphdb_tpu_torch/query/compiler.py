@@ -1,0 +1,1399 @@
+"""Query compiler: conditions → physical plans → (host|device) execution.
+
+Re-expression of the reference's compile pipeline (``cond2qry/
+ExpressionBasedQuery.java:853-875``): preprocess → expand → toDNF →
+simplify → translate, with the cost-based conjunction planner of
+``AndToQuery`` (``cond2qry/AndToQuery.java:102-306``: partition conjuncts
+into set-producing vs predicate classes, sort by expected size, intersect
+smallest-first, demote the rest to filters).
+
+The execution model is deliberately different from the reference's lazy
+cursor trees: every set-producing conjunct materializes as a **sorted int64
+array** (they already live in that form in the storage layer), and
+intersections/unions are vectorized merges — ``np.intersect1d`` is the
+batched equivalent of the reference's ZigZag/SortedIntersection duality
+(``impl/ZigZagIntersectionResult.java:23``). That same array form is what
+the device executor consumes: large intersections go to the card as one
+K3 launch (``ops/setops.device_intersect_sorted``) and value conjunctions
+to the value pushdown, while small ones stay on the host — the planner
+duality that ``QueryConfig.device_min_batch`` sets.
+
+The device plans run on ``QueryConfig.device`` (the card unless the
+caller asks for the CPU), resolved only when one runs. Nothing falls back
+from the device to the host: a device that is missing or a launch that
+fails raises. Under incremental mode the plans read the manager's base on
+the manager's device, which must be the configured one.
+
+The join pushdown (``And(CoIncident, ...)`` to the join planner's device
+plan) is not ported yet: such a conjunction translates through
+:func:`_translate_and`, with the same results.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Iterable, Optional, Sequence
+
+import numpy as np
+
+from hypergraphdb_tpu_torch.core.errors import QueryError
+from hypergraphdb_tpu_torch.obs import global_tracer
+from hypergraphdb_tpu_torch.query import conditions as c
+
+# ============================================================ physical plans
+
+
+class Plan:
+    """A physical plan node. ``run(graph) -> sorted np.int64 array``."""
+
+    def run(self, graph) -> np.ndarray:
+        raise NotImplementedError
+
+    def estimate(self, graph) -> float:
+        """Expected result size (the reference's ``QueryMetaData`` expected
+        size used for intersection ordering)."""
+        return float("inf")
+
+    def describe(self) -> str:
+        return type(self).__name__
+
+
+_EMPTY = np.empty(0, dtype=np.int64)
+
+
+@dataclass
+class EmptyPlan(Plan):
+    def run(self, graph):
+        return _EMPTY
+
+    def estimate(self, graph):
+        return 0.0
+
+    def describe(self):
+        return "∅"
+
+
+@dataclass
+class SingletonPlan(Plan):
+    handle: int
+
+    def run(self, graph):
+        if graph.contains(self.handle):
+            return np.asarray([self.handle], dtype=np.int64)
+        return _EMPTY
+
+    def estimate(self, graph):
+        return 1.0
+
+    def describe(self):
+        return f"is({self.handle})"
+
+
+@dataclass
+class AllAtomsPlan(Plan):
+    def run(self, graph):
+        return np.fromiter(graph.atoms(), dtype=np.int64)
+
+    def estimate(self, graph):
+        # the dense-id high-water mark is an O(1) upper bound on live atoms
+        # (real cardinality, not a magic constant); still the largest
+        # child of any conjunction it appears in
+        try:
+            return float(max(int(graph.handles.peek), 1))
+        except Exception:
+            return 1e12
+
+    def describe(self):
+        return "scan(*)"
+
+
+@dataclass
+class TypeSetPlan(Plan):
+    """All atoms of a type — by-type system index lookup."""
+
+    type_handle: int
+
+    def run(self, graph):
+        from hypergraphdb_tpu_torch.core.graph import IDX_BY_TYPE, _type_key
+
+        return graph.store.get_index(IDX_BY_TYPE).find(
+            _type_key(self.type_handle)
+        ).array()
+
+    def estimate(self, graph):
+        from hypergraphdb_tpu_torch.core.graph import IDX_BY_TYPE, _type_key
+
+        return float(
+            graph.store.get_index(IDX_BY_TYPE).count(_type_key(self.type_handle))
+        )
+
+    def describe(self):
+        return f"type({self.type_handle})"
+
+
+def _capped_range_estimate(graph, idx, stats_name: str, bounds) -> float:
+    """Shared range-scan cardinality policy (HGIndexStats.java:37
+    semantics): cost-capped EXACT count where ordering decisions live; a
+    saturated count falls back to the persisted whole-index stats so
+    'big' ranges stay ordered among themselves. One implementation for
+    the by-value system index and user indexes — the policy must not
+    drift between them."""
+    lo, hi, lo_inc, hi_inc = bounds
+    cap = graph.config.query.range_estimate_cap
+    n = idx.count_range(
+        lo=lo, hi=hi, lo_inclusive=lo_inc, hi_inclusive=hi_inc, cap=cap,
+    )
+    if n >= cap:
+        from hypergraphdb_tpu_torch.indexing.manager import index_stats
+
+        stats = index_stats(graph, stats_name)
+        return float(max(cap, stats["entries"] // 2))
+    return float(n)
+
+
+@dataclass
+class ValueSetPlan(Plan):
+    """Atoms by value via the by-value system index; eq or ordered range."""
+
+    key: bytes
+    op: str = "eq"
+    kind: bytes = b""  # kind prefix bounding range scans
+
+    def _bounds(self) -> tuple:
+        """(lo, hi, lo_inclusive, hi_inclusive) of the range scan — shared
+        by run() and estimate() so the estimate counts exactly what the
+        scan will read."""
+        hi_kind = bytes([self.kind[0] + 1]) if self.kind else None
+        if self.op == "lt":
+            return self.kind, self.key, True, False
+        if self.op == "lte":
+            return self.kind, self.key, True, True
+        if self.op == "gt":
+            return self.key, hi_kind, False, False
+        if self.op == "gte":
+            return self.key, hi_kind, True, False
+        raise QueryError(f"bad value op {self.op}")
+
+    def _find(self, graph):
+        from hypergraphdb_tpu_torch.core.graph import IDX_BY_VALUE
+
+        idx = graph.store.get_index(IDX_BY_VALUE)
+        if self.op == "eq":
+            return idx.find(self.key)
+        lo, hi, lo_inc, hi_inc = self._bounds()
+        return idx.find_range(
+            lo=lo, hi=hi, lo_inclusive=lo_inc, hi_inclusive=hi_inc
+        )
+
+    def run(self, graph):
+        return self._find(graph).array()
+
+    def estimate(self, graph):
+        from hypergraphdb_tpu_torch.core.graph import IDX_BY_VALUE
+
+        idx = graph.store.get_index(IDX_BY_VALUE)
+        if self.op == "eq":
+            return float(idx.count(self.key))
+        return _capped_range_estimate(
+            graph, idx, IDX_BY_VALUE, self._bounds()
+        )
+
+    def describe(self):
+        return f"value[{self.op}]"
+
+
+@dataclass
+class IncidentPlan(Plan):
+    """The incidence set of an atom — sorted by construction."""
+
+    target: int
+
+    def run(self, graph):
+        return graph.get_incidence_set(self.target).array()
+
+    def estimate(self, graph):
+        return float(graph.store.incidence_count(self.target))
+
+    def describe(self):
+        return f"incident({self.target})"
+
+
+@dataclass
+class TypedIncidencePlan(Plan):
+    """``And(Incident(t), AtomType(T))`` answered from the incidence set
+    plus ONE vectorized gather into the hot host type column — no store
+    record read per candidate link and no full type-set materialization
+    (the reference's typed-incidence annotation,
+    ``storage/bdb-native/.../TypeAndPositionIncidenceAnnotator.java``)."""
+
+    target: int
+    type_handle: int
+
+    def run(self, graph):
+        arr = graph.get_incidence_set(self.target).array()
+        if not len(arr):
+            return np.asarray(arr, dtype=np.int64)
+        tcol = graph.type_column()
+        return np.asarray(
+            arr[tcol.types_of(arr) == self.type_handle], dtype=np.int64
+        )
+
+    def estimate(self, graph):
+        from hypergraphdb_tpu_torch.core.graph import IDX_BY_TYPE, _type_key
+
+        inc = graph.store.incidence_count(self.target)
+        tcnt = graph.store.get_index(IDX_BY_TYPE).count(
+            _type_key(self.type_handle)
+        )
+        return float(min(inc, tcnt))
+
+    def describe(self):
+        return f"typed-incident({self.target}, type({self.type_handle}))"
+
+
+@dataclass
+class NeighborsPlan(Plan):
+    """The co-incidence neighbourhood of an atom — every atom sharing at
+    least one link with ``other`` (``conditions.CoIncident``): the union
+    of the target tuples of ``other``'s incidence row, minus ``other``
+    itself. The host leaf the join subsystem's ground truth runs on; the
+    device twin is one row of ``ops/join.neighbor_csr``."""
+
+    other: int
+
+    def run(self, graph):
+        links = graph.get_incidence_set(self.other).array()
+        if not len(links):
+            return _EMPTY
+        snap = graph._snapshot_cache
+        if snap is not None and snap.version == graph._mutations and (
+            links < snap.num_atoms
+        ).all():
+            starts = snap.tgt_offsets[links].astype(np.int64)
+            lens = snap.arity[links].astype(np.int64)
+            idx = np.repeat(starts, lens) + (
+                np.arange(int(lens.sum())) - np.repeat(
+                    np.cumsum(lens) - lens, lens
+                )
+            )
+            out = snap.tgt_flat[idx].astype(np.int64)
+        else:
+            ts: list[int] = []
+            for l in links.tolist():
+                try:
+                    ts.extend(int(t) for t in graph.get_targets(l))
+                except Exception:
+                    continue
+            out = np.asarray(ts, dtype=np.int64)
+        out = np.unique(out)
+        return out[out != int(self.other)]
+
+    def estimate(self, graph):
+        # each incident link contributes (arity - 1) co-targets; the
+        # flat factor keeps the estimate O(1) (no row materialization)
+        # while ordering correctly against sibling incidence estimates
+        return 2.0 * float(graph.store.incidence_count(self.other))
+
+    def describe(self):
+        return f"neighbors({self.other})"
+
+
+@dataclass
+class TargetSetPlan(Plan):
+    """The (sorted, deduped) targets of a link."""
+
+    link: int
+
+    def run(self, graph):
+        try:
+            ts = graph.get_targets(self.link)
+        except Exception:
+            return _EMPTY
+        return np.unique(np.asarray(ts, dtype=np.int64)) if ts else _EMPTY
+
+    def estimate(self, graph):
+        try:
+            return float(graph.arity(self.link))
+        except Exception:
+            return 0.0
+
+    def describe(self):
+        return f"targets({self.link})"
+
+
+@dataclass
+class IndexSetPlan(Plan):
+    """Lookup in a registered user index."""
+
+    name: str
+    key: bytes
+    op: str = "eq"
+
+    def run(self, graph):
+        from hypergraphdb_tpu_torch.indexing.manager import get_index
+
+        idx = get_index(graph, self.name)
+        if self.op == "eq":
+            return idx.find(self.key).array()
+        return {
+            "lt": idx.find_lt,
+            "lte": idx.find_lte,
+            "gt": idx.find_gt,
+            "gte": idx.find_gte,
+        }[self.op](self.key).array()
+
+    def estimate(self, graph):
+        from hypergraphdb_tpu_torch.indexing.manager import get_index
+
+        idx = get_index(graph, self.name)
+        if self.op == "eq":
+            return float(idx.count(self.key))
+        bounds = {
+            "lt": (None, self.key, True, False),
+            "lte": (None, self.key, True, True),
+            "gt": (self.key, None, False, False),
+            "gte": (self.key, None, True, False),
+        }[self.op]
+        return _capped_range_estimate(graph, idx, self.name, bounds)
+
+    def describe(self):
+        return f"index({self.name})[{self.op}]"
+
+
+@dataclass
+class TraversalPlan(Plan):
+    """Reachable-set materialization of a BFS/DFS condition (the reference's
+    ``TraversalBasedQuery``), walked by the host traversals."""
+
+    start: int
+    max_distance: Optional[int]
+    include_start: bool
+    depth_first: bool = False
+
+    def run(self, graph):
+        from hypergraphdb_tpu_torch.algorithms.traversals import (
+            HGBreadthFirstTraversal,
+            HGDepthFirstTraversal,
+        )
+
+        cls = HGDepthFirstTraversal if self.depth_first else HGBreadthFirstTraversal
+        out = [a for _, a in cls(graph, self.start, max_distance=self.max_distance)]
+        if self.include_start:
+            out.append(int(self.start))
+        return np.unique(np.asarray(out, dtype=np.int64)) if out else _EMPTY
+
+    def describe(self):
+        return f"{'dfs' if self.depth_first else 'bfs'}({self.start})"
+
+
+@dataclass
+class IntersectPlan(Plan):
+    """Sorted-set intersection of children + residual predicate filters —
+    the vectorized AndToQuery output."""
+
+    children: list[Plan]
+    predicates: list[c.HGQueryCondition] = field(default_factory=list)
+
+    def run(self, graph):
+        ordered = sorted(self.children, key=lambda p: p.estimate(graph))
+        cfg = graph.config.query
+        # planner duality: small intersections stay on host cursors; large
+        # ones amortize a device kernel launch
+        use_device = (
+            cfg.prefer_device
+            and len(ordered) > 1
+            and ordered[0].estimate(graph) >= cfg.device_min_batch
+        )
+        if use_device:
+            arrays = [c.run(graph) for c in ordered]
+            if any(len(a) == 0 for a in arrays):
+                return _EMPTY
+            from hypergraphdb_tpu_torch.ops.setops import (
+                device_intersect_sorted,
+            )
+
+            # K3 on the card, or raise: no host merge stands behind it
+            arr = device_intersect_sorted(arrays, device=query_device(graph))
+            return filter_predicates(graph, arr, self.predicates)
+        arr = ordered[0].run(graph)
+        for child in ordered[1:]:
+            if len(arr) == 0:
+                return arr
+            arr = intersect_sorted(graph, arr, child.run(graph))
+        return filter_predicates(graph, arr, self.predicates)
+
+    def estimate(self, graph):
+        return min((p.estimate(graph) for p in self.children), default=0.0)
+
+    def describe(self):
+        inner = " ∩ ".join(p.describe() for p in self.children)
+        if self.predicates:
+            inner += " | " + ",".join(type(p).__name__ for p in self.predicates)
+        return f"({inner})"
+
+
+def query_device(graph):
+    """The device the graph's device plans run on: ``QueryConfig.device``,
+    resolved now (so a graph with host-only queries needs no card). Under
+    incremental mode it must be the manager's device, where the base
+    lives."""
+    from hypergraphdb_tpu_torch.device import resolve_device, same_device
+
+    dev = resolve_device(graph.config.query.device)
+    mgr = graph.incremental
+    if mgr is not None and not same_device(mgr.torch_device, dev):
+        raise QueryError(
+            f"the query device {dev} is not the incremental manager's "
+            f"device {mgr.torch_device}; set QueryConfig.device to match")
+    return dev
+
+
+#: value kinds whose key payload is fixed-width ≤ 8 bytes — their 64-bit
+#: payload rank IS the value order (device compares are exact, no ties);
+#: the ONE definition lives at the storage layer beside the sorted
+#: columns it governs (``storage/value_index``)
+from hypergraphdb_tpu_torch.storage.value_index import (  # noqa: E402
+    FIXED_WIDTH_KINDS as _FIXED_WIDTH_KINDS,
+)
+
+
+@dataclass
+class DeviceValueConjPlan(Plan):
+    """``And(Incident..., AtomValue[range], [AtomType])`` pushed down to the
+    device's value lane, which range-compares the snapshot's
+    order-preserving value ranks (``ops/setops.incident_value_pattern``) —
+    the device analogue of the reference's value-indexed conjunctions
+    (``cond2qry/AndToQuery.java:102-306``). Fixed-width kinds run tie-free
+    on the device; variable-width kinds host-verify only rank ties. The
+    classic plan answers instead where the result calls for it: an
+    estimate under ``device_min_batch``, a value of no type, bounds of two
+    kinds, an anchor past the base, or a snapshot without ELL targets
+    (over-wide links)."""
+
+    targets: list[int]
+    value: Any
+    op: str
+    type_handle: Optional[int]
+    fallback: Plan
+    #: optional SECOND bound: (value, op) is then the lower bound and
+    #: (value2, op2) the upper — an ``And(gte lo, lt hi)`` range window runs
+    #: as ONE fused pass (``ops/setops.incident_value_range``) instead of
+    #: two full membership passes
+    value2: Any = None
+    op2: Optional[str] = None
+
+    def run(self, graph):
+        import torch
+
+        from hypergraphdb_tpu_torch.ops.setops import (
+            _bucket,
+            ell_targets,
+            incident_value_pattern,
+            incident_value_range,
+            value_columns,
+        )
+        from hypergraphdb_tpu_torch.utils.ordered_bytes import rank64
+
+        cfg = graph.config.query
+        if self.estimate(graph) < cfg.device_min_batch:
+            return self.fallback.run(graph)  # planner duality: small → host
+        vt = graph.typesystem.infer(self.value)
+        if vt is None:
+            return self.fallback.run(graph)
+        if self.op2 is not None:
+            vt2 = graph.typesystem.infer(self.value2)
+            if vt2 is not vt:
+                return self.fallback.run(graph)  # mixed-kind bounds: host
+        mgr = graph.incremental
+        if mgr is not None:
+            # ONE-lock read view: base + memtable captured together, so a
+            # background compaction swapping mid-query cannot desync them
+            snap, dead, new_atoms, revalued = mgr.read_view()
+        else:
+            snap = graph.snapshot()
+            dead = new_atoms = revalued = None
+        if any(t >= snap.num_atoms for t in self.targets):
+            # anchor beyond the (stale) base's id space — host plan is fresh
+            return self.fallback.run(graph)
+        dev = query_device(graph)
+        ell = ell_targets(snap, dev)
+        if ell is None:
+            return self.fallback.run(graph)
+        key = vt.to_key(self.value)
+        kind, payload = key[0], key[1:]
+        exact = kind in _FIXED_WIDTH_KINDS
+        rank = rank64(payload)
+        # smallest incidence row is the gathered base (hub-proof)
+        anchors = np.asarray(self.targets, dtype=np.int32)
+        lens = snap.inc_offsets[anchors + 1] - snap.inc_offsets[anchors]
+        anchors = anchors[np.argsort(lens, kind="stable")]
+        pad = _bucket(int(lens.min()) if len(lens) else 1)
+        # the ranks go over as one 64-bit rank each (the reference passes
+        # two uint32 words); the lanes compare them as rank words
+        args = (snap.device(dev), ell,
+                torch.from_numpy(anchors[None, :]).to(dev), pad, kind)
+        kw = dict(type_handle=self.type_handle,
+                  vcols=value_columns(snap, dev))
+        if self.op2 is not None:
+            rank2 = rank64(vt.to_key(self.value2)[1:])
+            rows, keep, tie, _ = incident_value_range(
+                *args, rank, rank2, self.op, self.op2, exact, **kw)
+        else:
+            rows, keep, tie = incident_value_pattern(
+                *args, rank, self.op, exact, **kw)
+        rows = rows[0].cpu().numpy()
+        arr = rows[keep[0].cpu().numpy()].astype(np.int64)
+        ties = rows[tie[0].cpu().numpy()]
+        if len(ties):
+            vcs = [c.AtomValue(self.value, self.op)] + (
+                [c.AtomValue(self.value2, self.op2)]
+                if self.op2 is not None else []
+            )
+            verified = [
+                int(h) for h in ties.tolist()
+                if all(vc.satisfies(graph, h) for vc in vcs)
+            ]
+            if verified:
+                arr = np.union1d(arr, np.asarray(verified, dtype=np.int64))
+        if new_atoms is not None:
+            # LSM read merge: the device result was computed on the BASE;
+            # drop tombstoned/revalued handles and host-evaluate the
+            # conjunction over the (small) memtable
+            drop = dead | revalued
+            if drop and len(arr):
+                arr = arr[~np.isin(arr, np.fromiter(drop, dtype=np.int64))]
+            cands = (set(new_atoms) | revalued) - dead
+            fresh = [h for h in cands if self._matches_host(graph, h)]
+            if fresh:
+                arr = np.union1d(arr, np.asarray(fresh, dtype=np.int64))
+        return arr
+
+    def _matches_host(self, graph, h: int) -> bool:
+        if not graph.contains(h):
+            return False
+        try:
+            ts = {int(t) for t in graph.get_targets(h)}
+        except Exception:
+            return False
+        if any(t not in ts for t in self.targets):
+            return False
+        if self.type_handle is not None and int(
+            graph.get_type_handle_of(h)
+        ) != self.type_handle:
+            return False
+        if not c.AtomValue(self.value, self.op).satisfies(graph, h):
+            return False
+        return self.op2 is None or c.AtomValue(
+            self.value2, self.op2
+        ).satisfies(graph, h)
+
+    def estimate(self, graph):
+        return float(
+            min(graph.store.incidence_count(t) for t in self.targets)
+        )
+
+    def describe(self):
+        t = f", type({self.type_handle})" if self.type_handle is not None else ""
+        v = f"value[{self.op}]"
+        if self.op2 is not None:
+            v = f"value[{self.op}..{self.op2}]"
+        return (
+            f"device({v} ∩ "
+            + " ∩ ".join(f"incident({x})" for x in self.targets)
+            + t + ")"
+        )
+
+
+@dataclass
+class UnionPlan(Plan):
+    """Sorted union of children; the merge is vectorized (``np.unique``
+    over the concatenated child arrays) regardless of ``parallel``.
+
+    ``parallel`` mirrors ``OrToParellelQuery``/``UnionResultAsync`` for
+    API parity but is OFF by default: index-read children are GIL-bound,
+    so a thread pool buys them nothing."""
+
+    children: list[Plan]
+    parallel: bool = False
+
+    def run(self, graph):
+        if self.parallel and len(self.children) > 1:
+            # OrToParellelQuery/UnionResultAsync analogue. The caller's
+            # transaction lives in a thread-local stack, so each worker must
+            # explicitly join it — otherwise branches read committed state
+            # only and miss the tx's own writes.
+            from concurrent.futures import ThreadPoolExecutor
+
+            tx = graph.txman.current()
+
+            def run_child(p):
+                with graph.txman.scoped(tx):
+                    return p.run(graph)
+
+            with ThreadPoolExecutor(max_workers=min(8, len(self.children))) as ex:
+                arrays = list(ex.map(run_child, self.children))
+        else:
+            arrays = [p.run(graph) for p in self.children]
+        arrays = [a for a in arrays if len(a)]
+        if not arrays:
+            return _EMPTY
+        return np.unique(np.concatenate(arrays))
+
+    def estimate(self, graph):
+        return sum(p.estimate(graph) for p in self.children)
+
+    def describe(self):
+        return "(" + " ∪ ".join(p.describe() for p in self.children) + ")"
+
+
+@dataclass
+class FilterScanPlan(Plan):
+    """Full scan + predicates — the W class: no index narrows it."""
+
+    predicates: list[c.HGQueryCondition]
+
+    def run(self, graph):
+        arr = np.fromiter(graph.atoms(), dtype=np.int64)
+        return filter_predicates(graph, arr, self.predicates)
+
+    def describe(self):
+        return "scan|" + ",".join(type(p).__name__ for p in self.predicates)
+
+
+# ============================================================ result mapping
+
+
+@dataclass(frozen=True)
+class LinkProjectionMapping:
+    """Map each result LINK to its target at ``position``
+    (``query/impl/LinkProjectionMapping``). Vectorized against the
+    snapshot's target columns when fresh, per-handle otherwise."""
+
+    position: int
+
+    #: output is a handle set → composable inside MapCondition/And/Or
+    returns_handles = True
+
+    def __post_init__(self):
+        if int(self.position) < 0:
+            raise QueryError(
+                "LinkProjectionMapping position must be >= 0 (negative "
+                "indexing would mean different things on the columnar and "
+                "per-handle paths)"
+            )
+
+    def apply(self, graph, arr: np.ndarray) -> np.ndarray:
+        if len(arr) == 0:
+            return arr
+        cols = _columns_for_filter(graph, len(arr))
+        pos = int(self.position)
+        if cols is not None:
+            snap, memtable = cols
+            ok = (arr < snap.num_atoms)
+            if memtable:
+                ok &= ~np.isin(arr, np.fromiter(memtable, dtype=np.int64))
+            out = []
+            sel = arr[ok]
+            good = snap.arity[sel] > pos
+            offs = snap.tgt_offsets[sel[good]].astype(np.int64) + pos
+            out.append(snap.tgt_flat[offs].astype(np.int64))
+            for h in arr[~ok].tolist():
+                try:
+                    ts = graph.get_targets(h)
+                except Exception:
+                    continue
+                if pos < len(ts):
+                    out.append(np.asarray([int(ts[pos])], dtype=np.int64))
+            return np.unique(np.concatenate(out)) if out else _EMPTY
+        vals = []
+        for h in arr.tolist():
+            try:
+                ts = graph.get_targets(h)
+            except Exception:
+                continue
+            if pos < len(ts):
+                vals.append(int(ts[pos]))
+        return np.unique(np.asarray(vals, dtype=np.int64)) if vals else _EMPTY
+
+
+@dataclass(frozen=True)
+class DerefMapping:
+    """Map each result handle to its VALUE (``query/impl/DerefMapping``);
+    the output is a python list, not a handle set — top-level
+    ``result_map``/``deref`` only, never inside MapCondition."""
+
+    returns_handles = False
+
+    def apply(self, graph, arr: np.ndarray) -> list:
+        return [graph.get(int(h)) for h in arr.tolist()]
+
+
+@dataclass
+class ResultMapPlan(Plan):
+    """``ResultMapQuery``: run the child, then map every result."""
+
+    child: Plan
+    mapping: Any
+
+    def run(self, graph):
+        return self.mapping.apply(graph, self.child.run(graph))
+
+    def estimate(self, graph):
+        return self.child.estimate(graph)
+
+    def describe(self):
+        return f"map[{type(self.mapping).__name__}]({self.child.describe()})"
+
+
+@dataclass
+class PipePlan(Plan):
+    """``PipeQuery`` (``query/impl/PipeQuery.java:25``): every result of
+    the producer becomes the KEY of a dependent query; the union of the
+    keyed queries' results is the pipe's output. ``key_condition`` maps a
+    produced handle to the downstream condition."""
+
+    producer: Plan
+    key_condition: Any  # Callable[[int], HGQueryCondition]
+
+    def run(self, graph):
+        keys = self.producer.run(graph)
+        if len(keys) == 0:
+            return _EMPTY
+        outs = []
+        for k in keys.tolist():
+            # traced=False: these per-key compiles run their plans
+            # directly, so a trace would never finish — a pipe over 10k
+            # keys must not allocate 10k span trees that vanish
+            sub = compile_query(graph, self.key_condition(int(k)),
+                                traced=False)
+            arr = sub.plan.run(graph)
+            if len(arr):
+                outs.append(arr)
+        if not outs:
+            return _EMPTY
+        return np.unique(np.concatenate(outs))
+
+    def describe(self):
+        return f"pipe({self.producer.describe()} → ...)"
+
+
+def result_map(graph, condition, mapping):
+    """Compile + run ``condition`` and map results (the hg.apply DSL).
+    Untraced: the plan runs through a wrapper plan, not ``execute()``, so
+    an opened query trace would never finish/export."""
+    q = compile_query(graph, condition, traced=False)
+
+    def run():
+        return ResultMapPlan(q.plan, mapping).run(graph)
+
+    return graph.txman.ensure_transaction(run, readonly=True)
+
+
+def pipe(graph, producer_condition, key_condition):
+    """Compile + run a pipe: producer results keyed into a dependent
+    condition builder (``PipeQuery`` semantics). Untraced — see
+    :func:`result_map`."""
+    q = compile_query(graph, producer_condition, traced=False)
+
+    def run():
+        return PipePlan(q.plan, key_condition).run(graph)
+
+    return graph.txman.ensure_transaction(run, readonly=True)
+
+
+# ============================================================ helpers
+
+
+#: zig-zag/merge crossover: probing wins from 4× size disparity (the JAX
+#: package's host measurement, 1K–100K over a 10M id space; the host code
+#: is the same here)
+ZIGZAG_RATIO = 4
+
+
+def intersect_sorted(graph, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Vectorized sorted intersection. For different-enough sizes use
+    searchsorted probing (the zig-zag/leapfrog analogue); otherwise a
+    merge (``np.intersect1d``) — mirroring the reference's
+    ZigZag-vs-SortedIntersection choice by size ratio."""
+    if len(a) == 0 or len(b) == 0:
+        return _EMPTY
+    small, large = (a, b) if len(a) <= len(b) else (b, a)
+    if len(large) > ZIGZAG_RATIO * len(small):
+        pos = np.searchsorted(large, small)
+        pos = np.minimum(pos, len(large) - 1)
+        return small[large[pos] == small]
+    return np.intersect1d(a, b, assume_unique=True)
+
+
+#: conditions decidable from snapshot columns alone (no payload access)
+_VECTOR_PREDICATES = (c.Arity, c.IsLink, c.IsNode, c.AtomType,
+                      c.PositionedIncident)
+
+_NP_OPS = {
+    "eq": np.equal, "lt": np.less, "lte": np.less_equal,
+    "gt": np.greater, "gte": np.greater_equal,
+}
+
+
+def _vector_predicate_mask(graph, snap, arr: np.ndarray,
+                           pred: c.HGQueryCondition) -> np.ndarray:
+    """Columnar evaluation of one residual predicate over handle array
+    ``arr`` — the batched replacement for per-handle ``satisfies`` calls.
+    ``arr`` values must be < snap.num_atoms."""
+    if isinstance(pred, c.Arity):
+        return _NP_OPS[pred.op](snap.arity[arr], pred.arity)
+    if isinstance(pred, c.IsLink):
+        return snap.is_link[arr].copy()
+    if isinstance(pred, c.IsNode):
+        return ~snap.is_link[arr]
+    if isinstance(pred, c.AtomType):
+        return snap.type_of[arr] == int(pred.type_handle(graph))
+    if isinstance(pred, c.PositionedIncident):
+        pos = int(pred.position)
+        ok = snap.arity[arr] > pos
+        off = snap.tgt_offsets[arr].astype(np.int64) + pos
+        vals = snap.tgt_flat[np.where(ok, off, 0)]
+        return ok & (vals == int(pred.target))
+    raise QueryError(f"not a vectorizable predicate: {pred!r}")
+
+
+def _columns_for_filter(graph, n_handles: int):
+    """A snapshot usable for columnar filtering + the memtable handle set
+    that must fall back to per-handle evaluation (exactness under
+    incremental mode). None → no cheap columns; use the Python loop."""
+    mgr = graph.incremental
+    if mgr is not None:
+        base, dead, new_atoms, revalued = mgr.read_view()
+        return base, set(new_atoms) | revalued | dead
+    snap = graph._snapshot_cache
+    if snap is not None and snap.version == graph._mutations:
+        return snap, set()
+    # no fresh columns: packing amortizes only over big filter batches
+    if n_handles >= 4096:
+        return graph.snapshot(), set()
+    return None
+
+
+def filter_predicates(
+    graph, arr: np.ndarray, predicates: Sequence[c.HGQueryCondition]
+) -> np.ndarray:
+    if not predicates or len(arr) == 0:
+        return arr
+    vec = [p for p in predicates if isinstance(p, _VECTOR_PREDICATES)]
+    rest = [p for p in predicates if not isinstance(p, _VECTOR_PREDICATES)]
+    if vec:
+        cols = _columns_for_filter(graph, len(arr))
+        if cols is None:
+            rest = predicates  # no columns: everything via satisfies
+        else:
+            snap, memtable = cols
+            in_cols = arr < snap.num_atoms
+            if memtable and in_cols.any():
+                mt = np.fromiter(memtable, dtype=np.int64)
+                in_cols &= ~np.isin(arr, mt)
+            mask = in_cols.copy()
+            sel = arr[in_cols]
+            keep = np.ones(len(sel), dtype=bool)
+            for p in vec:
+                keep &= _vector_predicate_mask(graph, snap, sel, p)
+            mask[in_cols] = keep
+            # memtable / out-of-range handles: exact per-handle evaluation
+            outside = np.nonzero(~in_cols)[0]
+            for i in outside.tolist():
+                mask[i] = all(p.satisfies(graph, int(arr[i])) for p in vec)
+            arr = arr[mask]
+    if not rest or len(arr) == 0:
+        return arr
+    keep = [h for h in arr.tolist() if all(p.satisfies(graph, h) for p in rest)]
+    return np.asarray(keep, dtype=np.int64)
+
+
+# ============================================================ rewriting
+
+
+def expand(graph, cond: c.HGQueryCondition) -> c.HGQueryCondition:
+    """Expansion pass (``ExpressionBasedQuery.expand`` :603): rewrite sugar
+    into primitive conditions + discover applicable user indices."""
+    if isinstance(cond, c.And):
+        return c.And(*(expand(graph, x) for x in cond.clauses))
+    if isinstance(cond, c.Or):
+        return c.Or(*(expand(graph, x) for x in cond.clauses))
+    if isinstance(cond, c.Not):
+        return c.Not(expand(graph, cond.clause))
+    if isinstance(cond, c.TypePlus):
+        ts = graph.typesystem
+        name = cond.type if isinstance(cond.type, str) else ts.name_of(cond.type)
+        closure = sorted(ts.subtypes_closure(name))
+        return c.Or(*(c.AtomType(n) for n in closure))
+    if isinstance(cond, c.Link):
+        if not cond.targets:
+            return c.IsLink()
+        return c.And(*(c.Incident(t) for t in cond.targets))
+    if isinstance(cond, c.OrderedLink):
+        if not cond.targets:
+            return c.IsLink()
+        # incidence narrows; the order itself stays a predicate
+        return c.And(*(c.Incident(t) for t in cond.targets), cond)
+    if isinstance(cond, c.TypedValue):
+        return c.And(c.AtomType(cond.type), c.AtomValue(cond.value, cond.op))
+    if isinstance(cond, c.TypedIncident):
+        return c.And(c.Incident(cond.target), c.AtomType(cond.type))
+    return cond
+
+
+def _find_part_index(graph, cond: c.AtomPart, type_handles: set[int]
+                     ) -> Optional[c.IndexCondition]:
+    """Index discovery (``ExpressionBasedQuery.findIndex`` :59): an
+    ``AtomPart`` becomes a direct index lookup ONLY when the enclosing
+    conjunction already constrains the atom type to one covered by a
+    registered ByPartIndexer — an index must never change query answers by
+    excluding other types."""
+    from hypergraphdb_tpu_torch.indexing.manager import ByPartIndexer, _registry
+
+    pt = graph.typesystem.infer(cond.value)
+    if pt is None:
+        return None
+    for type_handle, idxs in _registry(graph).items():
+        if int(type_handle) not in type_handles:
+            continue
+        for ix in idxs:
+            if isinstance(ix, ByPartIndexer) and ix.dimension == cond.path:
+                return c.IndexCondition(ix.name, pt.to_key(cond.value), cond.op)
+    return None
+
+
+def _substitute_part_indices(graph, conj: c.And) -> c.And:
+    """Within one conjunction, swap AtomPart conditions for index lookups
+    where sound (the type is pinned and indexed on that dimension)."""
+    type_handles = {
+        x.type_handle(graph) for x in conj.clauses if isinstance(x, c.AtomType)
+    }
+    if not type_handles:
+        return conj
+    out = []
+    for cl in conj.clauses:
+        if isinstance(cl, c.AtomPart):
+            sub = _find_part_index(graph, cl, type_handles)
+            out.append(sub if sub is not None else cl)
+        else:
+            out.append(cl)
+    return c.And(*out)
+
+
+def to_dnf(cond: c.HGQueryCondition) -> c.HGQueryCondition:
+    """DNF normalization (``ExpressionBasedQuery.toDNF`` :94) with negation
+    pushed to the leaves."""
+    cond = _push_not(cond, False)
+    return _distribute(cond)
+
+
+def _push_not(cond: c.HGQueryCondition, neg: bool) -> c.HGQueryCondition:
+    if isinstance(cond, c.Not):
+        return _push_not(cond.clause, not neg)
+    if isinstance(cond, c.And):
+        parts = [_push_not(x, neg) for x in cond.clauses]
+        return c.Or(*parts) if neg else c.And(*parts)
+    if isinstance(cond, c.Or):
+        parts = [_push_not(x, neg) for x in cond.clauses]
+        return c.And(*parts) if neg else c.Or(*parts)
+    if neg:
+        if isinstance(cond, c.AnyAtom):
+            return c.Nothing()
+        if isinstance(cond, c.Nothing):
+            return c.AnyAtom()
+        return c.Not(cond)
+    return cond
+
+
+def _distribute(cond: c.HGQueryCondition) -> c.HGQueryCondition:
+    if isinstance(cond, c.Or):
+        return c.Or(*(_distribute(x) for x in cond.clauses))
+    if isinstance(cond, c.And):
+        clauses = [_distribute(x) for x in cond.clauses]
+        # flatten nested Ands
+        flat: list = []
+        for cl in clauses:
+            if isinstance(cl, c.And):
+                flat.extend(cl.clauses)
+            else:
+                flat.append(cl)
+        or_idx = next((i for i, cl in enumerate(flat) if isinstance(cl, c.Or)), None)
+        if or_idx is None:
+            return c.And(*flat)
+        the_or = flat[or_idx]
+        rest = flat[:or_idx] + flat[or_idx + 1 :]
+        return _distribute(
+            c.Or(*(c.And(branch, *rest) for branch in the_or.clauses))
+        )
+    return cond
+
+
+def _dedupe(items: list) -> list:
+    """Order-preserving dedupe tolerant of unhashable condition payloads
+    (e.g. AtomValue holding a non-frozen dataclass or a list)."""
+    try:
+        return list(dict.fromkeys(items))
+    except TypeError:
+        out: list = []
+        for x in items:
+            if not any(x == y for y in out):
+                out.append(x)
+        return out
+
+
+def simplify(graph, cond: c.HGQueryCondition) -> c.HGQueryCondition:
+    """Simplification (``ExpressionBasedQuery.simplify`` :219): flatten,
+    dedupe, fold contradictions to Nothing, drop AnyAtom in conjunctions."""
+    if isinstance(cond, c.Or):
+        out = []
+        for cl in cond.clauses:
+            s = simplify(graph, cl)
+            if isinstance(s, c.Nothing):
+                continue
+            if isinstance(s, c.AnyAtom):
+                return c.AnyAtom()
+            if isinstance(s, c.Or):
+                out.extend(s.clauses)
+            else:
+                out.append(s)
+        out = _dedupe(out)
+        if not out:
+            return c.Nothing()
+        return out[0] if len(out) == 1 else c.Or(*out)
+    if isinstance(cond, c.And):
+        out = []
+        for cl in cond.clauses:
+            s = simplify(graph, cl)
+            if isinstance(s, c.Nothing):
+                return c.Nothing()
+            if isinstance(s, c.AnyAtom):
+                continue
+            if isinstance(s, c.And):
+                out.extend(s.clauses)
+            else:
+                out.append(s)
+        out = _dedupe(out)
+        # contradiction: two different exact types
+        types = {
+            x.type_handle(graph) for x in out if isinstance(x, c.AtomType)
+        }
+        if len(types) > 1:
+            return c.Nothing()
+        # contradiction: Is(h) conflicting with Is(h')
+        handles = {x.handle for x in out if isinstance(x, c.Is)}
+        if len(handles) > 1:
+            return c.Nothing()
+        if not out:
+            return c.AnyAtom()
+        return out[0] if len(out) == 1 else c.And(*out)
+    if isinstance(cond, c.Not):
+        inner = simplify(graph, cond.clause)
+        if isinstance(inner, c.Nothing):
+            return c.AnyAtom()
+        if isinstance(inner, c.AnyAtom):
+            return c.Nothing()
+        return c.Not(inner)
+    return cond
+
+
+def _apply_index_substitution(graph, cond: c.HGQueryCondition) -> c.HGQueryCondition:
+    """Per-conjunction index substitution (the reference folds this into
+    ``simplify``, ``ExpressionBasedQuery.java:449-541``)."""
+    if isinstance(cond, c.Or):
+        return c.Or(*(_apply_index_substitution(graph, x) for x in cond.clauses))
+    if isinstance(cond, c.And):
+        return _substitute_part_indices(graph, cond)
+    return cond
+
+
+# ============================================================ translation
+
+
+def _leaf_plan(graph, cond: c.HGQueryCondition) -> Optional[Plan]:
+    """Set-producing translation of a leaf (the ORA/O classes of
+    ``AndToQuery.java:114-149``); None means predicate-only (P class)."""
+    if isinstance(cond, c.AtomType):
+        return TypeSetPlan(cond.type_handle(graph))
+    if isinstance(cond, c.AtomValue):
+        vt = graph.typesystem.infer(cond.value)
+        if vt is None:
+            return None
+        return ValueSetPlan(vt.to_key(cond.value), cond.op, kind=vt.kind)
+    if isinstance(cond, c.Incident):
+        return IncidentPlan(int(cond.target))
+    if isinstance(cond, c.CoIncident):
+        return NeighborsPlan(int(cond.other))
+    if isinstance(cond, c.PositionedIncident):
+        # incidence narrows, position check stays a predicate (cheap)
+        return IncidentPlan(int(cond.target))
+    if isinstance(cond, c.Target):
+        return TargetSetPlan(int(cond.link))
+    if isinstance(cond, c.Is):
+        return SingletonPlan(int(cond.handle))
+    if isinstance(cond, c.IndexCondition):
+        return IndexSetPlan(cond.name, cond.key, cond.op)
+    if isinstance(cond, c.BFS):
+        return TraversalPlan(cond.start, cond.max_distance, cond.include_start, False)
+    if isinstance(cond, c.DFS):
+        return TraversalPlan(cond.start, cond.max_distance, cond.include_start, True)
+    if isinstance(cond, c.SubgraphMember):
+        from hypergraphdb_tpu_torch.atom.subgraph import member_index_plan
+
+        return member_index_plan(graph, cond.subgraph)
+    if isinstance(cond, c.AnyAtom):
+        return AllAtomsPlan()
+    if isinstance(cond, c.Nothing):
+        return EmptyPlan()
+    if isinstance(cond, c.MapCondition):
+        if not getattr(cond.mapping, "returns_handles", False):
+            # a value-producing mapping (Deref) would feed a python list
+            # into the surrounding set algebra — fail at compile time,
+            # not deep inside an intersection
+            raise QueryError(
+                f"MapCondition mapping {type(cond.mapping).__name__} does "
+                "not return handles; use result_map()/deref() at top level"
+            )
+        return ResultMapPlan(
+            translate(graph, simplify(graph, expand(graph, cond.condition))),
+            cond.mapping,
+        )
+    return None
+
+
+# predicates that still narrow results when combined with a set: keep as filter
+def _residual_predicate(cond: c.HGQueryCondition) -> Optional[c.HGQueryCondition]:
+    if isinstance(cond, c.PositionedIncident):
+        return cond  # set + this position filter
+    return None
+
+
+def _translate_and(graph, clauses: Sequence[c.HGQueryCondition]) -> Plan:
+    clauses = list(clauses)
+    # typed-incidence fusion: one AtomType + ≥1 Incident → answer the type
+    # constraint from the hot type column over the SMALLEST incidence row
+    # instead of materializing the whole type set (TypedIncidencePlan)
+    types = [cl for cl in clauses if isinstance(cl, c.AtomType)]
+    incs = [cl for cl in clauses if isinstance(cl, c.Incident)]
+    fused: Optional[Plan] = None
+    if len(types) == 1 and incs:
+        try:
+            th = int(types[0].type_handle(graph))
+            best = min(
+                incs,
+                key=lambda i: graph.store.incidence_count(int(i.target)),
+            )
+            fused = TypedIncidencePlan(int(best.target), th)
+            clauses = [
+                cl for cl in clauses if cl is not types[0] and cl is not best
+            ]
+        except Exception:
+            fused = None  # e.g. unknown type name: generic planning decides
+    sets: list[Plan] = [fused] if fused is not None else []
+    preds: list[c.HGQueryCondition] = []
+    for cl in clauses:
+        p = _leaf_plan(graph, cl)
+        if p is None:
+            preds.append(cl)
+        else:
+            sets.append(p)
+            extra = _residual_predicate(cl)
+            if extra is not None:
+                preds.append(extra)
+    if not sets:
+        return FilterScanPlan(preds)
+    if len(sets) == 1 and not preds:
+        return sets[0]
+    return IntersectPlan(sets, preds)
+
+
+def _try_value_pushdown(graph, clauses: Sequence[c.HGQueryCondition]
+                        ) -> Optional[Plan]:
+    """Recognize ``And(Incident+, AtomValue, [AtomType])`` — exactly the
+    conjunction shape the device value kernel serves. Any other clause
+    present → None (the generic planner handles it)."""
+    if not graph.config.query.prefer_device:
+        return None
+    incs: list[int] = []
+    vals: list[c.AtomValue] = []
+    types: list[c.AtomType] = []
+    for cl in clauses:
+        if isinstance(cl, c.Incident):
+            incs.append(int(cl.target))
+        elif isinstance(cl, c.AtomValue):
+            vals.append(cl)
+        elif isinstance(cl, c.AtomType):
+            types.append(cl)
+        else:
+            return None
+    if len(vals) not in (1, 2) or not incs or len(types) > 1:
+        return None
+    th = types[0].type_handle(graph) if types else None
+    if len(vals) == 2:
+        # a RANGE window: one lower bound (gt/gte) + one upper (lt/lte)
+        # fuses into a single device launch (incident_value_range); any
+        # other two-value shape goes to the generic planner
+        lo = next((v for v in vals if v.op in ("gt", "gte")), None)
+        hi = next((v for v in vals if v.op in ("lt", "lte")), None)
+        if lo is None or hi is None:
+            return None
+        return DeviceValueConjPlan(
+            targets=incs,
+            value=lo.value,
+            op=lo.op,
+            type_handle=None if th is None else int(th),
+            fallback=_translate_and(graph, clauses),
+            value2=hi.value,
+            op2=hi.op,
+        )
+    return DeviceValueConjPlan(
+        targets=incs,
+        value=vals[0].value,
+        op=vals[0].op,
+        type_handle=None if th is None else int(th),
+        fallback=_translate_and(graph, clauses),
+    )
+
+
+def _try_join_pushdown(graph, clauses: Sequence[c.HGQueryCondition]
+                       ) -> Optional[Plan]:
+    """The hook that hands ``And(CoIncident+, [Incident*], [AtomType],
+    [AtomValue{1,2}])`` to the join planner's device plan. The join
+    planner's graph half (``try_single_var_join``) is not ported yet, so
+    no conjunction is pushed: ``translate`` plans it through
+    :func:`_translate_and`, whose results are the same."""
+    return None
+
+
+def translate(graph, cond: c.HGQueryCondition, parallel_or: bool = False) -> Plan:
+    """Translate a simplified DNF condition into a physical plan
+    (``QueryCompile.translate`` → ``ToQueryMap`` dispatch)."""
+    if isinstance(cond, c.Or):
+        return UnionPlan(
+            [translate(graph, x, parallel_or) for x in cond.clauses],
+            parallel=parallel_or,
+        )
+    if isinstance(cond, c.And):
+        pushed = _try_value_pushdown(graph, cond.clauses)
+        if pushed is not None:
+            return pushed
+        pushed = _try_join_pushdown(graph, cond.clauses)
+        if pushed is not None:
+            return pushed
+        return _translate_and(graph, cond.clauses)
+    # single leaf
+    p = _leaf_plan(graph, cond)
+    if p is not None:
+        extra = _residual_predicate(cond)
+        if extra is not None:
+            return IntersectPlan([p], [extra])
+        return p
+    return FilterScanPlan([cond])
+
+
+# ============================================================ compiled query
+
+
+@dataclass
+class CompiledQuery:
+    """The executable query handle (``HGQuery`` + ``AnalyzedQuery``
+    introspection: ``plan.describe()`` is the plan dump).
+
+    ``trace`` is the hgobs trace opened at compile time (None when
+    tracing is off): ``compile`` and ``plan`` spans are already recorded;
+    the FIRST ``execute()`` appends its span and finishes the trace —
+    one ``compile → plan → execute`` tree per query lifecycle."""
+
+    graph: Any
+    condition: c.HGQueryCondition
+    simplified: c.HGQueryCondition
+    plan: Plan
+    trace: Any = None
+
+    def execute(self) -> Iterable[int]:
+        def run():
+            return self.plan.run(self.graph)
+
+        with self.graph.metrics.timer("query.execute"):
+            arr = self._run_traced(
+                lambda: self.graph.txman.ensure_transaction(
+                    run, readonly=True
+                )
+            )
+        self.graph.metrics.incr("query.executed")
+        return iter(arr.tolist())
+
+    def _run_traced(self, runner) -> np.ndarray:
+        """Run the plan under the query trace's ``execute`` span. The
+        trace finishes on EVERY exit — a raising plan exports an ``error``
+        terminal instead of silently dropping the trace (the failing
+        query is exactly the one worth inspecting)."""
+        tr = self.trace
+        sp = (tr.start_span("execute", parent=tr.marks.get("root"))
+              if tr is not None and not tr.finished else None)
+        try:
+            arr = runner()
+        except BaseException as e:
+            if sp is not None:
+                sp.end()
+                tr.finish_error(e)
+            raise
+        if sp is not None:
+            sp.set(results=int(len(arr))).end()
+            tr.finish()
+        return arr
+
+    def results(self) -> np.ndarray:
+        return self._run_traced(lambda: self.plan.run(self.graph))
+
+    def count(self) -> int:
+        return int(len(self._run_traced(
+            lambda: self.plan.run(self.graph)
+        )))
+
+    def analyze(self) -> str:
+        """Plan dump (AnalyzedQuery: condition → simplified form → physical
+        plan, ``QueryCompile.analyze`` ``query/QueryCompile.java:148``)."""
+        return (
+            f"condition:  {self.condition}\n"
+            f"simplified: {self.simplified}\n"
+            f"plan:       {self.plan.describe()}"
+        )
+
+
+def compile_query(graph, condition: c.HGQueryCondition,
+                  traced: bool = True) -> CompiledQuery:
+    """The full pipeline (``ExpressionBasedQuery.compileProcess`` :853).
+
+    ``traced=False`` skips the query trace — for INTERNAL callers whose
+    plans run outside ``execute()``/``results()``/``count()`` and would
+    leave the trace forever unfinished (pipes, result maps)."""
+    if not isinstance(condition, c.HGQueryCondition):
+        raise QueryError(f"not a condition: {condition!r}")
+    tracer = global_tracer()
+    tr = (tracer.start_trace("query")
+          if traced and tracer.enabled else None)
+    root = None
+    if tr is not None:
+        root = tr.start_span("query")
+        tr.marks["root"] = root
+        sp = tr.start_span("compile", parent=root)
+    try:
+        expanded = expand(graph, condition)
+        dnf = to_dnf(expanded)
+        simplified = simplify(graph, dnf)
+        simplified = _apply_index_substitution(graph, simplified)
+        if tr is not None:
+            sp.end()
+            sp = tr.start_span("plan", parent=root)
+        plan = translate(
+            graph, simplified, parallel_or=graph.config.query.parallel_or
+        )
+    except BaseException as e:
+        # same every-exit guarantee as _run_traced: a condition the
+        # compiler rejects still exports its trace with an error terminal
+        if tr is not None:
+            tr.finish_error(e, parent=root)
+        raise
+    if tr is not None:
+        sp.set(plan=type(plan).__name__).end()
+    return CompiledQuery(graph, condition, simplified, plan, trace=tr)

@@ -67,11 +67,69 @@ class HGIndex:
         rs = self.find(key)
         return int(rs.array()[0]) if len(rs) else None
 
+    def count(self, key: bytes) -> int:
+        return len(self.find(key))
+
+    def key_count(self) -> int:
+        raise NotImplementedError
+
+    def scan_keys(self) -> Iterator[bytes]:
+        raise NotImplementedError
+
+    def scan_values(self) -> Iterator[HGHandle]:
+        for k in self.scan_keys():
+            yield from self.find(k)
+
     def bulk_items(self, lo: Optional[bytes] = None
                    ) -> Iterator[tuple[bytes, np.ndarray]]:
         """``(key, sorted int64 array)`` pairs in key order from the first
         key >= ``lo``: the pack's path."""
+        for k in self.scan_keys():
+            if lo is not None and k < lo:
+                continue
+            yield k, self.find(k).array()
+
+    def count_range(self, lo: Optional[bytes] = None,
+                    hi: Optional[bytes] = None, lo_inclusive: bool = True,
+                    hi_inclusive: bool = False,
+                    cap: Optional[int] = None) -> int:
+        """Entries (not keys) in the key range, exact up to ``cap`` and
+        clamped to it: the planner's cardinality of a range scan."""
+        n = 0
+        for k, hs in self.bulk_items(lo=lo):
+            if lo is not None and not lo_inclusive and k == lo:
+                continue
+            if hi is not None and (k > hi or (k == hi and not hi_inclusive)):
+                break
+            n += len(hs)
+            if cap is not None and n >= cap:
+                return cap
+        return n
+
+    def find_range(self, lo: Optional[bytes] = None,
+                   hi: Optional[bytes] = None, lo_inclusive: bool = True,
+                   hi_inclusive: bool = False) -> HGSortedResultSet:
+        """The union of the values of every key in the range."""
         raise NotImplementedError
+
+    def find_lt(self, key: bytes) -> HGSortedResultSet:
+        return self.find_range(hi=key, hi_inclusive=False)
+
+    def find_lte(self, key: bytes) -> HGSortedResultSet:
+        return self.find_range(hi=key, hi_inclusive=True)
+
+    def find_gt(self, key: bytes) -> HGSortedResultSet:
+        return self.find_range(lo=key, lo_inclusive=False)
+
+    def find_gte(self, key: bytes) -> HGSortedResultSet:
+        return self.find_range(lo=key, lo_inclusive=True)
+
+    def find_by_value(self, value: HGHandle) -> list[bytes]:
+        """The keys that hold ``value``, sorted."""
+        raise NotImplementedError
+
+    def count_keys(self, value: HGHandle) -> int:
+        return len(self.find_by_value(value))
 
 
 class StorageBackend:
@@ -100,6 +158,9 @@ class StorageBackend:
     def remove_link(self, h: HGHandle) -> None:
         raise NotImplementedError
 
+    def contains_link(self, h: HGHandle) -> bool:
+        return self.get_link(h) is not None
+
     def store_data(self, h: HGHandle, data: bytes) -> None:
         raise NotImplementedError
 
@@ -121,8 +182,14 @@ class StorageBackend:
     def get_incidence_set(self, atom: HGHandle) -> HGSortedResultSet:
         raise NotImplementedError
 
+    def incidence_count(self, atom: HGHandle) -> int:
+        return len(self.get_incidence_set(atom))
+
     def get_index(self, name: str, create: bool = True
                   ) -> Optional[HGIndex]:
+        raise NotImplementedError
+
+    def remove_index(self, name: str) -> None:
         raise NotImplementedError
 
     def index_names(self) -> list[str]:

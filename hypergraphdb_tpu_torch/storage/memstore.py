@@ -10,7 +10,7 @@ are O(1) after the first.
 from __future__ import annotations
 
 import itertools
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -57,18 +57,40 @@ class _SortedHandleSet:
         return h in self._sl
 
 
+def _sorted_union(parts: list) -> np.ndarray:
+    """The sorted distinct values of several sorted arrays: one sort and a
+    neighbour compare (``np.unique`` may hash instead, several times
+    slower on a range of millions of handles)."""
+    a = np.sort(np.concatenate(parts), kind="stable")
+    if len(a) > 1:
+        a = a[np.concatenate(([True], a[1:] != a[:-1]))]
+    return a
+
+
 class MemIndex(HGIndex):
-    """bytes key → sorted handle set."""
+    """bytes key → sorted handle set. The inverse map (handle → keys) that
+    :meth:`find_by_value` reads is built on its first call and kept from
+    then on, so an index nobody asks by value pays nothing for it."""
 
     def __init__(self, name: str):
         self.name = name
         self._kv: SortedDict = SortedDict()      # bytes -> _SortedHandleSet
+        self._vk: Optional[dict[int, set[bytes]]] = None  # handle -> keys
 
     def add_entry(self, key: bytes, value: HGHandle) -> None:
         s = self._kv.get(key)
         if s is None:
             s = self._kv[key] = _SortedHandleSet()
         s.add(value)
+        if self._vk is not None:
+            self._vk.setdefault(value, set()).add(key)
+
+    def _drop_inverse(self, key: bytes, value: int) -> None:
+        ks = self._vk.get(value)
+        if ks is not None:
+            ks.discard(key)
+            if not ks:
+                del self._vk[value]
 
     def remove_entry(self, key: bytes, value: HGHandle) -> None:
         s = self._kv.get(key)
@@ -76,15 +98,59 @@ class MemIndex(HGIndex):
             s.discard(value)
             if not len(s):
                 del self._kv[key]
+        if self._vk is not None:
+            self._drop_inverse(key, value)
 
     def remove_all_entries(self, key: bytes) -> None:
-        self._kv.pop(key, None)
+        s = self._kv.pop(key, None)
+        if s is not None and self._vk is not None:
+            for v in s.snapshot().tolist():
+                self._drop_inverse(key, v)
 
     def find(self, key: bytes) -> HGSortedResultSet:
         s = self._kv.get(key)
         if s is None:
             return HGSortedResultSet.EMPTY
         return HGSortedResultSet(s.snapshot())
+
+    def count(self, key: bytes) -> int:
+        s = self._kv.get(key)
+        return 0 if s is None else len(s)
+
+    def key_count(self) -> int:
+        return len(self._kv)
+
+    def scan_keys(self) -> Iterator[bytes]:
+        return iter(self._kv)
+
+    def find_range(self, lo: Optional[bytes] = None,
+                   hi: Optional[bytes] = None, lo_inclusive: bool = True,
+                   hi_inclusive: bool = False) -> HGSortedResultSet:
+        keys = self._kv.irange(lo, hi, (lo_inclusive, hi_inclusive))
+        parts = [self._kv[k].snapshot() for k in keys]
+        if not parts:
+            return HGSortedResultSet.EMPTY
+        return HGSortedResultSet(_sorted_union(parts))
+
+    def count_range(self, lo: Optional[bytes] = None,
+                    hi: Optional[bytes] = None, lo_inclusive: bool = True,
+                    hi_inclusive: bool = False,
+                    cap: Optional[int] = None) -> int:
+        n = 0
+        for k in self._kv.irange(lo, hi, (lo_inclusive, hi_inclusive)):
+            n += len(self._kv[k])
+            if cap is not None and n >= cap:
+                return cap
+        return n
+
+    def find_by_value(self, value: HGHandle) -> list[bytes]:
+        if self._vk is None:
+            vk: dict[int, set[bytes]] = {}
+            for k in self._kv:
+                for v in self._kv[k].snapshot().tolist():
+                    vk.setdefault(v, set()).add(k)
+            self._vk = vk
+        return sorted(self._vk.get(int(value), ()))
 
     def bulk_items(self, lo=None):
         keys = self._kv.irange(minimum=lo) if lo is not None else self._kv
@@ -145,6 +211,9 @@ class MemStorage(StorageBackend):
         if idx is None and create:
             idx = self._indices[name] = MemIndex(name)
         return idx
+
+    def remove_index(self, name: str) -> None:
+        self._indices.pop(name, None)
 
     def index_names(self) -> list[str]:
         return sorted(self._indices)

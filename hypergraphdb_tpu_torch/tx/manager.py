@@ -15,6 +15,7 @@ first, then a snapshot manager's lock, then its memtable's.
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 from typing import Any, Callable, Optional, TypeVar
 
 import numpy as np
@@ -161,6 +162,21 @@ class HGTransactionManager:
     def current(self) -> Optional[HGTransaction]:
         st = self._stack()
         return st[-1] if st else None
+
+    @contextmanager
+    def scoped(self, tx: Optional[HGTransaction]):
+        """Join ``tx`` from another thread for the block: the parallel
+        union's workers run child plans under the caller's transaction.
+        Safe for reads only; a worker must not write through it."""
+        if tx is None:
+            yield
+            return
+        st = self._stack()
+        st.append(tx)
+        try:
+            yield
+        finally:
+            st.pop()
 
     def _incr(self, name: str) -> None:
         if self.metrics is not None:
@@ -317,10 +333,31 @@ class HGTransactionManager:
         return np.asarray(sorted(vals), dtype=np.int64)
 
     def idx_at(self, name: str, key: bytes, sv: int) -> np.ndarray:
-        idx = self.backend.get_index(name, create=True)
-        cur = set(idx.find(key).array().tolist())
-        vals = self._set_at(("idx", name, key), sv, cur)
+        """The values of index ``name`` at ``key`` at ``sv``. As in
+        :meth:`inc_at`, a cell without history is its backend array (read
+        first, so a commit racing the read has published its pre-image)."""
+        arr = self.backend.get_index(name, create=True).find(key).array()
+        if ("idx", name, key) not in self._history:
+            return np.asarray(arr, dtype=np.int64)
+        vals = self._set_at(("idx", name, key), sv, set(arr.tolist()))
         return np.asarray(sorted(vals), dtype=np.int64)
+
+    def idx_count_at(self, name: str, key: bytes, sv: int) -> int:
+        """``len(idx_at(name, key, sv))``, without building the array
+        when the cell has no history."""
+        n = self.backend.get_index(name, create=True).count(key)
+        if ("idx", name, key) not in self._history:
+            return n
+        return len(self.idx_at(name, key, sv))
+
+    def idx_keys_changed_since(self, name: str, sv: int) -> list[bytes]:
+        """Keys of index ``name`` whose membership moved after ``sv``: what
+        a range or scan read under a snapshot re-reads."""
+        # a point-in-time copy: committers change the history under the
+        # commit lock, and readers run without it
+        return [cell[2] for cell, entries in list(self._history.items())
+                if cell[0] == "idx" and cell[1] == name and entries
+                and entries[-1][0] > sv]
 
     @staticmethod
     def _run_commit_hooks(tx: HGTransaction) -> None:

@@ -9,20 +9,23 @@ the graph (value = its name, type = the top type). Bootstrap registers
 ``top``, ``null`` and the eight predefined primitive types in that order:
 the handles they take are part of every later handle's number.
 
-Record types (dataclasses bound to types) are not ported: a value no
-registered type takes raises ``TypeError_``.
+A dataclass value binds to a record type (``types/record.py``) on first
+use, its dataclass bases becoming its supertypes. The type hierarchy
+(``declare_subtype``, ``subtypes_closure``, ``supertypes_of``) powers
+``TypePlus`` queries and supertype indexer registration.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import dataclasses
+from typing import Any, Callable, Optional
 
 from hypergraphdb_tpu_torch.core.errors import TypeError_
 from hypergraphdb_tpu_torch.core.handles import HGHandle
 
 
 class HGAtomType:
-    """A type: serialisation and index key of its values."""
+    """A type: serialisation, index key and subsumption of its values."""
 
     #: symbolic name, unique in a type system
     name: str = ""
@@ -41,6 +44,17 @@ class HGAtomType:
 
     def handles_value(self, value: Any) -> bool:
         return False
+
+    def subsumes(self, general: Any, specific: Any) -> bool:
+        """Value-level subsumption; by default, equality."""
+        return general == specific
+
+    def dimensions(self) -> list[str]:
+        """Projection dimensions; none for a scalar type."""
+        return []
+
+    def project(self, value: Any, dimension: str) -> Any:
+        raise TypeError_(f"type {self.name} has no dimension {dimension!r}")
 
 
 class TopType(HGAtomType):
@@ -87,6 +101,11 @@ class HGTypeSystem:
         self._handle_by_name: dict[str, HGHandle] = {}
         self._name_by_handle: dict[HGHandle, str] = {}
         self._by_class: dict[type, str] = {}
+        self._inference: list[Callable[[Any], Optional[HGAtomType]]] = []
+        #: direct supertype edges: type name -> parent type names
+        self._supertypes: dict[str, set[str]] = {}
+        #: bumped on every hierarchy change; lookup caches key on it
+        self.hierarchy_version = 0
         self.top = TopType()
         self.null = NullType()
 
@@ -99,7 +118,8 @@ class HGTypeSystem:
         for t, classes in prim.PREDEFINED:
             self.register(t, classes=classes)
 
-    def register(self, atype: HGAtomType, classes: tuple = ()) -> HGHandle:
+    def register(self, atype: HGAtomType, classes: tuple = (),
+                 supertypes: tuple[str, ...] = ()) -> HGHandle:
         if atype.name in self._by_name:
             return self._handle_by_name[atype.name]
         self._by_name[atype.name] = atype
@@ -110,7 +130,15 @@ class HGTypeSystem:
         self._name_by_handle[h] = atype.name
         for c in classes:
             self._by_class[c] = atype.name
+        if supertypes:
+            self._supertypes[atype.name] = set(supertypes)
+            self.hierarchy_version += 1
         return h
+
+    def add_inference(self, fn: Callable[[Any], Optional[HGAtomType]]
+                      ) -> None:
+        """Register a fallback value → type inference hook."""
+        self._inference.append(fn)
 
     def get_type(self, name_or_handle) -> HGAtomType:
         if isinstance(name_or_handle, str):
@@ -129,6 +157,28 @@ class HGTypeSystem:
             raise TypeError_(f"unknown type {name!r}")
         return h
 
+    def name_of(self, handle: HGHandle) -> str:
+        return self._name_by_handle[int(handle)]
+
+    def adopt_type_atom(self, handle: int) -> Optional[str]:
+        """The name of type atom ``handle`` (an atom typed by ``top``),
+        bound to it even where its type is not registered here, or None:
+        enough for by-type and ``TypePlus`` queries to resolve."""
+        h = int(handle)
+        rec = self.graph.store.get_link(h)
+        if rec is None or len(rec) < 3:
+            return None
+        top_h = self._handle_by_name.get("top")
+        if top_h is not None and rec[0] != int(top_h) and h != int(top_h):
+            return None
+        data = self.graph.store.get_data(rec[1]) if rec[1] >= 0 else None
+        if data is None:
+            return None
+        name = self.top.make(data)
+        self._handle_by_name.setdefault(name, h)
+        self._name_by_handle.setdefault(h, name)
+        return name
+
     def is_type_handle(self, handle: HGHandle) -> bool:
         return int(handle) in self._name_by_handle
 
@@ -141,6 +191,52 @@ class HGTypeSystem:
         return self._handle_by_name[t.name]
 
     def infer(self, value: Any) -> Optional[HGAtomType]:
-        """The type bound to the value's class, or None."""
+        """The type bound to the value's class, then the inference hooks',
+        then a record type bound to a dataclass value; else None."""
         name = self._by_class.get(type(value))
-        return None if name is None else self._by_name[name]
+        if name is not None:
+            return self._by_name[name]
+        for fn in self._inference:
+            t = fn(value)
+            if t is not None:
+                if t.name not in self._by_name:
+                    self.register(t, classes=(type(value),))
+                return t
+        if dataclasses.is_dataclass(value) and not isinstance(value, type):
+            from hypergraphdb_tpu_torch.types.record import RecordType
+
+            t = RecordType.for_dataclass(type(value), self)
+            if t.name not in self._by_name:
+                self.register(t, classes=(type(value),),
+                              supertypes=t.supertype_names)
+            return self._by_name[t.name]
+        return None
+
+    # -- subsumption (type level) -------------------------------------------
+    def declare_subtype(self, sub: str, sup: str) -> None:
+        self._supertypes.setdefault(sub, set()).add(sup)
+        self.hierarchy_version += 1
+
+    def subtypes_closure(self, name: str) -> set[str]:
+        """Every type name subsumed by ``name``, itself included: what a
+        ``TypePlus`` condition expands to."""
+        out = {name}
+        changed = True
+        while changed:
+            changed = False
+            for sub, sups in self._supertypes.items():
+                if sub not in out and (sups & out):
+                    out.add(sub)
+                    changed = True
+        return out
+
+    def supertypes_of(self, name: str) -> set[str]:
+        out: set[str] = set()
+        frontier = set(self._supertypes.get(name, ()))
+        while frontier:
+            out |= frontier
+            nxt: set[str] = set()
+            for n in frontier:
+                nxt |= self._supertypes.get(n, set()) - out
+            frontier = nxt
+        return out

@@ -1,12 +1,14 @@
-"""The subset of MessagePack that the list and dict types write.
+"""The subset of MessagePack that the list, dict and record types write.
 
-``ListType`` and ``DictType`` store their values, and build their index
-keys, as MessagePack bytes. The port carries its own encoder and decoder
-for the types those values hold (nil, bool, int, float, str, bin, array,
-map), so it runs where the ``msgpack`` package is missing. :func:`packb`
-gives the bytes of ``msgpack.packb(obj, use_bin_type=True)`` and
-:func:`unpackb` reads them as ``msgpack.unpackb(data, raw=False)`` does:
-arrays as lists, maps as dicts with str or bytes keys.
+``ListType``, ``DictType`` and ``RecordType`` store their values, and
+build their index keys, as MessagePack bytes. The port carries its own
+encoder and decoder for the types those values hold (nil, bool, int,
+float, str, bin, array, map), so it runs where the ``msgpack`` package is
+missing. :func:`packb` gives the bytes of ``msgpack.packb(obj,
+use_bin_type=True, default=default)`` (record types pack nested
+dataclasses through the hook) and :func:`unpackb` reads them as
+``msgpack.unpackb(data, raw=False)`` does: arrays as lists, maps as dicts
+with str or bytes keys.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def _pack_len(n: int, fix: int, fix_max: int, codes: tuple, out: bytearray,
     raise ValueError(f"{what} is too large")
 
 
-def _pack(obj: Any, out: bytearray) -> None:
+def _pack(obj: Any, out: bytearray, default=None) -> None:
     if obj is None:
         out += b"\xc0"
     elif isinstance(obj, bool):
@@ -72,20 +74,25 @@ def _pack(obj: Any, out: bytearray) -> None:
     elif isinstance(obj, (list, tuple)):
         _pack_len(len(obj), 0x90, 15, (None, 0xDC, 0xDD), out, "array")
         for item in obj:
-            _pack(item, out)
+            _pack(item, out, default)
     elif isinstance(obj, dict):
         _pack_len(len(obj), 0x80, 15, (None, 0xDE, 0xDF), out, "dict")
         for k, v in obj.items():
-            _pack(k, out)
-            _pack(v, out)
+            _pack(k, out, default)
+            _pack(v, out, default)
+    elif default is not None:
+        _pack(default(obj), out, default)
     else:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
 
 
-def packb(obj: Any) -> bytes:
-    """``obj`` as MessagePack bytes (str as str, bytes as bin)."""
+def packb(obj: Any, default=None) -> bytes:
+    """``obj`` as MessagePack bytes (str as str, bytes as bin). An object
+    of no MessagePack type is packed as what ``default(obj)`` returns, as
+    ``msgpack.packb``'s hook of that name does (it raises ``TypeError``
+    when the object has no form)."""
     out = bytearray()
-    _pack(obj, out)
+    _pack(obj, out, default)
     return bytes(out)
 
 

@@ -9,7 +9,7 @@ against O(sqrt n); the hot reads come from cached numpy arrays.
 
 from __future__ import annotations
 
-from bisect import bisect_left, insort
+from bisect import bisect_left, bisect_right, insort
 from typing import Any, Iterator, Optional
 
 
@@ -87,8 +87,22 @@ class SortedDict:
             self._dirty = True
         return self._data.pop(key, *default)
 
-    def irange(self, minimum: Optional[Any] = None) -> Iterator:
-        """Keys from the first >= ``minimum``, in order."""
+    def irange(self, minimum: Optional[Any] = None,
+               maximum: Optional[Any] = None,
+               inclusive: tuple[bool, bool] = (True, True)) -> Iterator:
+        """Keys between ``minimum`` and ``maximum`` (None: unbounded), in
+        order; ``inclusive`` says whether each bound is in the range."""
         keys = self._klist()
-        start = 0 if minimum is None else bisect_left(keys, minimum)
-        return iter(keys[start:])
+        if minimum is None:
+            start = 0
+        elif inclusive[0]:
+            start = bisect_left(keys, minimum)
+        else:
+            start = bisect_right(keys, minimum)
+        if maximum is None:
+            end = len(keys)
+        elif inclusive[1]:
+            end = bisect_right(keys, maximum)
+        else:
+            end = bisect_left(keys, maximum)
+        return iter(keys[start:end])

@@ -5,6 +5,7 @@ index) in both packages. Vetoes, use after close and removing a type atom
 raise in both. ``bulk_import`` fills the store as the buffered bulk path
 does. Tolerance: exact equality."""
 
+import dataclasses
 import datetime
 import importlib
 
@@ -285,3 +286,111 @@ def test_bulk_import_inside_a_transaction_and_beside_a_reader():
     assert got == run(PKGS[0])
     _, before, during, after, _ = got
     assert before == during == [] and len(after) == 2
+
+
+# ------------------------------------------------------------- records
+
+
+@dataclasses.dataclass
+class Person:
+    name: str
+    age: int
+
+
+@dataclasses.dataclass
+class Employee(Person):
+    company: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class Address:
+    city: str
+    zip: int
+
+
+@dataclasses.dataclass
+class Customer:
+    name: str
+    home: Address
+    past: list
+    tags: dict
+
+
+def record_values():
+    return [
+        Person("ada", 36), Employee("bob", 25, "acme"),
+        Customer("cy", Address("Oslo", 150), [Address("Rome", 1), 7, None],
+                 {"k": Address("Lima", 2), "n": [1.5, b"b", True]}),
+        Customer("di", Address("", -3), [], {}),
+    ]
+
+
+def records_scenario(pkg):
+    """Record values added, linked, replaced and removed; the store
+    tables, the values read back, the types and their hierarchy."""
+    g = new_graph(pkg)
+    hs = [g.add(v) for v in record_values()]
+    link = g.add_link((hs[0], hs[2]), value=Employee("link", 1, "l"))
+    g.replace(hs[1], Person("bob", 26))
+    g.replace(hs[3], Customer("di", Address("Bern", 3000), [1], {"a": 2}))
+    g.remove(hs[0], keep_incident_links=True)
+    ts = g.typesystem
+    pname = ts.infer(Person("", 0)).name
+    out = (dump(g), views(g, hs + [link]),
+           [ts.infer(v).dimensions() for v in record_values()],
+           sorted(ts.subtypes_closure(pname)),
+           sorted(ts.supertypes_of(ts.infer(Employee("", 0)).name)),
+           ts.hierarchy_version,
+           ts.infer(record_values()[2]).project(record_values()[2],
+                                                "home.city"))
+    g.close()
+    return out
+
+
+def test_records_match_the_reference():
+    port = records_scenario(PKGS[1])
+    assert port == records_scenario(PKGS[0])
+    dims, closure, supers, _, city = port[2:]
+    assert dims[0] == ["name", "age"] and city == "Oslo"
+    assert len(closure) == 2 and len(supers) == 1
+
+
+def test_record_bytes_equal_the_reference():
+    """``RecordType.store`` and ``to_key`` bytes, nested dataclasses
+    included, and the values ``make`` reads back."""
+    rt = {pkg: mod(pkg, "types.record").RecordType for pkg in PKGS}
+    for v in record_values():
+        ref = rt[PKGS[0]].for_dataclass(type(v))
+        port = rt[PKGS[1]].for_dataclass(type(v))
+        assert port.store(v) == ref.store(v)
+        assert port.to_key(v) == ref.to_key(v)
+        assert port.make(port.store(v)) == ref.make(ref.store(v))
+        as_dict = dataclasses.asdict(v)
+        assert port.store(as_dict) == ref.store(as_dict)
+
+
+def test_msgpack_lite_default_hook_is_byte_equal_to_msgpack():
+    """The port's MessagePack subset with a ``default`` hook against the
+    ``msgpack`` package on nested dataclasses; no hook raises as
+    ``msgpack`` does."""
+    import msgpack
+
+    from hypergraphdb_tpu_torch.utils import msgpack_lite
+
+    def hook(obj):
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            return {"__dc__": type(obj).__qualname__,
+                    "f": {f.name: getattr(obj, f.name)
+                          for f in dataclasses.fields(obj)}}
+        raise TypeError(f"unpackable: {type(obj)}")
+
+    for v in record_values() + [[Address("x", 2**40)] * 20,
+                                {"deep": [[Address("y", -2**31)]]}]:
+        want = msgpack.packb(v, use_bin_type=True, default=hook)
+        assert msgpack_lite.packb(v, default=hook) == want
+        assert msgpack_lite.unpackb(want) == msgpack.unpackb(want,
+                                                             raw=False)
+    with pytest.raises(TypeError):
+        msgpack_lite.packb(Address("z", 1))
+    with pytest.raises(TypeError):
+        msgpack_lite.packb({1, 2}, default=hook)
