@@ -5,6 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py            # every phase (a few minutes)
     python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py --serve    # build, kernel checks and phase 16
 
 Phases, each of which raises (and the script exits non-zero) on a mismatch:
 
@@ -150,12 +151,33 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     ``bfs_pull`` on the card (fused, K2; staged, K1), ``serve_bfs`` and
     ``find_all(bfs)``, unbounded DFS equal to BFS. K3's record gains its
     launches through ``find_all``; c3's two forms are profiled last.
+16. The serve runtime (after 15), each leg at its bench's defaults on a
+    graph of 200,000 entities and 400,000 links through ``bulk_import``:
+    bench c6 (:func:`serve_c6`: the one-request baseline on the quiet
+    graph, every batch on the fused route padded to 32 lanes; 4,096
+    open-loop Poisson arrivals at 2,000/s, 2 hops, deadline 1.0 s, beside
+    a writer of 20 x 10,000 links, starting at its first commit; K2 and K1
+    (the overlay) launching in the window; then 64 seeds at lag 0 on the
+    fused route and again with 50 links removed on the dense route, equal
+    to a host BFS over the live graph), bench c10's ad-hoc patterns
+    (:func:`serve_c10`: 4,096 single-anchor requests at 1,000/s, deadline
+    2.0 s, beside 8 x 5,000 links into 16 hubs; 64 anchors and the hubs
+    equal to ``find_all(Incident)`` through ``submit_pattern`` and
+    ``submit_query``, before and after a compaction that puts the hubs'
+    rows over ``pattern_pad``), bench c9 (:func:`serve_c9`: a closed-loop
+    flood of 4,096 range requests, twice, the host scan through
+    ``find_all``, 64 probes against the by-value index). Every leg fails
+    on a breaker trip, a retry or an error, and on host fallbacks other
+    than the routing rules'; each logs its requests/s, shed, batches,
+    occupancy, percentiles and the wall time a batch spends in launch and
+    in collect, and its 1024-lane batch alone.
 11. The device's busy share of the main path (fused and staged), the
     h1 ∩ h2 intersection, the pattern windows, the two served delta
     routes, a join triangle window and a hub-heavy split dispatch, a
     1024-lane range batch and a window of c3's value leg, from
     ``torch.profiler``, after every timed phase; the join's binary
-    searches are named ranges, their device time logged.
+    searches are named ranges, their device time logged; and one served
+    1024-lane batch of each of phase 16's legs.
 
 Every log line carries the card's name and power limit. The last lines are
 the card line, one JSON line of kernel records and the result
@@ -3996,6 +4018,689 @@ def query_traversals(s: Smoke) -> dict:
     return out
 
 
+# ------------------------------------------------------ 16. the serve runtime
+
+#: the three legs' graphs: bench.py c6, c9 and c10's scale, uncut
+SV_ENTITIES, SV_LINKS, SV_LOAD_CHUNK = 200_000, 400_000, 100_000
+#: bench.py c6 (:805): seed 17, its manager, 4,096 open-loop Poisson
+#: arrivals at 2,000 requests/s, 2 hops, deadline 1.0 s, beside a writer
+#: of 20 x 10,000 links; the one-dispatch-a-request baseline of 256
+C6_SEED = 17
+C6_MANAGER = dict(headroom=1.8, background=True, delta_bucket_min=1 << 18,
+                  compact_ratio=0.25, pack_pad_multiple=1 << 19)
+C6_REQUESTS, C6_QPS, C6_DEADLINE_S, C6_HOPS = 4096, 2000.0, 1.0, 2
+C6_BATCHES, C6_BATCH_LINKS, C6_BASELINE_N = 20, 10_000, 256
+#: c6's checks after the writer: seeds through the runtime at lag 0 (with
+#: fresh links in the memtable, so the overlay has rows), then again with
+#: links removed (the dense route)
+C6_CHECK_SEEDS, C6_FRESH_LINKS, C6_REMOVED = 64, 200, 50
+#: bench.py c10 (:1760) without its standing subscriptions: seed 31, link
+#: values from 1,000,000, its manager, 4,096 single-anchor patterns at
+#: 1,000 requests/s, deadline 2.0 s, a writer of 8 x 5,000 links into 16
+#: hubs (values from 10,000,000)
+C10_SEED, C10_V0, C10_INGEST_V0 = 31, 1_000_000, 10_000_000
+C10_MANAGER = dict(headroom=1.8, background=True, delta_bucket_min=1 << 14,
+                   pack_pad_multiple=1 << 17)
+C10_REQUESTS, C10_QPS, C10_DEADLINE_S = 4096, 1000.0, 2.0
+C10_HUBS, C10_BATCHES, C10_BATCH_LINKS, C10_CHECK_ANCHORS = 16, 8, 5_000, 64
+#: bench.py c9 (:1596): seed 29, link values from 1,000,000, its manager,
+#: a closed-loop flood of 4,096 range requests over windows of 24 (range /
+#: top-8 ascending / top-8 descending), 64 probes against an exact host
+#: oracle (the by-value index's int keys, searched). The host scan, one
+#: ``graph.find_all`` a window, over 4 windows (best of 2), not c9's 128:
+#: at 600,000 atoms each costs seconds, most of it the planner's capped
+#: count of the window's open half-range
+C9_SEED = 29
+C9_MANAGER = dict(headroom=1.8, delta_bucket_min=1 << 14,
+                  pack_pad_multiple=1 << 17)
+C9_REQUESTS, C9_SV_WINDOW, C9_TOPK = 4096, 24, 8
+C9_HOST_N, C9_PROBES = 4, 64
+SV_TOP_R, SV_WAIT_S = 16, 300.0
+
+
+def serve_graph(s: Smoke, seed: int, link_v0, manager: dict):
+    """A leg's graph as the bench builds it: the entities' int values
+    0..N-1, then the links in chunks of 100,000, random entity pairs (link
+    values ``link_v0 + i``, or the chunk's positions for c6), through
+    ``bulk_import``; then the snapshot manager on the card."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+
+    g = HyperGraph()
+    r = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    e0 = int(g.bulk_import(values=np.arange(SV_ENTITIES).tolist())[0])
+    for st in range(0, SV_LINKS, SV_LOAD_CHUNK):
+        m = min(SV_LOAD_CHUNK, SV_LINKS - st)
+        subj = r.integers(0, SV_ENTITIES, size=m)
+        obj = r.integers(0, SV_ENTITIES, size=m)
+        v0 = st if link_v0 is None else link_v0 + st
+        g.bulk_import(values=[int(v0 + x) for x in range(m)],
+                      target_lists=[[e0 + int(a), e0 + int(b)]
+                                    for a, b in zip(subj, obj)])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr = g.enable_incremental(device=s.dev, **manager)
+    return g, r, e0, mgr, build_s, time.perf_counter() - t0
+
+
+def open_loop(rt, submit, gaps, deadline_s: float):
+    """Open-loop arrivals (bench c6/c10): request ``i`` submitted at the
+    sum of the first ``i + 1`` gaps, not paced by completions; then every
+    future waited on. Returns (indices served, shed, wall seconds)."""
+    from hypergraphdb_tpu_torch.serve import DeadlineExceeded
+
+    futs = []
+    t0 = time.perf_counter()
+    next_t = t0
+    for i, gap in enumerate(gaps):
+        next_t += gap
+        pause = next_t - time.perf_counter()
+        if pause > 0:
+            time.sleep(pause)
+        futs.append(submit(i, deadline_s))
+    served, shed = [], 0
+    for i, f in enumerate(futs):
+        try:
+            if f.result(timeout=SV_WAIT_S).count >= 0:
+                served.append(i)
+        except DeadlineExceeded:
+            shed += 1
+    return served, shed, time.perf_counter() - t0
+
+
+def serve_report(s: Smoke, what: str, rt, wall: float, n: int,
+                 served: int, shed: int) -> dict:
+    """The runtime's numbers after a window, logged; fails on a breaker
+    trip or a retry (a device failure the ladder would mask)."""
+    st = rt.stats_snapshot()
+    lat = st["latency_ms"]
+    ex = rt.executor
+    timing = {kind: {"batches": t["batches"], **{
+        f"{k[:-2]}_ms_a_batch": round(v * 1e3 / t["batches"], 3)
+        for k, v in t.items() if k.endswith("_s")}}
+        for kind, t in ex.timing.items()}
+    rec = {"requests": n, "served": served, "shed_deadline": shed,
+           "wall_s": wall, "served_qps": served / wall,
+           "batches": st["batches"],
+           "device_dispatches": st["device_dispatches"],
+           "batch_occupancy": st["batch_occupancy"],
+           "p50_ms": lat["p50"], "p95_ms": lat["p95"], "p99_ms": lat["p99"],
+           "host_fallbacks": st["host_fallbacks"],
+           "breaker_trips": st["breaker_trips"], "retries": st["retries"],
+           "errors": st["errors"], "bfs_routes": dict(ex.routes),
+           "overlay_batches": getattr(ex, "overlay_batches", 0),
+           "declined": dict(ex.declined), "timing": timing}
+    s.log(f"serve {what}: {served} served, {shed} shed of {n} in "
+          f"{wall:.3f} s ({rec['served_qps']:.1f} requests/s); "
+          f"{rec['batches']} batches, {rec['device_dispatches']} device "
+          f"dispatches, occupancy {rec['batch_occupancy']}; latency p50 "
+          f"{lat['p50']} ms, p95 {lat['p95']} ms, p99 {lat['p99']} ms; host "
+          f"fallbacks {rec['host_fallbacks']}, breaker trips "
+          f"{rec['breaker_trips']}, retries {rec['retries']}, errors "
+          f"{rec['errors']}; BFS routes {rec['bfs_routes']} (with an "
+          f"overlay {rec['overlay_batches']}; declined {rec['declined']}); "
+          f"ms a batch per kind {timing}")
+    s.expect(rec["breaker_trips"] == 0 and rec["retries"] == 0
+             and rec["errors"] == 0,
+             f"serve {what}: breaker trips {rec['breaker_trips']}, retries "
+             f"{rec['retries']}, errors {rec['errors']}: a device failure")
+    s.expect(served + shed == n, f"serve {what}: {served} served + {shed} "
+             f"shed != {n} requests")
+    return rec
+
+
+def compact_now(s: Smoke, mgr, what: str) -> None:
+    """A compaction of everything committed so far: after any pass in
+    flight (whose extract may predate the last writes), one more, so the
+    memtable comes out empty."""
+    s.expect(mgr.wait_compacted(timeout=SV_WAIT_S),
+             f"serve {what}: compaction still running")
+    mgr._request_compact()
+    s.expect(mgr.wait_compacted(timeout=SV_WAIT_S),
+             f"serve {what}: compaction still running")
+    dead, new, revalued = mgr.correction()
+    s.expect(not (dead or new or revalued),
+             f"serve {what}: the memtable holds {len(dead)} dead, {len(new)} "
+             f"new and {len(revalued)} revalued atoms after a compaction")
+
+
+def drain(rt) -> None:
+    while rt.step(drain=True):
+        pass
+
+
+def check_results(s: Smoke, what: str, futs, truths, top_r: int) -> None:
+    """Each future's (count, matches) equal to its sorted host truth's
+    (length, first ``top_r``)."""
+    for i, (f, want) in enumerate(zip(futs, truths)):
+        res = f.result(timeout=SV_WAIT_S)
+        s.expect(res.count == len(want)
+                 and res.matches.tolist() == list(want[:top_r]),
+                 f"serve {what}: request {i} gave count {res.count}, "
+                 f"matches {res.matches.tolist()[:8]}; the host "
+                 f"{len(want)}, {list(want[:8])}")
+
+
+def pattern_host_rule(mgr, anchors, pad: int, top_r: int) -> tuple:
+    """How many single-anchor patterns the routing rules send to the host
+    on the manager's current view: ``(sure, truncated)``, where ``sure``
+    counts anchors outside the base and base rows over ``pad``, and
+    ``truncated`` the rows over ``top_r`` (a window the memtable
+    correction cannot extend, sent to the host while the memtable holds
+    anything)."""
+    view = mgr.pinned_view(sync_delta=False)
+    off, n = view.base.inc_offsets, view.base.num_atoms
+    sure = trunc = 0
+    for a in anchors:
+        if a >= n:
+            sure += 1
+            continue
+        w = int(off[a + 1]) - int(off[a])
+        sure += w > pad
+        trunc += top_r < w <= pad
+    return sure, trunc
+
+
+def serve_c6(s: Smoke) -> dict:
+    """Bench c6: BFS serving through ``ServeRuntime`` under concurrent
+    ingest, with the one-dispatch-a-request baseline, then its checks."""
+    import threading
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+
+    g, r, e0, mgr, build_s, enable_s = serve_graph(s, C6_SEED, None,
+                                                   C6_MANAGER)
+    s.log(f"serve c6: {SV_ENTITIES + SV_LINKS} atoms through bulk_import "
+          f"in {build_s:.2f} s, first pack and upload {enable_s:.2f} s; "
+          f"c6's cold-start probe (a fresh process's first dispatch from "
+          f"an AOT cache) waits for ROADMAP queue 1, item 6")
+    seeds = (e0 + r.integers(0, SV_ENTITIES, size=C6_REQUESTS)).astype(
+        np.int64)
+    # the baseline: the same requests one dispatch each (the 1-lane
+    # bucket, padded to one 32-lane word on the fused route) on the
+    # quiet graph
+    t0 = time.perf_counter()
+    rt1 = ServeRuntime(g, ServeConfig(buckets=(1,), max_linger_s=0.0,
+                                      max_lag_edges=C6_BATCH_LINKS,
+                                      top_r=SV_TOP_R))
+    prewarm_s = time.perf_counter() - t0
+    try:
+        rt1.submit_bfs(int(seeds[0]), max_hops=C6_HOPS).result(
+            timeout=SV_WAIT_S)
+        t0 = time.perf_counter()
+        futs = [rt1.submit_bfs(int(x), max_hops=C6_HOPS)
+                for x in seeds[:C6_BASELINE_N]]
+        for f in futs:
+            f.result(timeout=SV_WAIT_S)
+        base_qps = C6_BASELINE_N / (time.perf_counter() - t0)
+    finally:
+        rt1.close()
+    routes1 = dict(rt1.executor.routes)
+    s.expect(routes1 == {"fused": C6_BASELINE_N + 1, "dense": 0},
+             f"serve c6: the 1-lane baseline took routes {routes1}; every "
+             f"batch should ride the fused route padded to 32 lanes")
+
+    cfg = ServeConfig(buckets=(64, 256, 1024), max_queue=8192,
+                      max_linger_s=0.005, max_lag_edges=C6_BATCH_LINKS,
+                      top_r=SV_TOP_R)
+    t0 = time.perf_counter()
+    rt = ServeRuntime(g, cfg)
+    prewarm_s = (prewarm_s, time.perf_counter() - t0)
+    ingested = {"atoms": 0, "s": 0.0, "errors": []}
+
+    def writer():
+        try:
+            t_w = time.perf_counter()
+            for _ in range(C6_BATCHES):
+                subj = r.integers(0, SV_ENTITIES, size=C6_BATCH_LINKS)
+                obj = r.integers(0, SV_ENTITIES, size=C6_BATCH_LINKS)
+                g.bulk_import(values=list(range(C6_BATCH_LINKS)),
+                              target_lists=[[e0 + int(a), e0 + int(b)]
+                                            for a, b in zip(subj, obj)])
+                ingested["atoms"] += C6_BATCH_LINKS
+            ingested["s"] = time.perf_counter() - t_w
+        except Exception as e:  # noqa: BLE001 - failed below
+            ingested["errors"].append(repr(e))
+
+    try:
+        for b in cfg.buckets:
+            warm = [rt.submit_bfs(int(seeds[j % C6_REQUESTS]),
+                                  max_hops=C6_HOPS) for j in range(b)]
+            for f in warm:
+                f.result(timeout=SV_WAIT_S)
+        rt.stats.reset()
+        rt.executor.timing.clear()
+        rt.executor.routes.update(fused=0, dense=0)
+        rt.executor.overlay_batches = 0
+        gaps = r.exponential(1.0 / C6_QPS, size=C6_REQUESTS)
+        epoch0 = mgr.compactions
+        wt = threading.Thread(target=writer, name="c6-writer", daemon=True)
+        reset_launches()
+        wt.start()
+        # arrivals start once the writer's first batch has committed: the
+        # window's batches then read a delta past max_lag_edges (K1's
+        # overlay), as in steady streaming, whatever few of them run
+        t_w = time.perf_counter()
+        while (ingested["atoms"] < C6_BATCH_LINKS and not ingested["errors"]
+               and time.perf_counter() - t_w < SV_WAIT_S):
+            time.sleep(0.001)
+        lead_s = time.perf_counter() - t_w
+        served, shed, wall = open_loop(
+            rt, lambda i, dl: rt.submit_bfs(int(seeds[i]), max_hops=C6_HOPS,
+                                            deadline_s=dl),
+            gaps, C6_DEADLINE_S)
+        wt.join(timeout=SV_WAIT_S)
+        rt.close(drain=True, timeout=SV_WAIT_S)
+        n_k = launches()
+    finally:
+        rt.close(drain=False, timeout=SV_WAIT_S)
+    s.expect(not wt.is_alive() and not ingested["errors"],
+             f"serve c6: writer {ingested['errors'] or 'not joined'}")
+    rec = serve_report(s, "c6", rt, wall, C6_REQUESTS, len(served), shed)
+    rec.update(baseline_qps=base_qps, batched_vs_baseline=rec["served_qps"]
+               / base_qps, baseline_routes=routes1, prewarm_s=prewarm_s,
+               ingest_atoms_per_s=ingested["atoms"] / ingested["s"],
+               launches=n_k, compactions=mgr.compactions - epoch0,
+               build_s=build_s, enable_s=enable_s, writer_lead_s=lead_s)
+    s.log(f"serve c6: baseline {base_qps:.1f} requests/s ({C6_BASELINE_N} one-request "
+          f"dispatches, routes {routes1}); batched/baseline "
+          f"{rec['batched_vs_baseline']:.2f}; ingest "
+          f"{rec['ingest_atoms_per_s']:.0f} atoms/s beside the window; "
+          f"{rec['compactions']} compactions; arrivals began {lead_s:.3f} s "
+          f"after the writer, at its first commit; launches in the window "
+          f"{n_k}; prewarm s (baseline, batched) {prewarm_s}")
+    s.expect(rec["host_fallbacks"] == 0,
+             f"serve c6: {rec['host_fallbacks']} host fallbacks; every seed "
+             f"is in the base, the routing rules send none")
+    # K2 runs each hop of every fused batch, K1 the overlay of each
+    s.expect(n_k["fused_hop"] >= C6_HOPS * rec["bfs_routes"]["fused"] > 0
+             and rec["overlay_batches"] > 0 and n_k["gather_or"] > 0,
+             f"serve c6: launches in the window {n_k} for routes "
+             f"{rec['bfs_routes']}, {rec['overlay_batches']} with an overlay")
+
+    # -- exactness after the writer: lag 0 on the fused route (fresh links
+    # in the memtable ride the overlay), then tombstones on the dense one
+    s.expect(mgr.wait_compacted(timeout=SV_WAIT_S),
+             "serve c6: compaction still running")
+    subj = r.integers(0, SV_ENTITIES, size=C6_FRESH_LINKS)
+    obj = r.integers(0, SV_ENTITIES, size=C6_FRESH_LINKS)
+    g.bulk_import(values=list(range(C6_FRESH_LINKS)),
+                  target_lists=[[e0 + int(a), e0 + int(b)]
+                                for a, b in zip(subj, obj)])
+    check = [int(x) for x in seeds[-C6_CHECK_SEEDS:]]
+    rtx = ServeRuntime(g, ServeConfig(buckets=(C6_CHECK_SEEDS,),
+                                      max_linger_s=0.0, max_lag_edges=0,
+                                      top_r=SV_TOP_R, manual=True))
+    try:
+        reset_launches()
+        futs = [rtx.submit_bfs(x, max_hops=C6_HOPS) for x in check]
+        drain(rtx)
+        n_fused = launches()
+        check_results(s, "c6 lag 0", futs,
+                      [graph_bfs(g, x, C6_HOPS) for x in check], SV_TOP_R)
+        s.expect(rtx.executor.routes == {"fused": 1, "dense": 0}
+                 and n_fused["fused_hop"] == C6_HOPS
+                 and n_fused["gather_or"] > 0,
+                 f"serve c6 lag 0: routes {rtx.executor.routes}, launches "
+                 f"{n_fused}; want the fused route, K2 {C6_HOPS}, K1 > 0")
+        gone = []
+        for x in check:
+            inc = g.get_incidence_set(x).array().tolist()
+            if inc and inc[0] not in gone:
+                gone.append(int(inc[0]))
+            if len(gone) == C6_REMOVED:
+                break
+        for h in gone:
+            g.remove(h)
+        reset_launches()
+        futs = [rtx.submit_bfs(x, max_hops=C6_HOPS) for x in check]
+        drain(rtx)
+        n_dense = launches()
+        check_results(s, "c6 tombstones", futs,
+                      [graph_bfs(g, x, C6_HOPS) for x in check], SV_TOP_R)
+        s.expect(rtx.executor.routes == {"fused": 1, "dense": 1}
+                 and rtx.stats.host_fallbacks == 0,
+                 f"serve c6 tombstones: routes {rtx.executor.routes}, host "
+                 f"fallbacks {rtx.stats.host_fallbacks}")
+    finally:
+        rtx.close()
+    s.log(f"serve c6: lag 0 ({C6_FRESH_LINKS} fresh links) and "
+          f"{len(gone)} removed links: {C6_CHECK_SEEDS} seeds equal to the "
+          f"host BFS over the live graph on the fused route (launches "
+          f"{n_fused}) and the dense route (launches {n_dense})")
+    rec.update(check_launches={"fused": n_fused, "dense": n_dense})
+
+    # the busy share of one served 1024-lane batch, fused with an overlay:
+    # the tombstones compacted away, fresh links in the memtable
+    compact_now(s, mgr, "c6")
+    g.bulk_import(values=list(range(C6_FRESH_LINKS)),
+                  target_lists=[[e0 + int(a), e0 + int(b)]
+                                for a, b in zip(subj, obj)])
+    rtp = ServeRuntime(g, ServeConfig(buckets=(1024,), max_linger_s=0.0,
+                                      max_lag_edges=0, top_r=SV_TOP_R,
+                                      manual=True))
+
+    def one_batch():
+        futs = [rtp.submit_bfs(int(x), max_hops=C6_HOPS)
+                for x in seeds[:1024]]
+        drain(rtp)
+        futs[-1].result(timeout=SV_WAIT_S)
+
+    ms = served_ms(s, one_batch, runs=3)
+    rtq = ServeRuntime(g, ServeConfig(buckets=(64,), max_linger_s=0.0,
+                                      max_lag_edges=0, top_r=SV_TOP_R,
+                                      manual=True))
+
+    def small_batch():
+        futs = [rtq.submit_bfs(int(x), max_hops=C6_HOPS) for x in seeds[:33]]
+        drain(rtq)
+        futs[-1].result(timeout=SV_WAIT_S)
+
+    ms64 = served_ms(s, small_batch, runs=3)
+    rtq.close()
+    s.log(f"serve c6: one served 64-lane batch of 33 requests alone "
+          f"{spread(ms64)}; ms a batch {rtq.executor.timing}")
+    rec["batch_64_ms"] = ms64
+    s.expect(rtp.executor.routes["dense"] == 0,
+             f"serve c6: the profiled batch took {rtp.executor.routes} "
+             f"(declined {rtp.executor.declined})")
+    s.log(f"serve c6: one served 1024-lane batch (fused, overlay) "
+          f"{spread(ms)}")
+
+    def close():
+        rtp.close()
+        g.close()
+
+    s.profile_later("serve c6 1024-lane BFS batch (fused, overlay)",
+                    one_batch, float(np.median(ms)), reps=3, teardown=close)
+    rec["batch_1024_ms"] = ms
+    return rec
+
+
+def serve_c10(s: Smoke) -> dict:
+    """Bench c10's ad-hoc pattern traffic through ``ServeRuntime`` beside
+    its writer (without the standing subscriptions, which wait for item 7),
+    then its checks: through the device lane with the memtable correction,
+    through ``submit_query``, and after a compaction with the hubs' rows
+    over ``pattern_pad``."""
+    import threading
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.query import conditions as qc
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+
+    g, r, e0, mgr, build_s, enable_s = serve_graph(s, C10_SEED, C10_V0,
+                                                   C10_MANAGER)
+    hubs = [e0 + int(h) for h in r.integers(0, SV_ENTITIES, size=C10_HUBS)]
+    seeds = [e0 + int(x) for x in r.integers(0, SV_ENTITIES,
+                                              size=C10_REQUESTS)]
+    cfg = ServeConfig(buckets=(64, 256, 1024), max_queue=8192,
+                      max_linger_s=0.002, top_r=SV_TOP_R, prewarm_aot=False)
+    rt = ServeRuntime(g, cfg)
+    ingested = {"atoms": 0, "s": 0.0, "errors": []}
+
+    def writer():
+        try:
+            t_w = time.perf_counter()
+            v = C10_INGEST_V0
+            for _ in range(C10_BATCHES):
+                obj = r.integers(0, SV_ENTITIES, size=C10_BATCH_LINKS)
+                g.bulk_import(values=[int(v + x)
+                                      for x in range(C10_BATCH_LINKS)],
+                              target_lists=[[hubs[int(o) % C10_HUBS],
+                                             e0 + int(o)] for o in obj])
+                v += C10_BATCH_LINKS
+                ingested["atoms"] += C10_BATCH_LINKS
+            ingested["s"] = time.perf_counter() - t_w
+        except Exception as e:  # noqa: BLE001 - failed below
+            ingested["errors"].append(repr(e))
+
+    try:
+        for b in cfg.buckets:
+            warm = [rt.submit_pattern([seeds[j % C10_REQUESTS]])
+                    for j in range(b)]
+            for f in warm:
+                f.result(timeout=SV_WAIT_S)
+        rt.stats.reset()
+        rt.executor.timing.clear()
+        gaps = r.exponential(1.0 / C10_QPS, size=C10_REQUESTS)
+        epoch0 = mgr.compactions
+        wt = threading.Thread(target=writer, name="c10-writer", daemon=True)
+        wt.start()
+        served, shed, wall = open_loop(
+            rt, lambda i, dl: rt.submit_pattern([seeds[i]], deadline_s=dl),
+            gaps, C10_DEADLINE_S)
+        wt.join(timeout=SV_WAIT_S)
+        rt.close(drain=True, timeout=SV_WAIT_S)
+    finally:
+        rt.close(drain=False, timeout=SV_WAIT_S)
+    s.expect(not wt.is_alive() and not ingested["errors"],
+             f"serve c10: writer {ingested['errors'] or 'not joined'}")
+    rec = serve_report(s, "c10", rt, wall, C10_REQUESTS, len(served),
+                       shed)
+    rec.update(ingest_atoms_per_s=ingested["atoms"] / ingested["s"],
+               compactions=mgr.compactions - epoch0, build_s=build_s,
+               enable_s=enable_s)
+    # the routing rules' count over the window's one epoch: c10's ingest
+    # stays under the manager's thresholds, so no compaction ran in it
+    s.expect(rec["compactions"] == 0,
+             f"serve c10: {rec['compactions']} compactions in the window")
+    sure, trunc = pattern_host_rule(mgr, [seeds[i] for i in served],
+                                    cfg.pattern_pad, cfg.top_r)
+    s.log(f"serve c10: ingest {rec['ingest_atoms_per_s']:.0f} atoms/s into "
+          f"{C10_HUBS} hubs; host fallbacks {rec['host_fallbacks']}; the "
+          f"routing rules over the served requests: {sure} rows over "
+          f"pattern_pad, {trunc} truncated windows (host once the memtable "
+          f"holds anything)")
+    s.expect(sure <= rec["host_fallbacks"] <= sure + trunc,
+             f"serve c10: {rec['host_fallbacks']} host fallbacks, the "
+             f"routing rules send {sure} to {sure + trunc}")
+
+    anchors = seeds[:C10_CHECK_ANCHORS] + hubs
+
+    def checks(what: str):
+        cfg_x = ServeConfig(buckets=(128,), max_linger_s=0.0,
+                            top_r=SV_TOP_R, prewarm_aot=False, manual=True)
+        truths = [sorted(int(h) for h in g.find_all(qc.Incident(a)))
+                  for a in anchors]
+        sure, trunc = pattern_host_rule(mgr, anchors, cfg_x.pattern_pad,
+                                        cfg_x.top_r)
+        view = mgr.pinned_view(sync_delta=False)
+        dirty = bool(view.dead or view.revalued or view.new_atoms)
+        want = sure + (trunc if dirty else 0)
+        got = []
+        for via in ("submit_pattern", "submit_query"):
+            rtx = ServeRuntime(g, cfg_x)
+            try:
+                futs = [rtx.submit_pattern([a]) if via == "submit_pattern"
+                        else rtx.submit_query(qc.Incident(a))
+                        for a in anchors]
+                drain(rtx)
+                check_results(s, f"c10 {what} {via}", futs, truths,
+                              SV_TOP_R)
+            finally:
+                rtx.close()
+            got.append(rtx.stats.host_fallbacks)
+            s.expect(rtx.stats.host_fallbacks == want,
+                     f"serve c10 {what} {via}: {rtx.stats.host_fallbacks} "
+                     f"host fallbacks, the routing rules send {want}")
+        s.log(f"serve c10 {what}: {len(anchors)} anchors ({C10_HUBS} hubs, "
+              f"{max(len(t) for t in truths[-C10_HUBS:])} links at most) "
+              f"equal to find_all(Incident) through submit_pattern and "
+              f"submit_query; host fallbacks {got} (the rules: {want})")
+        return want
+
+    rec["check_host"] = [checks("memtable")]
+    compact_now(s, mgr, "c10")
+    rec["check_host"].append(checks("compacted"))
+    s.expect(rec["check_host"][1] >= C10_HUBS - 1,
+             f"serve c10: after the compaction the hubs' rows should be "
+             f"over pattern_pad: {rec['check_host']}")
+
+    rtp = ServeRuntime(g, ServeConfig(buckets=(1024,), max_linger_s=0.0,
+                                      top_r=SV_TOP_R, prewarm_aot=False,
+                                      manual=True))
+
+    def one_batch():
+        futs = [rtp.submit_pattern([a]) for a in seeds[:1024]]
+        drain(rtp)
+        futs[-1].result(timeout=SV_WAIT_S)
+
+    ms = served_ms(s, one_batch, runs=3)
+    s.log(f"serve c10: one served 1024-lane pattern batch {spread(ms)}")
+
+    def close():
+        rtp.close()
+        g.close()
+
+    s.profile_later("serve c10 1024-lane pattern batch", one_batch,
+                    float(np.median(ms)), reps=3, teardown=close)
+    rec["batch_1024_ms"] = ms
+    return rec
+
+
+def serve_c9(s: Smoke) -> dict:
+    """Bench c9: the range lane through ``ServeRuntime``: the closed-loop
+    flood, the host-scan baseline, the 64-probe differential."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.query import conditions as qc
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+    from hypergraphdb_tpu_torch.utils.ordered_bytes import rank64
+
+    g, r, e0, mgr, build_s, enable_s = serve_graph(s, C9_SEED, C10_V0,
+                                                   C9_MANAGER)
+    cfg = ServeConfig(buckets=(64, 256, 1024), max_linger_s=0.002,
+                      top_r=SV_TOP_R, prewarm_aot=False)
+    los = r.integers(0, SV_ENTITIES - C9_SV_WINDOW, size=C9_REQUESTS)
+    kinds = r.integers(0, 3, size=C9_REQUESTS)
+
+    def limit_of(i):
+        return None if kinds[i] == 0 else C9_TOPK
+
+    def submit(rt, i):
+        lo = int(los[i])
+        return rt.submit_range(lo=lo, hi=lo + C9_SV_WINDOW,
+                               limit=limit_of(i), desc=bool(kinds[i] == 2))
+
+    rt = ServeRuntime(g, cfg)
+    try:
+        for b in cfg.buckets:
+            for f in [submit(rt, j % C9_REQUESTS) for j in range(b)]:
+                f.result(timeout=SV_WAIT_S)
+        rt.stats.reset()
+        rt.executor.timing.clear()
+        t0 = time.perf_counter()
+        futs = [submit(rt, i) for i in range(C9_REQUESTS)]
+        results = [f.result(timeout=SV_WAIT_S) for f in futs]
+        wall = time.perf_counter() - t0
+        rec = serve_report(s, "c9", rt, wall, C9_REQUESTS, len(results), 0)
+        # the same flood once more: how far one run's rate is from the next
+        t0 = time.perf_counter()
+        futs = [submit(rt, i) for i in range(C9_REQUESTS)]
+        again = [f.result(timeout=SV_WAIT_S) for f in futs]
+        rec["again_qps"] = C9_REQUESTS / (time.perf_counter() - t0)
+        rt.close(drain=True, timeout=SV_WAIT_S)
+    finally:
+        rt.close(drain=False, timeout=SV_WAIT_S)
+    st = rt.stats_snapshot()
+    s.log(f"serve c9: the same flood again {rec['again_qps']:.1f} requests/s")
+    s.expect(st["breaker_trips"] == 0 and st["retries"] == 0
+             and st["errors"] == 0 and st["host_fallbacks"] == 0,
+             f"serve c9: after the second flood {st}")
+    s.expect(all(a.count == b.count and a.matches.tolist()
+                 == b.matches.tolist() for a, b in zip(results, again)),
+             "serve c9: the second flood's answers differ from the first's")
+    s.expect(rec["host_fallbacks"] == 0,
+             f"serve c9: {rec['host_fallbacks']} host fallbacks; exact int "
+             f"bounds, limits under top_r and a quiet memtable send none")
+
+    found = {}
+
+    def host_window():
+        t0 = time.perf_counter()
+        for i in range(C9_HOST_N):
+            lo = int(los[i])
+            found[i] = g.find_all(qc.And(
+                qc.AtomValue(lo, "gte"),
+                qc.AtomValue(lo + C9_SV_WINDOW, "lte")))
+        return C9_HOST_N / (time.perf_counter() - t0)
+
+    host_qps = max(host_window() for _ in range(2))
+    ranks, gids = int_value_oracle(g)
+
+    def rank_of(v: int) -> int:
+        return rank64(g.typesystem.infer(v).to_key(v)[1:])
+
+    bad = []
+    for i in range(C9_PROBES):
+        lo = int(los[i])
+        a = int(np.searchsorted(ranks, rank_of(lo), "left"))
+        b = int(np.searchsorted(ranks, rank_of(lo + C9_SV_WINDOW), "right"))
+        pairs = list(zip(ranks[a:b].tolist(), gids[a:b].tolist()))
+        if kinds[i] == 2:  # descending values, gid-ascending within ties
+            pairs.sort(key=lambda p: (-p[0], p[1]))
+        ordered = [int(h) for _, h in pairs]
+        if i in found:
+            s.expect(sorted(int(h) for h in found[i]) == sorted(ordered),
+                     f"serve c9: find_all over window {lo} != the oracle")
+        lim = limit_of(i)
+        upto = min(lim if lim is not None else SV_TOP_R, SV_TOP_R)
+        res = results[i]
+        if res.count != len(ordered) or res.matches.tolist() != \
+                ordered[:upto]:
+            bad.append((lo, int(kinds[i]), res.count, len(ordered)))
+    rec.update(host_scan_qps=host_qps,
+               device_vs_host_scan=rec["served_qps"] / host_qps,
+               build_s=build_s, enable_s=enable_s)
+    s.log(f"serve c9: host scan {host_qps:.1f} requests/s over "
+          f"{C9_HOST_N} windows through find_all (best of 2; equal to the "
+          f"oracle); runtime/host {rec['device_vs_host_scan']:.2f}; "
+          f"{C9_PROBES} probes against the by-value index's oracle, "
+          f"{len(bad)} differ")
+    s.expect(not bad, f"serve c9: probes differ from the host oracle "
+             f"(lo, kind, count, want): {bad[:5]}")
+
+    rtp = ServeRuntime(g, ServeConfig(buckets=(1024,), max_linger_s=0.0,
+                                      top_r=SV_TOP_R, prewarm_aot=False,
+                                      manual=True))
+
+    def one_batch():
+        futs = [submit(rtp, i) for i in range(1024)]
+        drain(rtp)
+        futs[-1].result(timeout=SV_WAIT_S)
+
+    ms = served_ms(s, one_batch, runs=3)
+    s.log(f"serve c9: one served 1024-lane range batch {spread(ms)}")
+
+    def close():
+        rtp.close()
+        g.close()
+
+    s.profile_later("serve c9 1024-lane range batch", one_batch,
+                    float(np.median(ms)), reps=3, teardown=close)
+    rec["batch_1024_ms"] = ms
+    return rec
+
+
+def phase_serve(s: Smoke) -> dict:
+    """Phase 16: the serve runtime driven by bench c6, c10 (ad-hoc
+    patterns) and c9's traffic at their defaults (see the legs)."""
+    t0 = time.perf_counter()
+    out = {"c6": serve_c6(s), "c10": serve_c10(s), "c9": serve_c9(s)}
+    out["phase_s"] = time.perf_counter() - t0
+    s.log(f"serve: phase 16 in {out['phase_s']:.1f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "serve_phase16.json").write_text(
+        json.dumps(out, indent=1, default=str))
+    return out
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
@@ -4066,7 +4771,10 @@ def main(argv: list[str]) -> int:
     phase_k2(s)
     phase_k3(s)
     records: dict = {"kernels": []}
-    if "--quick" not in argv:
+    if "--serve" in argv:
+        phase_serve(s)
+        phase_profiles(s)
+    elif "--quick" not in argv:
         snap, info = build_snapshot(s)
         truth = phase_main(s, snap, info, records)
         n_k3 = phase_intersect(s, snap, info)
@@ -4077,6 +4785,7 @@ def main(argv: list[str]) -> int:
         phase_values(s, snap, info, join_rec)
         phase_ingest(s)
         phase_query(s, records)
+        phase_serve(s)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -12,8 +12,8 @@ disk before anyone asks.
 
 Wired producers (each behind one ``enabled`` attribute read): every
 trace terminal (``obs.trace.Trace.finish_terminal``), so a query that
-raised is in the window. The serve runtime, the fault registry and the
-breakers add theirs when they are ported.
+raised is in the window; the serve runtime's retries and typed errors,
+the fault registry's firings and the breakers' transitions and trips.
 
 Incident dumps are rate-limited (``min_dump_interval_s``) and written
 only when an ``incident_dir`` is configured — incidents are always

@@ -1,0 +1,110 @@
+"""Shape-bucketed micro-batch formation + flush policy.
+
+Pure decision logic — no threads, no device code — so tier-1 tests drive
+it deterministically with a fake clock. The batcher owns two decisions:
+
+- WHEN to flush: a compatible group reaching the LARGEST bucket flushes
+  immediately (batch-full); otherwise the oldest queued ticket's linger
+  reaching ``max_linger_s`` flushes whatever is pending (latency bound).
+  ``drain=True`` (shutdown) flushes unconditionally.
+- WHAT shape to pay for: the flushed group pads up to the smallest
+  configured bucket that fits (K ∈ {64, 256, 1024} by default) —
+  power-of-two-style buckets bound the number of distinct compiled
+  programs while keeping padding waste ≤ the bucket ratio.
+
+Groups are keyed by ``Ticket.batch_key`` (kernel statics + shape dims:
+``("bfs", max_hops)`` / ``("pattern", P)``) — requests with different
+keys cannot share a dispatch. The group is formed from the OLDEST queued
+ticket's key, so no key starves: whichever request has waited longest
+defines the next batch.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+from hypergraphdb_tpu_torch.serve.admission import AdmissionQueue
+
+#: default seed/query bucket widths (pad-to-bucket device shapes)
+BUCKETS = (64, 256, 1024)
+
+
+def bucket_for(n: int, buckets: Sequence[int] = BUCKETS) -> int:
+    """Smallest configured bucket that fits ``n`` (``n`` above the largest
+    bucket is a caller bug — the batcher never collects more than max)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} requests exceed the largest bucket {buckets[-1]}")
+
+
+@dataclass
+class MicroBatch:
+    """One flushed group: the tickets plus the padded device shape.
+
+    ``force_host`` is set by the runtime when the batch key's circuit
+    breaker is OPEN (or a degraded re-route is needed): the executor then
+    serves every ticket on the exact host path and never touches the
+    device."""
+
+    key: tuple
+    tickets: list
+    bucket: int
+    force_host: bool = False
+
+    @property
+    def occupancy(self) -> float:
+        return len(self.tickets) / self.bucket
+
+
+class Batcher:
+    """Flush-policy head on an :class:`AdmissionQueue`."""
+
+    def __init__(self, queue: AdmissionQueue,
+                 buckets: Sequence[int] = BUCKETS,
+                 max_linger_s: float = 0.002):
+        if not buckets or list(buckets) != sorted(set(buckets)):
+            raise ValueError("buckets must be sorted, unique, non-empty")
+        self.queue = queue
+        self.buckets = tuple(int(b) for b in buckets)
+        self.max_batch = self.buckets[-1]
+        self.max_linger_s = max_linger_s
+
+    def next_batch(self, now: float, drain: bool = False
+                   ) -> Optional[MicroBatch]:
+        """Shed expired tickets, then flush if the policy says so; None
+        when nothing is ready yet. Two separate decisions: WHETHER to
+        flush is keyed to the GLOBALLY-oldest ticket's linger (so no
+        class can be starved past its linger by a trickle of
+        higher-priority arrivals — every lingered group forces flushes
+        until it reaches the front itself), WHICH key flushes follows
+        ``front()`` (the highest priority class's oldest ticket)."""
+        self.queue.shed_expired(now)
+        head = self.queue.front()
+        if head is None:
+            return None
+        key = head.batch_key
+        pending = self.queue.count_key(key)
+        full = pending >= self.max_batch
+        oldest = self.queue.oldest()
+        lingered = (
+            oldest is not None
+            and (now - oldest.submit_t) >= self.max_linger_s
+        )
+        if not (full or lingered or drain):
+            return None
+        tickets = self.queue.take(key, self.max_batch)
+        if not tickets:  # raced with another consumer (single-thread: no-op)
+            return None
+        return MicroBatch(key=key, tickets=tickets,
+                          bucket=bucket_for(len(tickets), self.buckets))
+
+    def time_to_flush(self, now: float) -> Optional[float]:
+        """Seconds until the OLDEST ticket's linger expires (the dispatch
+        thread's wait timeout — the same clock ``next_batch`` flushes
+        on); None with an empty queue."""
+        oldest = self.queue.oldest()
+        if oldest is None:
+            return None
+        return max(self.max_linger_s - (now - oldest.submit_t), 0.0)

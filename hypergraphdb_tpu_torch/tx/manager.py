@@ -24,9 +24,15 @@ from hypergraphdb_tpu_torch.core.errors import (
     TransactionAborted,
     TransactionConflict,
 )
+from hypergraphdb_tpu_torch.fault import global_faults
 from hypergraphdb_tpu_torch.storage.api import StorageBackend
 
 T = TypeVar("T")
+
+#: process fault registry (singleton contract): a crash drill arms
+#: ``tx.commit.pre`` / ``tx.commit.apply`` and fails the k-th write
+#: commit — one attribute read per commit while disabled
+_FAULTS = global_faults()
 
 _TOMBSTONE = object()
 
@@ -222,6 +228,9 @@ class HGTransactionManager:
                 self._incr("tx.commits")
                 self._run_commit_hooks(tx)
                 return
+            if _FAULTS.enabled:
+                # dying here loses this commit entirely (nothing staged)
+                _FAULTS.check("tx.commit.pre")
             with self._commit_lock:
                 for cell, observed in tx.read_set.items():
                     if self._versions.get(cell, 0) != observed:
@@ -231,6 +240,10 @@ class HGTransactionManager:
                 self._clock += 1
                 v = self._clock
                 self._capture_history(tx, v)
+                if _FAULTS.enabled:
+                    # dying mid-commit, after the conflict checks and
+                    # before the write-through
+                    _FAULTS.check("tx.commit.apply")
                 self._apply(tx)
                 for h in tx.links:
                     self._versions[("link", h)] = v

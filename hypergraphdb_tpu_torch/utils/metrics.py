@@ -2,7 +2,7 @@
 
 The graph's transaction manager, snapshot path and snapshot manager bump
 them (``tx.commits``, ``graph.mutations``, ``compact.passes``,
-``compact.full_uploads``, ...). A timer keeps ``(count, total seconds,
+``compact.full_uploads``, ...); :data:`global_metrics` is the process's. A timer keeps ``(count, total seconds,
 max seconds)`` per name.
 """
 
@@ -40,3 +40,7 @@ class Metrics:
             yield
         finally:
             self.observe(name, time.perf_counter() - t0)
+
+
+#: the process-wide metrics (the fault registry's ``fault.injected``)
+global_metrics = Metrics()
