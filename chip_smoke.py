@@ -172,13 +172,31 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     than the routing rules'; each logs its requests/s, shed, batches,
     occupancy, percentiles and the wall time a batch spends in launch and
     in collect, and its 1024-lane batch alone.
+17. The join lane (after 16): bench c11 at its defaults through
+    ``ServeRuntime`` on the card (:func:`serve_c11`: 100,000 entities and
+    300,000 locality-clustered links through ``bulk_import``, c11's
+    manager, 2,048 Poisson arrivals of anchored triangles at 200/s,
+    deadline 5.0 s, beside a writer of 8 x 2,000 links with a compaction
+    awaited after each); then, each exact: (a) 64 fresh probes equal to
+    ``join.host_join`` and to a numpy triangle count from the live
+    graph's incidence; (b) on a quiet base, a small pure-add link (device
+    dispatch, a partial correction), a dirty set past ``join_dirty_max``
+    and a tombstone (both on the host), each batch equal to the host; (c)
+    a hub-anchored batch through the degree split (hub dispatches > 0),
+    equal to the host; (d) on phase 15's graph, ``find_all`` of
+    co-incidence conjunctions over its hubs at the default
+    ``QueryConfig``, on the host plan and on the device arm, equal, with
+    the cost model's two estimates and the wall times. Fails on any
+    breaker trip, retry or error, any host fallback outside the lane's
+    routing rules, and any declined factorized build.
 11. The device's busy share of the main path (fused and staged), the
     h1 ∩ h2 intersection, the pattern windows, the two served delta
     routes, a join triangle window and a hub-heavy split dispatch, a
     1024-lane range batch and a window of c3's value leg, from
     ``torch.profiler``, after every timed phase; the join's binary
-    searches are named ranges, their device time logged; and one served
-    1024-lane batch of each of phase 16's legs.
+    searches are named ranges, their device time logged; one served
+    1024-lane batch of each of phase 16's legs and one 256-lane join batch
+    of phase 17.
 
 Every log line carries the card's name and power limit. The last lines are
 the card line, one JSON line of kernel records and the result
@@ -250,6 +268,8 @@ class Smoke:
         self.card = card
         self.dev = torch.device("cuda")
         self.profiles: list = []
+        #: phase 15's graph, its manager and hubs, for phase 17 (d)
+        self.query_graph = None
 
     def log(self, msg: str) -> None:
         print(f"[{self.card}] {msg}", flush=True)
@@ -3931,6 +3951,8 @@ def phase_query(s: Smoke, records: dict) -> dict:
     # closes after the last of them
     name, fn, ms, reps, setup, _ = s.profiles[-1]
     s.profiles[-1] = (name, fn, ms, reps, setup, close)
+    # phase 17 (d) runs the join pushdown on this graph before it closes
+    s.query_graph = (g, mgr, hubs)
     rec["phase_s"] = time.perf_counter() - t_phase
     s.log(f"query phase: {rec['phase_s']:.1f} s in all; record "
           + json.dumps({k: v for k, v in rec.items()
@@ -4704,6 +4726,469 @@ def phase_serve(s: Smoke) -> None:
     s.log(f"serve: phase 16 in {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------ 17. the join lane
+
+#: bench.py c11 (:2045) at its defaults: seed 37, 100,000 entities, 300,000
+#: locality-clustered links (objects within 16 ids of their subject, link
+#: values from 1,000,000), its manager, anchors drawn from the co-degree
+#: band 2..64, 2,048 Poisson arrivals of anchored triangles at 200/s,
+#: deadline 5.0 s, its ServeConfig; the writer: 8 x 2,000 links (values
+#: from 10,000,000), a compaction requested and awaited after each, a 0.2 s
+#: gap; 64 fresh probes and the 64-anchor host baseline (best of 2)
+C11_SEED, C11_ENTITIES, C11_LINKS, C11_WINDOW = 37, 100_000, 300_000, 16
+C11_MIN_DEG, C11_MAX_DEG, C11_V0, C11_INGEST_V0 = 2, 64, 1_000_000, 10_000_000
+C11_MANAGER = dict(headroom=1.8, background=True, delta_bucket_min=1 << 14,
+                   pack_pad_multiple=1 << 16)
+C11_REQUESTS, C11_QPS, C11_DEADLINE_S = 2048, 200.0, 5.0
+C11_BATCHES, C11_BATCH_LINKS, C11_GAP_S = 8, 2_000, 0.2
+C11_BUCKETS, C11_TOP_R, C11_BASE_N = (16, 64, 256), 16, 64
+#: (b): links of the dirty set past ``join_dirty_max`` (16 atoms)
+C11_DIRTY_LINKS = 10
+
+
+def c11_spec(a: int) -> dict:
+    """bench c11's anchored triangle through ``a``: a–y, y–z, z–a."""
+    from hypergraphdb_tpu_torch.query import conditions as qc
+    from hypergraphdb_tpu_torch.query.variables import var
+
+    return {"y": qc.And(qc.CoIncident(a), qc.CoIncident(var("z"))),
+            "z": qc.CoIncident(a)}
+
+
+def c11_links(r, e0: int, m: int) -> list:
+    """``m`` locality-clustered links as c11 draws them: a uniform
+    subject, an object 1..16 ids after it."""
+    import numpy as np
+
+    subj = r.integers(0, C11_ENTITIES, size=m)
+    obj = (subj + r.integers(1, C11_WINDOW + 1, size=m)) % C11_ENTITIES
+    return [[e0 + int(a), e0 + int(b)] for a, b in zip(subj, obj)], \
+        np.concatenate([subj, obj])
+
+
+def live_co_row(g, u: int):
+    """``u``'s co-incidence row from the live graph: the targets of the
+    links in its incidence set, ``u`` excluded — not through ``join/``."""
+    import numpy as np
+
+    row = set()
+    for link in g.get_incidence_set(u).array().tolist():
+        row.update(int(t) for t in g.get_targets(int(link)))
+    row.discard(int(u))
+    return np.asarray(sorted(row), dtype=np.int64)
+
+
+def live_triangles(g, a: int) -> int:
+    """Ordered (y, z) with y, z in row(a) and z in row(y): the anchored
+    triangle's count by numpy over the live graph."""
+    import numpy as np
+
+    row = live_co_row(g, a)
+    return int(sum(len(np.intersect1d(live_co_row(g, int(y)), row,
+                                      assume_unique=True)) for y in row))
+
+
+def check_joins(s: Smoke, what: str, g, anchors, futs, top_r: int,
+                numpy_counts: bool = False) -> list:
+    """Each join answer against ``join.host_join`` on the live graph:
+    count and the first ``top_r`` tuples (and, with ``numpy_counts``,
+    the count against :func:`live_triangles`). Returns the results."""
+    from hypergraphdb_tpu_torch import join
+
+    out = []
+    for a, f in zip(anchors, futs):
+        res = f.result(timeout=SV_WAIT_S)
+        want = join.host_join(g, join.extract_pattern(g, c11_spec(a)))
+        got = [tuple(int(v) for v in row) for row in res.tuples]
+        s.expect(res.count == len(want) and got == want[:top_r],
+                 f"join {what}: anchor {a} gave count {res.count}, "
+                 f"{got[:4]}; the host {len(want)}, {want[:4]}")
+        if numpy_counts:
+            n = live_triangles(g, a)
+            s.expect(res.count == n, f"join {what}: anchor {a} gave count "
+                     f"{res.count}, numpy over the live graph {n}")
+        out.append(res)
+    return out
+
+
+def join_route_check(s: Smoke, what: str, rt) -> dict:
+    """Every host fallback of the join lane came from a routing rule (a
+    dirty set marked "full", anchors beyond the base, truncated windows)
+    and no factorized build was declined."""
+    ex = rt.executor
+    jr = dict(ex.join_routes)
+    ruled = jr["dirty"] + jr["beyond_base"] + jr["truncated"] + jr["prefix"]
+    s.expect(rt.stats.host_fallbacks == ruled
+             and jr["declined"] == jr["correction"] == 0,
+             f"join {what}: {rt.stats.host_fallbacks} host fallbacks, the "
+             f"routing rules account for {ruled}; routes {jr}")
+    n_declined = sum(ex.declined.values())
+    s.expect(n_declined == 0,
+             f"join {what}: declined builds {ex.declined}")
+    return jr
+
+
+def serve_c11(s: Smoke) -> None:
+    """Bench c11: anchored triangles through ``ServeRuntime`` beside a
+    compaction-paced writer, then (a) the differential, (b) the dirty
+    memtable's three routes, (c) the hub batch."""
+    import threading
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch import join
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.ops.join import neighbor_csr
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+
+    g = HyperGraph()
+    r = np.random.default_rng(C11_SEED)
+    t0 = time.perf_counter()
+    e0 = int(g.bulk_import(values=np.arange(C11_ENTITIES).tolist())[0])
+    deg = np.zeros(C11_ENTITIES, dtype=np.int64)
+    for st in range(0, C11_LINKS, SV_LOAD_CHUNK):
+        m = min(SV_LOAD_CHUNK, C11_LINKS - st)
+        tl, ends = c11_links(r, e0, m)
+        g.bulk_import(values=[int(C11_V0 + st + x) for x in range(m)],
+                      target_lists=tl)
+        np.add.at(deg, ends, 1)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr = g.enable_incremental(device=s.dev, **C11_MANAGER)
+    s.log(f"join c11: {C11_ENTITIES + C11_LINKS} atoms through bulk_import "
+          f"in {build_s:.2f} s, first pack and upload "
+          f"{time.perf_counter() - t0:.2f} s")
+    cand = np.flatnonzero((deg >= C11_MIN_DEG) & (deg <= C11_MAX_DEG))
+    anchors = [e0 + int(a)
+               for a in cand[r.integers(0, len(cand), size=C11_REQUESTS)]]
+    cfg = ServeConfig(buckets=C11_BUCKETS, max_queue=8192,
+                      max_linger_s=0.002, top_r=C11_TOP_R,
+                      prewarm_aot=False)
+    rt = ServeRuntime(g, cfg)
+    ingested = {"atoms": 0, "s": 0.0, "errors": []}
+
+    def writer():
+        try:
+            t_w = time.perf_counter()
+            v = C11_INGEST_V0
+            for _ in range(C11_BATCHES):
+                tl, _ = c11_links(r, e0, C11_BATCH_LINKS)
+                g.bulk_import(values=[int(v + x)
+                                      for x in range(C11_BATCH_LINKS)],
+                              target_lists=tl)
+                v += C11_BATCH_LINKS
+                ingested["atoms"] += C11_BATCH_LINKS
+                mgr._request_compact()
+                mgr.wait_compacted(timeout=120)
+                time.sleep(C11_GAP_S)
+            ingested["s"] = time.perf_counter() - t_w
+        except Exception as e:  # noqa: BLE001 - failed below
+            ingested["errors"].append(repr(e))
+
+    try:
+        t0 = time.perf_counter()
+        for b in cfg.buckets:
+            warm = [rt.submit_join(c11_spec(anchors[j % C11_REQUESTS]))
+                    for j in range(b)]
+            for f in warm:
+                f.result(timeout=SV_WAIT_S)
+        warm_s = time.perf_counter() - t0
+        rt.stats.reset()
+        rt.executor.timing.clear()
+        rt.executor.join_routes.update(dict.fromkeys(rt.executor.join_routes,
+                                                     0))
+        gaps = r.exponential(1.0 / C11_QPS, size=C11_REQUESTS)
+        epoch0 = mgr.compactions
+        wt = threading.Thread(target=writer, name="c11-writer", daemon=True)
+        wt.start()
+        served, shed, wall = open_loop(
+            rt, lambda i, dl: rt.submit_join(c11_spec(anchors[i]),
+                                             deadline_s=dl),
+            gaps, C11_DEADLINE_S)
+        wt.join(timeout=SV_WAIT_S)
+        s.expect(not wt.is_alive() and not ingested["errors"],
+                 f"join c11: writer {ingested['errors'] or 'not joined'}")
+        rec = serve_report(s, "c11", rt, wall, C11_REQUESTS, len(served),
+                           shed)
+        jr = join_route_check(s, "c11", rt)
+        t = rt.executor.timing.get("join", {})
+        n_dev = max(rec["device_dispatches"], 1)
+        s.log(f"join c11: partial corrections "
+              f"{rt.stats.join_partial_corrections}, hub dispatches "
+              f"{rt.stats.join_hub_dispatches}; lanes by route {jr}; "
+              f"execute_join host syncs {t.get('host_syncs', 0)} in "
+              f"{rec['device_dispatches']} dispatches "
+              f"({t.get('host_syncs', 0) / n_dev:.2f} a dispatch); "
+              f"planning in launch {t.get('plan_s', 0.0):.3f} s in all; "
+              f"ingest "
+              f"{ingested['atoms'] / ingested['s']:.0f} atoms/s beside the "
+              f"window ({ingested['s']:.2f} s with its compactions); "
+              f"{mgr.compactions - epoch0} compactions; warm-up "
+              f"{warm_s:.2f} s")
+
+        # -- (a) the differential: fresh probes after the window settled
+        compact_now(s, mgr, "c11")
+        probes = anchors[:C11_BASE_N]
+        futs = [rt.submit_join(c11_spec(a)) for a in probes]
+        check_joins(s, "c11 probes", g, probes, futs, C11_TOP_R,
+                    numpy_counts=True)
+        s.log(f"join c11 (a): {C11_BASE_N} fresh probes equal to host_join "
+              f"(count and first {C11_TOP_R} tuples) and to numpy's "
+              f"triangle count over the live graph")
+        rt.close(drain=True, timeout=SV_WAIT_S)
+    finally:
+        rt.close(drain=False, timeout=SV_WAIT_S)
+
+    def host_window():
+        t0 = time.perf_counter()
+        for a in anchors[:C11_BASE_N]:
+            join.host_join(g, join.extract_pattern(g, c11_spec(a)))
+        return C11_BASE_N / (time.perf_counter() - t0)
+
+    host_qps = max(host_window() for _ in range(2))
+    s.log(f"join c11: served {rec['served_qps']:.1f} requests/s against "
+          f"the host baseline's {host_qps:.1f} (host_join, {C11_BASE_N} "
+          f"anchors, best of 2)")
+
+    # -- one batch alone on the quiet base, 16 and 256 lanes
+    cfg_x = dict(max_linger_s=0.0, top_r=C11_TOP_R, prewarm_aot=False,
+                 manual=True)
+    alone = {}
+    for width in (16, 256):
+        rtb = ServeRuntime(g, ServeConfig(buckets=(width,), **cfg_x))
+
+        def one_batch(rtb=rtb, width=width):
+            futs = [rtb.submit_join(c11_spec(a)) for a in anchors[:width]]
+            drain(rtb)
+            futs[-1].result(timeout=SV_WAIT_S)
+            return futs
+
+        futs = one_batch()
+        check_joins(s, f"c11 {width} lanes alone", g, anchors[:width],
+                    futs, C11_TOP_R)
+        rtb.executor.timing.clear()
+        ms = served_ms(s, one_batch, runs=3)
+        t = rtb.executor.timing["join"]
+        alone[width] = (ms, rtb)
+        s.log(f"join c11: one {width}-lane batch alone {spread(ms)}; a "
+              f"batch's launch {t['launch_s'] * 1e3 / t['batches']:.3f} ms "
+              f"(dispatch {t['dispatch_s'] * 1e3 / t['batches']:.3f}, of "
+              f"it planning {t['plan_s'] * 1e3 / t['batches']:.3f}), "
+              f"collect {t['collect_s'] * 1e3 / t['batches']:.3f} ms (wait "
+              f"{t.get('wait_s', 0.0) * 1e3 / t['batches']:.3f}), host "
+              f"syncs {t['host_syncs'] / t['batches']:.1f} a batch; equal "
+              f"to host_join")
+    rtb = alone[16][1]
+    rtb.close()
+
+    # -- (b) the dirty memtable on a quiet base: three routes
+    rtx = ServeRuntime(g, ServeConfig(buckets=(16,), **cfg_x))
+    batch = anchors[:16]
+
+    def dirty_case(what: str, edit, route: str) -> None:
+        edit()
+        before = dict(rtx.executor.join_routes)
+        n_dev = rtx.stats.device_dispatches
+        n_part = rtx.stats.join_partial_corrections
+        futs = [rtx.submit_join(c11_spec(a)) for a in batch]
+        drain(rtx)
+        res = check_joins(s, f"c11 (b) {what}", g, batch, futs, C11_TOP_R)
+        moved = {k: v - before[k] for k, v in rtx.executor.join_routes.items()
+                 if v != before[k]}
+        part = rtx.stats.join_partial_corrections - n_part
+        dev = rtx.stats.device_dispatches - n_dev
+        by = sorted({r_.served_by for r_ in res})
+        if route == "device":
+            ok = dev == 1 and part >= 1 and moved.get("device", 0) >= 1
+        else:
+            ok = dev == 0 and part == 0 and moved == {route: len(batch)}
+        s.expect(ok, f"join c11 (b) {what}: device dispatches {dev}, partial "
+                 f"corrections {part}, lanes by route {moved}; want the "
+                 f"{route} route")
+        s.log(f"join c11 (b) {what}: 16 anchors equal to host_join; device "
+              f"dispatches {dev}, partial corrections {part}, lanes by route "
+              f"{moved}, served by {by}")
+
+    def partner(a: int, k: int) -> int:
+        return e0 + (a - e0 + k) % C11_ENTITIES
+
+    try:
+        a0 = batch[0]
+        dirty_case("one fresh link", lambda: g.add_link(
+            (a0, partner(a0, C11_WINDOW + 1)), value=C11_INGEST_V0 - 1),
+            "device")
+        dirty_case(f"{C11_DIRTY_LINKS} fresh links", lambda: [
+            g.add_link((a, partner(a, 1)), value=C11_INGEST_V0 - 2)
+            for a in batch[1: C11_DIRTY_LINKS + 1]], "dirty")
+        compact_now(s, mgr, "c11 (b)")
+        dirty_case("a tombstone", lambda: g.remove(
+            int(g.get_incidence_set(a0).array()[0])), "dirty")
+        join_route_check(s, "c11 (b)", rtx)
+    finally:
+        rtx.close()
+
+    # -- (c) hub anchors through the degree split
+    compact_now(s, mgr, "c11 (c)")
+    base = mgr.base
+    off = neighbor_csr(base, s.dev)[0].astype(np.int64)
+    pool = np.asarray(sorted(set(anchors)), dtype=np.int64)
+    width = off[pool + 1] - off[pool]
+    widest = pool[np.argsort(-width, kind="stable")[:16]].tolist()
+    threshold = int(np.sort(width)[-16]) - 1
+    rth = ServeRuntime(g, ServeConfig(buckets=(16,), join_hub_threshold=
+                                      threshold, **cfg_x))
+    try:
+        futs = [rth.submit_join(c11_spec(a)) for a in widest]
+        drain(rth)
+        check_joins(s, "c11 (c) hub anchors", g, widest, futs, C11_TOP_R)
+        s.expect(rth.stats.join_hub_dispatches > 0
+                 and rth.stats.device_dispatches == 1,
+                 f"join c11 (c): hub dispatches "
+                 f"{rth.stats.join_hub_dispatches}, device dispatches "
+                 f"{rth.stats.device_dispatches}")
+        join_route_check(s, "c11 (c)", rth)
+    finally:
+        rth.close()
+    s.log(f"join c11 (c): the 16 widest anchors (co rows "
+          f"{int(np.sort(width)[-16])}..{int(width.max())}) at hub threshold "
+          f"{threshold}: {rth.stats.join_hub_dispatches} lanes through the "
+          f"hub chain, equal to host_join")
+
+    ms256, rtp = alone[256]
+
+    def one_batch():
+        futs = [rtp.submit_join(c11_spec(a)) for a in anchors[:256]]
+        drain(rtp)
+        futs[-1].result(timeout=SV_WAIT_S)
+
+    def close():
+        rtp.close()
+        mgr.close()
+        g.close()
+
+    s.profile_later("serve c11 256-lane join batch", one_batch,
+                    float(np.median(ms256)), reps=3, teardown=close)
+
+
+def join_pushdown(s: Smoke) -> None:
+    """(d): ``find_all`` of co-incidence conjunctions over phase 15's hubs
+    (after a compaction folds its edits) at the default ``QueryConfig``,
+    on the host plan (``prefer_device=False``) and on the device arm
+    (``host_cost_bytes`` pinned open, as the reference's tests reach it),
+    all equal; the arm the default took, the cost model's two estimates
+    and the wall times. Fails unless some query ran on the device arm."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.join import planner
+    from hypergraphdb_tpu_torch.query import conditions as qc
+    from hypergraphdb_tpu_torch.query.compiler import compile_query
+
+    g, mgr, hubs = s.query_graph
+    compact_now(s, mgr, "pushdown")
+    h1, h2, h3 = hubs
+    conds = {
+        "co(h1) & co(h2)": qc.And(qc.CoIncident(h1), qc.CoIncident(h2)),
+        "co(h1) & inc(h2)": qc.And(qc.CoIncident(h1), qc.Incident(h2)),
+        "co(h2) & co(h3)": qc.And(qc.CoIncident(h2), qc.CoIncident(h3)),
+        "co(h1) & co(h2) & co(h3)": qc.And(
+            qc.CoIncident(h1), qc.CoIncident(h2), qc.CoIncident(h3)),
+    }
+    cfg = g.config.query
+
+    def arms():
+        return {k: v for k, v in g.metrics.counters.items()
+                if k.startswith("query.join.")}
+
+    def run(cond):
+        before = arms()
+        s.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = np.asarray(sorted(int(h) for h in g.find_all(cond)))
+        s.torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        arm = [k for k, v in arms().items() if v != before.get(k, 0)]
+        return got, ms, (arm[0].rsplit(".", 1)[1] if arm
+                         else "host under device_min_batch")
+
+    device_runs = 0
+    rec = {}
+    for name, cond in conds.items():
+        plan = compile_query(g, cond).plan
+        s.expect(type(plan).__name__ == "DeviceJoinPlan",
+                 f"pushdown {name}: planned {plan.describe()}")
+        cfg.prefer_device = False
+        try:
+            host, host_ms, _ = run(cond)
+            host_ms = min(host_ms, run(cond)[1])
+        finally:
+            cfg.prefer_device = True
+        base = mgr.base
+        t0 = time.perf_counter()
+        jp = planner.plan_join(base, plan.pattern, plan.sig, plan.consts)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        dev_cost, host_cost = plan.costs(g, base, jp, s.dev)
+        got, ms, arm = run(cond)
+        s.expect(np.array_equal(got, host),
+                 f"pushdown {name}: default arm {arm} gave {len(got)} ids, "
+                 f"the host plan {len(host)}")
+        device_runs += arm == "device"
+        saved = planner.host_cost_bytes
+        planner.host_cost_bytes = lambda *_: float("inf")
+        try:
+            forced = [run(cond) for _ in range(3)]
+        finally:
+            planner.host_cost_bytes = saved
+        for fgot, _, farm in forced:
+            s.expect(farm == "device" and np.array_equal(fgot, host),
+                     f"pushdown {name}: the device arm ({farm}) gave "
+                     f"{len(fgot)} ids, the host plan {len(host)}")
+        dev_ms = [f[1] for f in forced]
+        device_runs += 1
+        rec[name] = dict(ids=len(host), default_arm=arm, default_ms=ms,
+                         host_ms=host_ms, device_ms=dev_ms,
+                         plan_join_ms=plan_ms, device_cost=dev_cost,
+                         host_cost=host_cost)
+        s.log(f"pushdown {name}: {len(host)} ids equal on every arm; the "
+              f"default took {arm} ({ms:.3f} ms); cost model: device "
+              f"{dev_cost:.0f} bytes, host {host_cost:.0f} bytes (probe "
+              f"bytes {planner.PROBE_BYTES}, device_min_batch "
+              f"{cfg.device_min_batch}); host plan {host_ms:.3f} ms, device "
+              f"arm {', '.join(f'{x:.3f}' for x in dev_ms)} ms (the first "
+              f"pays the co-incidence build if none was on the card); "
+              f"plan_join alone {plan_ms:.3f} ms")
+    n_default = sum(r_["default_arm"] == "device" for r_ in rec.values())
+    note = ""
+    if not n_default:
+        # none qualified at the default: the first query once more with
+        # device_min_batch lowered to 0, so the cost compare alone decides
+        name, cond = next(iter(conds.items()))
+        dmb = cfg.device_min_batch
+        cfg.device_min_batch = 0
+        try:
+            got, ms, arm = run(cond)
+        finally:
+            cfg.device_min_batch = dmb
+        s.expect(np.array_equal(got, np.asarray(sorted(
+            int(h) for h in g.find_all(cond)))),
+            f"pushdown {name}: device_min_batch 0 changed the answer")
+        note = (f"; with device_min_batch 0 {name} took {arm} ({ms:.3f} "
+                f"ms); the device arm was reached with the host cost "
+                f"pinned open")
+    s.log(f"pushdown: {n_default} of {len(rec)} queries took the device arm "
+          f"at the default QueryConfig{note}; record " + json.dumps(rec))
+    s.expect(device_runs > 0, "pushdown: no query ran on the device arm")
+
+
+def phase_join_serve(s: Smoke) -> None:
+    """Phase 17: the join lane, driven by bench c11 (see
+    :func:`serve_c11`), and the front door's join pushdown
+    (:func:`join_pushdown`)."""
+    t0 = time.perf_counter()
+    serve_c11(s)
+    join_pushdown(s)
+    s.log(f"join: phase 17 in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
@@ -4786,6 +5271,7 @@ def main(argv: list[str]) -> int:
         phase_ingest(s)
         phase_query(s, records)
         phase_serve(s)
+        phase_join_serve(s)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -1,60 +1,77 @@
 """Conjunctive pattern joins: the IR (:mod:`~hypergraphdb_tpu_torch.join.ir`),
-the planner (:mod:`~hypergraphdb_tpu_torch.join.planner`) and, in
-``ops/join.py``, the batched executor on the card.
+the planner and the compiler's device plan
+(:mod:`~hypergraphdb_tpu_torch.join.planner`), the exact host enumerator
+(:mod:`~hypergraphdb_tpu_torch.join.host`) and, in ``ops/join.py``, the
+batched executor on the card.
 
-The port of ``hypergraphdb_tpu/join``. Not here yet: ``extract_pattern``
-and ``pattern_to_conditions`` (they read the query layer), the exact host
-enumerator ``host_join`` (it reads the graph), and the planner's cost model
-with ``DeviceJoinPlan`` and ``try_single_var_join``, the value hook that
-turns a query's value conditions into windows (both read a graph). The
-executor takes the windows themselves: ``execute_join(value_windows=)``
-filters a variable's candidates by value rank inside the step that binds
-it. Patterns are built directly, or carried over from the reference with
-:func:`~hypergraphdb_tpu_torch.join.ir.pattern_from_reference`::
+The port of ``hypergraphdb_tpu/join``. The host enumerator is both the
+differential oracle and the serve lane's exact fallback::
 
-    from hypergraphdb_tpu_torch.join import (
-        ConjunctivePattern, JoinAtom, plan_join, split_constants)
+    from hypergraphdb_tpu_torch import join
+    from hypergraphdb_tpu_torch.query import conditions as c
+    spec = {"y": c.And(c.CoIncident(a), c.CoIncident(join.var("z"))),
+            "z": c.CoIncident(a)}                 # triangle through a
+    p = join.extract_pattern(g, spec)
+    join.host_join(g, p)                          # exact, sorted tuples
+    sig, consts = join.split_constants(p)
+    plan = join.plan_join(g.snapshot(), p, sig, consts)
+
     from hypergraphdb_tpu_torch.ops.join import execute_join
-    p = ConjunctivePattern(vars=("y", "z"), atoms=(
-        JoinAtom("co", "y", a), JoinAtom("co", "y", "z"),
-        JoinAtom("co", "z", a)))                   # triangle through a
-    sig, consts = split_constants(p)
-    plan = plan_join(snap, p, sig, consts)
-    ex = execute_join(snap, plan, np.asarray([consts], np.int32),
-                      device="cpu")
-    execute_join(snap, plan, np.asarray([consts], np.int32),
-                 value_windows={plan.order[-1]: (0, 10, "gte", 99, "lt")},
-                 device="cpu")                  # ranks in [10, 99), kind 0
+    ex = execute_join(g.snapshot(), plan, np.asarray([consts], np.int32),
+                      device="cpu")               # the card by default
+
+Serving rides ``ServeRuntime.submit_join`` / ``query.bridge.
+to_join_request``; ``graph.find_all(And(CoIncident, ...))`` plans as a
+:class:`~hypergraphdb_tpu_torch.join.planner.DeviceJoinPlan`. Patterns of
+the reference's IR carry over with
+:func:`~hypergraphdb_tpu_torch.join.ir.pattern_from_reference`.
 """
 
+from hypergraphdb_tpu_torch.join.host import (
+    host_join,
+    host_join_count,
+    host_join_touching,
+)
 from hypergraphdb_tpu_torch.join.ir import (
     ConjunctivePattern,
     JoinAtom,
     JoinUnsupported,
     PatternSignature,
+    extract_pattern,
     pattern_from_reference,
+    pattern_to_conditions,
     split_constants,
 )
 from hypergraphdb_tpu_torch.join.planner import (
     BagJoin,
     BushyJoinPlan,
+    DeviceJoinPlan,
     JoinPlan,
     JoinStep,
     hub_lane_mask,
     plan_join,
 )
+from hypergraphdb_tpu_torch.query.variables import Var, var
 
 __all__ = [
     "BagJoin",
     "BushyJoinPlan",
     "ConjunctivePattern",
+    "DeviceJoinPlan",
     "JoinAtom",
     "JoinPlan",
     "JoinStep",
     "JoinUnsupported",
     "PatternSignature",
+    "Var",
+    "extract_pattern",
+    "host_join",
+    "host_join_count",
+    "host_join_touching",
     "hub_lane_mask",
     "pattern_from_reference",
+    "pattern_to_conditions",
     "plan_join",
     "split_constants",
+    "var",
 ]

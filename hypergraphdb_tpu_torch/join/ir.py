@@ -17,22 +17,27 @@ relation   meaning                                device rows
 plus unary type constraints and an all-distinct flag (vars bind pairwise
 distinct atoms, and never a pattern constant).
 
+Extraction (:func:`extract_pattern`) starts from ordinary query
+conditions — one condition per variable, cross-references spelled with
+``query.variables.Var`` — and reuses the compiler's own normalization
+(``expand`` → ``to_dnf`` → ``simplify``) before mapping ``And`` clauses
+onto atoms, so every piece of sugar the single-variable pipeline accepts
+(``Link``, ``TypedIncident``, ``TypePlus``…) works in a pattern spec too;
+:func:`pattern_to_conditions` is its inverse.
+
 :func:`split_constants` factors a pattern into a hashable
 :class:`PatternSignature` (the structure) plus the constant vector (what
-varies per request), the serve tier's batch-key/payload split.
-
-Not here yet, because they read the query layer: ``extract_pattern`` (a
-pattern from per-variable query conditions), ``pattern_to_conditions`` and
-``PatternSignature.to_conditions``. Until then a pattern is built from
-:class:`JoinAtom` s, or carried over from the reference's IR with
-:func:`pattern_from_reference`.
+varies per request), the serve tier's batch-key/payload split. Patterns
+of the reference's IR carry over with :func:`pattern_from_reference`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
+from hypergraphdb_tpu_torch.query import conditions as c
+from hypergraphdb_tpu_torch.query.variables import Var
 from hypergraphdb_tpu_torch.serve.types import Unservable
 
 #: binary relations a pattern atom may use
@@ -40,9 +45,10 @@ RELATIONS = ("co", "inc", "tgt")
 
 
 class JoinUnsupported(Unservable):
-    """The pattern is outside what the join engine serves (an unknown
-    relation, an unanchored variable, a co-incidence relation over its
-    pair budget) — run it through the host path instead."""
+    """The pattern is outside what the join engine serves (a condition
+    outside the pattern vocabulary, an unknown relation, an unanchored
+    variable, a co-incidence relation over its pair budget) — run it
+    through ``graph.find_all`` per variable instead."""
 
 
 @dataclass(frozen=True)
@@ -155,6 +161,11 @@ class PatternSignature:
             distinct=self.distinct,
         )
 
+    def to_conditions(self, consts) -> dict:
+        """The pattern as a per-variable condition spec (``Var`` cross
+        references) — what ``graph.find_all``-based evaluation consumes."""
+        return pattern_to_conditions(self.bind(consts))
+
 
 def split_constants(p: ConjunctivePattern
                     ) -> tuple[PatternSignature, tuple[int, ...]]:
@@ -173,3 +184,118 @@ def split_constants(p: ConjunctivePattern
         vars=p.vars, atoms=tuple(atoms), types=p.types,
         distinct=p.distinct, n_consts=len(consts),
     ), tuple(consts)
+
+
+# ---------------------------------------------------------------- extraction
+
+
+def _clauses_of(cond: c.HGQueryCondition) -> tuple:
+    if isinstance(cond, c.And):
+        return cond.clauses
+    return (cond,)
+
+
+def _key_of(ref, var: str):
+    """Var → its name; anything int-coercible → constant handle."""
+    if isinstance(ref, Var):
+        return ref.name
+    try:
+        return int(ref)
+    except (TypeError, ValueError):
+        raise JoinUnsupported(
+            f"pattern reference on {var!r} must be a handle or Var, "
+            f"got {type(ref).__name__}"
+        ) from None
+
+
+def extract_pattern(graph, spec: Mapping[str, c.HGQueryCondition],
+                    distinct: bool = True) -> ConjunctivePattern:
+    """Extract the conjunctive-pattern IR from a per-variable condition
+    spec. Each variable's condition runs through the compiler's own
+    ``expand → to_dnf → simplify`` normalization; the surviving ``And``
+    clauses must all be pattern vocabulary (CoIncident / Incident /
+    Target / AtomType, constants or ``Var`` references) — anything else
+    raises :class:`JoinUnsupported` naming the offending clause, the
+    same contract as ``query/bridge.to_request``."""
+    from hypergraphdb_tpu_torch.query.compiler import expand, simplify, to_dnf
+
+    vars_ = tuple(spec.keys())
+    atoms: list[JoinAtom] = []
+    types: list[tuple[str, int]] = []
+    for v, cond in spec.items():
+        norm = simplify(graph, to_dnf(expand(graph, cond)))
+        if isinstance(norm, c.Or):
+            raise JoinUnsupported(
+                f"variable {v!r} normalizes to a disjunction; pattern "
+                "variables must be conjunctive"
+            )
+        if isinstance(norm, c.Nothing):
+            raise JoinUnsupported(
+                f"variable {v!r} normalizes to a contradiction; the "
+                "host path answers it (exactly empty) for free"
+            )
+        for cl in _clauses_of(norm):
+            if isinstance(cl, c.AnyAtom):
+                continue
+            if isinstance(cl, c.CoIncident):
+                atoms.append(JoinAtom("co", v, _key_of(cl.other, v)))
+            elif isinstance(cl, c.Incident):
+                atoms.append(JoinAtom("inc", v, _key_of(cl.target, v)))
+            elif isinstance(cl, c.Target):
+                atoms.append(JoinAtom("tgt", v, _key_of(cl.link, v)))
+            elif isinstance(cl, c.AtomType):
+                types.append((v, int(cl.type_handle(graph))))
+            else:
+                raise JoinUnsupported(
+                    f"{type(cl).__name__} on variable {v!r} is outside "
+                    "the pattern vocabulary (CoIncident/Incident/Target/"
+                    "AtomType)"
+                )
+    # dedupe mirrored var-var atoms: co(x, y) and co(y, x) are the same
+    # constraint (the relation is symmetric); inc(x, y) and tgt(y, x) are
+    # each other's duals
+    seen: set = set()
+    uniq: list[JoinAtom] = []
+    for a in atoms:
+        if a.key_is_var:
+            if a.rel == "co":
+                k = ("co",) + tuple(sorted((a.var, a.key)))
+            elif a.rel == "inc":
+                k = ("inc", a.var, a.key)
+            else:  # tgt(x, y) ≡ inc(y, x)
+                k = ("inc", a.key, a.var)
+        else:
+            k = (a.rel, a.var, a.key)
+        if k in seen:
+            continue
+        seen.add(k)
+        uniq.append(a)
+    return ConjunctivePattern(
+        vars=vars_, atoms=tuple(uniq), types=tuple(dict(types).items()),
+        distinct=distinct,
+    )
+
+
+def pattern_to_conditions(p: ConjunctivePattern) -> dict:
+    """The inverse of :func:`extract_pattern`: one condition per
+    variable, ``Var`` cross references — what the find_all-based ground
+    truth (``join/host.py``) and the serve host fallback evaluate."""
+    out: dict[str, list] = {v: [] for v in p.vars}
+
+    def ref(k):
+        return Var(k) if isinstance(k, str) else int(k)
+
+    for a in p.atoms:
+        if a.rel == "co":
+            out[a.var].append(c.CoIncident(ref(a.key)))
+        elif a.rel == "inc":
+            out[a.var].append(c.Incident(ref(a.key)))
+        else:
+            out[a.var].append(c.Target(ref(a.key)))
+    for v, th in p.types:
+        out[v].append(c.AtomType(int(th)))
+    return {
+        v: (cls[0] if len(cls) == 1 else c.And(*cls)) if cls
+        else c.AnyAtom()
+        for v, cls in out.items()
+    }

@@ -31,9 +31,11 @@ each step's expansion source and membership filters. Shapes (expansion
 pads, row buckets) are the executor's call at launch time
 (``ops/join.execute_join``).
 
-Not here yet, because they take a graph or read verification budgets: the
-cost model against the single-variable plans, ``DeviceJoinPlan``,
-``_memtable_candidates`` and ``try_single_var_join``.
+The graph half: the cost model that weighs a device join against the
+classic host plan in bytes (:func:`device_cost_bytes`,
+:func:`host_cost_bytes`), and :class:`DeviceJoinPlan`, the query
+compiler's plan for ``And(CoIncident+, Incident*, [AtomType],
+[AtomValue{1,2}])`` built by :func:`try_single_var_join`.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from hypergraphdb_tpu_torch.join.ir import (
     JoinAtom,
     JoinUnsupported,
     PatternSignature,
+    extract_pattern,
+    pattern_to_conditions,
     split_constants,
 )
 
@@ -496,3 +500,302 @@ def hub_lane_mask(snap, steps, consts: np.ndarray, threshold: int,
                        0, snap.num_atoms)
         mask |= (off[keys + 1].astype(np.int64) - off[keys]) > threshold
     return mask
+
+
+# ---------------------------------------------------------------- cost model
+
+
+#: bytes one candidate costs through one expand+filter round. The
+#: reference reads it from its committed static budgets
+#: (``tools/hgverify/costs.json``): the ``ops.join.join_expand_step``
+#: entry's 15,392 bytes accessed over its exemplar's 64 candidate slots
+#: (8 rows x 8 pad, ``EXEMPLAR_SLOTS``) = 240.5. Those are byte counts of
+#: the reference's compiled program, kept here as a constant so the
+#: port's route choices equal the reference's; not a measurement of the
+#: card.
+PROBE_BYTES = 15_392 / 64
+
+
+def device_cost_bytes(plan) -> float:
+    """Expected device bytes for ONE request through ``plan`` — binding
+    rows × expansion width × per-probe bytes × (1 + filters), summed
+    over steps. Bushy plans charge each chain independently plus the
+    product fold (one probe per joined row) — the bushy-vs-left-deep
+    saving the shape choice banks on."""
+    per_probe = PROBE_BYTES
+
+    def chain(steps):
+        rows = 1.0
+        total = 0.0
+        for s in steps:
+            total += rows * s.width_est * per_probe * (1 + len(s.filters))
+            rows *= s.width_est
+        return total, rows
+
+    bags = getattr(plan, "bags", None)
+    if bags is None:
+        return chain(plan.steps)[0]
+    total, rows = chain(plan.spine)
+    for b in bags:
+        bag_total, bag_rows = chain(b.steps)
+        total += bag_total + rows * bag_rows * per_probe
+        rows *= bag_rows
+    return total
+
+
+#: host bytes one intersection element costs (sorted-merge over int64
+#: arrays: read both sides + write; the IntersectPlan unit)
+_HOST_BYTES_PER_ELEM = 24.0
+
+#: host bytes one co-incidence PAIR costs to materialize (repeat + sort +
+#: dedupe temps in ``ops/join.neighbor_csr``) — charged to the device arm
+#: when the snapshot has no co-incidence CSR on the query device yet, so a
+#: one-shot query never pays a multi-GB build the host answer would have
+#: skipped
+_NBR_BUILD_BYTES_PER_PAIR = 32.0
+
+
+def host_cost_bytes(graph, fallback_plan) -> float:
+    """The classic host translation's byte estimate, from the same
+    ``estimate()`` chain ``IntersectPlan.run`` orders children with."""
+    est = float(fallback_plan.estimate(graph))
+    if est == float("inf"):
+        return est
+    return max(est, 1.0) * _HOST_BYTES_PER_ELEM
+
+
+# ------------------------------------------------------------- compiler hook
+
+
+class DeviceJoinPlan:
+    """``query/compiler`` plan for a single-variable conjunctive pattern
+    (``And(CoIncident+, Incident*, [AtomType], [AtomValue{1,2}])``)
+    answered by the multiway-intersection executor on
+    ``QueryConfig.device``. Cost-based at run time, the
+    ``DeviceValueConjPlan`` discipline: small inputs and device-hostile
+    states (stale anchors, pending deletes) take the classic host
+    ``fallback``; fresh link ingest is corrected host-side over the
+    memtable, exact at any lag. ``value_conds`` push down as rank-window
+    filters on the executor's intersection candidates
+    (``ops/join.execute_join`` ``value_windows``); shapes the rank
+    compare cannot serve exactly decline to the host plan.
+
+    Only :class:`JoinUnsupported` (a pattern or relation the executor does
+    not serve) sends a run to the host plan after the cost decision; any
+    other failure of the device arm raises."""
+
+    def __init__(self, pattern: ConjunctivePattern, fallback,
+                 value_conds=()):
+        self.pattern = pattern
+        self.fallback = fallback
+        self.value_conds = tuple(value_conds)
+        sig, consts = split_constants(pattern)
+        self.sig = sig
+        self.consts = consts
+
+    def _value_window(self, graph):
+        """The executor window for ``value_conds`` —
+        ``(kind, lo_rank, lo_op, hi_rank, hi_op)`` — or None for no
+        conditions; raises ``JoinUnsupported`` for shapes the rank
+        compare cannot serve exactly. The kind/rank/exactness rules are
+        NOT re-implemented here: the conds fold into bounds and
+        ``query/bridge.to_range_request`` (the one owner of those rules)
+        derives the window; the executor's compare is exact only for the
+        fixed-width kinds."""
+        if not self.value_conds:
+            return None
+        from hypergraphdb_tpu_torch.query.bridge import to_range_request
+        from hypergraphdb_tpu_torch.serve.types import Unservable
+        from hypergraphdb_tpu_torch.storage.value_index import (
+            FIXED_WIDTH_KINDS,
+        )
+
+        lo = hi = None
+        lo_op, hi_op = "gte", "lte"
+        for vc in self.value_conds:
+            if vc.op == "eq":
+                if lo is not None or hi is not None:
+                    raise JoinUnsupported("eq beside another bound")
+                lo = hi = vc.value
+            elif vc.op in ("gt", "gte"):
+                if lo is not None:
+                    raise JoinUnsupported("two lower bounds")
+                lo, lo_op = vc.value, vc.op
+            elif vc.op in ("lt", "lte"):
+                if hi is not None:
+                    raise JoinUnsupported("two upper bounds")
+                hi, hi_op = vc.value, vc.op
+            else:
+                raise JoinUnsupported(f"value op {vc.op!r}")
+        try:
+            req = to_range_request(graph, lo, hi, lo_op=lo_op, hi_op=hi_op)
+        except Unservable as e:
+            raise JoinUnsupported(str(e)) from e
+        if req.dim not in FIXED_WIDTH_KINDS:
+            # the executor compares one 64-bit rank a value: values of a
+            # variable-width kind that share their first 8 bytes tie there
+            # (the reference checks only ``req.exact`` and answers such
+            # windows wrongly)
+            raise JoinUnsupported(
+                "variable-width value kind: rank windows tie"
+            )
+        return (
+            req.dim,
+            req.lo_rank,
+            req.lo_op if lo is not None else None,
+            req.hi_rank,
+            req.hi_op if hi is not None else None,
+        )
+
+    def costs(self, graph, snap, plan, dev) -> tuple[float, float]:
+        """(device bytes, host bytes) of one run of ``plan`` over ``snap``
+        against the fallback: the device arm also pays the co-incidence
+        build when ``snap`` has none on ``dev`` yet."""
+        from hypergraphdb_tpu_torch.ops.join import (
+            nbr_pair_count,
+            neighbor_csr_on,
+        )
+
+        dev_cost = device_cost_bytes(plan)
+        if not neighbor_csr_on(snap, dev) and any(
+            a.rel == "co" for a in self.pattern.atoms
+        ):
+            # first co-query on this snapshot pays the relation build —
+            # a real cost the probe-byte model cannot see
+            dev_cost += nbr_pair_count(snap) * _NBR_BUILD_BYTES_PER_PAIR
+        return dev_cost, host_cost_bytes(graph, self.fallback)
+
+    def run(self, graph):
+        import numpy as np
+
+        from hypergraphdb_tpu_torch.obs import global_tracer
+        from hypergraphdb_tpu_torch.ops.join import execute_join
+        from hypergraphdb_tpu_torch.query.compiler import query_device
+
+        cfg = graph.config.query
+        # planner duality in the cost model's own unit: if the host can
+        # answer for less than one ad-hoc dispatch amortizes
+        # (device_min_batch rows' worth of host bytes), stay host. Gating
+        # on the raw ROW estimate here would demand anchors so wide the
+        # executor's default pads could never hold them.
+        host_cost = host_cost_bytes(graph, self.fallback)
+        if host_cost < cfg.device_min_batch * _HOST_BYTES_PER_ELEM:
+            return self.fallback.run(graph)
+        mgr = graph.incremental
+        if mgr is not None:
+            snap, dead, new_atoms, revalued = mgr.read_view()
+        else:
+            snap = graph.snapshot()
+            dead = revalued = frozenset()
+            new_atoms = ()
+        if any(a >= snap.num_atoms or a < 0 for a in self.consts):
+            return self.fallback.run(graph)  # anchors beyond the base
+        if dead or revalued:
+            # a vanished link may have been a result's only witness; the
+            # device result is not correctable without per-result
+            # re-verification — the host plan is exact and fresh
+            graph.metrics.incr("query.join.host")
+            return self.fallback.run(graph)
+        dev = query_device(graph)
+        tracer = global_tracer()
+        try:
+            vwin = self._value_window(graph)
+            with tracer.span("join.plan"):
+                plan = plan_join(snap, self.pattern, self.sig, self.consts)
+            dev_cost, _ = self.costs(graph, snap, plan, dev)
+            if dev_cost > host_cost:
+                graph.metrics.incr("query.join.host")
+                return self.fallback.run(graph)
+            with tracer.span("join.execute", plan=plan.describe()):
+                out = execute_join(
+                    snap, plan,
+                    np.asarray([self.consts], dtype=np.int32),
+                    top_r=0, count_only=False, full=True,
+                    # one-shot find_all wants the full set, not an
+                    # honest prefix: exact pads and roomy caps (one
+                    # lane — the slot budget still bounds peak memory)
+                    var_pad_max=True, pad_cap=1 << 18, row_cap=1 << 20,
+                    value_windows=(None if vwin is None
+                                   else {plan.order[0]: vwin}),
+                    device=dev,
+                )
+                if bool(out.trunc[0].cpu()):
+                    # a capped device run is a PREFIX; one-shot find_all
+                    # promises the full set — the host plan delivers it
+                    graph.metrics.incr("query.join.host")
+                    return self.fallback.run(graph)
+                rows = out.full_bindings(0)
+        except JoinUnsupported:
+            graph.metrics.incr("query.join.host")
+            return self.fallback.run(graph)
+        graph.metrics.incr("query.join.device")
+        arr = np.unique(rows[:, 0]).astype(np.int64) if len(rows) \
+            else np.empty(0, dtype=np.int64)
+        fresh = _memtable_candidates(graph, new_atoms, revalued, dead)
+        if fresh:
+            cond = _single_var_condition(self.pattern)
+            extra = [
+                h for h in fresh
+                if cond.satisfies(graph, h)
+                and all(vc.satisfies(graph, h) for vc in self.value_conds)
+            ]
+            if extra:
+                arr = np.union1d(arr, np.asarray(extra, dtype=np.int64))
+        return arr
+
+    def estimate(self, graph):
+        ests = []
+        for a in self.pattern.atoms:
+            if a.key_is_var:
+                continue
+            n = float(graph.store.incidence_count(int(a.key)))
+            ests.append(2.0 * n if a.rel == "co" else n)
+        return min(ests) if ests else float("inf")
+
+    def describe(self):
+        return f"device-join({self.sig.atoms})"
+
+
+def _memtable_candidates(graph, new_atoms, revalued, dead) -> list:
+    """Atoms a memtable LINK could have pulled into a co-incidence
+    result: the new links themselves plus every target of one. New
+    nodes alone cannot create adjacency (nothing points at them from
+    the base)."""
+    out: set[int] = set()
+    for h in set(new_atoms) - set(dead):
+        try:
+            ts = graph.get_targets(h)
+        except Exception:  # noqa: BLE001 - removed since the view: no link
+            continue
+        if ts:
+            out.add(int(h))
+            out.update(int(t) for t in ts)
+    return sorted(out)
+
+
+def _single_var_condition(pattern: ConjunctivePattern):
+    (cond,) = pattern_to_conditions(pattern).values()
+    return cond
+
+
+def try_single_var_join(graph, clauses, fallback, value_conds=()):
+    """Build the single-variable pattern for ``translate()``'s
+    ``And(CoIncident+, ...)`` hook — None when extraction declines.
+    ``value_conds`` (AtomValue clauses the caller split off) ride the
+    plan as executor rank-window filters; shapes the window cannot
+    serve exactly decline to the fallback at run time."""
+    from hypergraphdb_tpu_torch.query import conditions as c
+
+    try:
+        # distinct=False: with one variable there are no var-var pairs,
+        # and var-vs-const exclusion is already inherent where it is
+        # semantically true (CoIncident is irreflexive by construction;
+        # Incident(a) legitimately admits a self-targeting a)
+        pattern = extract_pattern(
+            graph, {"x": c.And(*clauses)}, distinct=False
+        )
+    except JoinUnsupported:
+        return None
+    if not any(not a.key_is_var for a in pattern.atoms):
+        return None  # no constant anchor: nothing to seed from
+    return DeviceJoinPlan(pattern, fallback, value_conds=value_conds)

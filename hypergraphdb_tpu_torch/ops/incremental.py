@@ -419,6 +419,16 @@ class PinnedView(NamedTuple):
     revalued: set       # atoms whose value was replaced since the pack
     host_delta: Optional[dict] = None
 
+    def factorized_join_rels(self):
+        """The join engine's prefix-grouped (trie) relation encodings for
+        this view's base epoch — ``ops/join.factorized_relations``'s
+        build, cached on the base snapshot like the device twin and the
+        co-incidence CSR, so every view pinned within one epoch shares one
+        build and a compaction swap invalidates them together. None until
+        someone (the serve tier's plan step, or prewarm) builds them;
+        readers treat None as "serve flat"."""
+        return getattr(self.base, "_fact_rels", None)
+
 
 class SnapshotManager:
     """The (base, delta) pair of one graph: an immutable packed base on

@@ -214,6 +214,12 @@ def neighbor_csr_device(snap: CSRSnapshot, device=DEFAULT_DEVICE):
     return out
 
 
+def neighbor_csr_on(snap: CSRSnapshot, device=DEFAULT_DEVICE) -> bool:
+    """Whether ``snap``'s co-incidence CSR is already on ``device`` (built
+    there or uploaded), so a join reading it pays no build."""
+    return str(resolve_device(device)) in getattr(snap, "_nbr_csr_dev", {})
+
+
 def neighbor_csr(snap: CSRSnapshot, device=DEFAULT_DEVICE
                  ) -> tuple[np.ndarray, np.ndarray]:
     """Host copy ``(offsets, flat)`` (int32 numpy) of the co-incidence CSR

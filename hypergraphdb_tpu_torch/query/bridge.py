@@ -1,8 +1,6 @@
 """Condition → batched serving request: the supported subset.
 
-The port's copy of ``hypergraphdb_tpu/query/bridge.py``. Its join half
-(:func:`to_join_request`) raises :class:`Unservable` until the port has
-the join lane (ROADMAP queue 1, item 4).
+The port's copy of ``hypergraphdb_tpu/query/bridge.py``.
 
 The serving runtime batches four device shapes — K-seed BFS, K
 conjunctive incident patterns, K same-signature conjunctive-pattern
@@ -270,13 +268,21 @@ def to_request(graph, condition, *, default_max_hops: int = 2):
 
 def to_join_request(graph, spec: Mapping[str, c.HGQueryCondition],
                     distinct: bool = True) -> JoinRequest:
-    """Translate a multi-variable condition SPEC (``{var: condition}``)
-    into a batchable :class:`JoinRequest` — the reference's
-    ``join/ir.extract_pattern`` front half, which the port gains with the
-    join lane (ROADMAP queue 1, item 4). Until then every spec, and every
-    condition that needs one (``CoIncident``, ``And(CoIncident, ...)``),
-    raises :class:`Unservable`: run it through ``graph.find_all``."""
-    raise Unservable(
-        "join requests wait for the join lane (ROADMAP queue 1, item 4: "
-        "join/ir.extract_pattern); run the condition through "
-        "graph.find_all")
+    """Translate a multi-variable condition SPEC (``{var: condition}``,
+    cross-references spelled with ``query.variables.Var``) into a
+    batchable :class:`JoinRequest`, or raise :class:`Unservable`
+    (``join/ir.JoinUnsupported`` is a subclass) naming the clause
+    outside the pattern vocabulary. The signature/constant split means
+    two requests for the same SHAPE — a triangle at atom 17, a triangle
+    at atom 99 — share one batch key and ride one batched program."""
+    from hypergraphdb_tpu_torch.join.ir import extract_pattern, split_constants
+
+    pattern = extract_pattern(graph, spec, distinct=distinct)
+    if not any(not a.key_is_var for a in pattern.atoms):
+        raise Unservable(
+            "a servable join needs at least one constant anchor; "
+            "unanchored (whole-graph) patterns run through "
+            "ops.join.execute_join's seeds mode instead"
+        )
+    sig, consts = split_constants(pattern)
+    return JoinRequest(sig, consts)

@@ -24,9 +24,9 @@ from the device to the host: a device that is missing or a launch that
 fails raises. Under incremental mode the plans read the manager's base on
 the manager's device, which must be the configured one.
 
-The join pushdown (``And(CoIncident, ...)`` to the join planner's device
-plan) is not ported yet: such a conjunction translates through
-:func:`_translate_and`, with the same results.
+The join pushdown hands ``And(CoIncident, ...)`` to the join planner's
+cost-based device plan (``join/planner.DeviceJoinPlan``), which carries
+:func:`_translate_and`'s plan as its host arm.
 """
 
 from __future__ import annotations
@@ -1256,12 +1256,47 @@ def _try_value_pushdown(graph, clauses: Sequence[c.HGQueryCondition]
 
 def _try_join_pushdown(graph, clauses: Sequence[c.HGQueryCondition]
                        ) -> Optional[Plan]:
-    """The hook that hands ``And(CoIncident+, [Incident*], [AtomType],
-    [AtomValue{1,2}])`` to the join planner's device plan. The join
-    planner's graph half (``try_single_var_join``) is not ported yet, so
-    no conjunction is pushed: ``translate`` plans it through
-    :func:`_translate_and`, whose results are the same."""
-    return None
+    """Recognize ``And(CoIncident+, [Incident*], [AtomType],
+    [AtomValue{1,2}])`` — a single-variable conjunctive PATTERN (common
+    neighbours, anchored adjacency), optionally VALUE-constrained — and
+    hand it to the join planner's cost-based device plan
+    (``join/planner.DeviceJoinPlan``). Value predicates ride the
+    executor as rank-window filters on the intersection candidates
+    (``ops/join.execute_join``'s ``value_windows``), pruning binding rows
+    instead of post-filtering. The join plan carries the classic host
+    translation as its fallback and compares costs at run time, so
+    ``translate()`` stays the one arbiter between the
+    ``IntersectPlan``/``PipePlan`` host family and the multiway-
+    intersection executor. Any clause outside the vocabulary → None
+    (generic planning)."""
+    if not graph.config.query.prefer_device:
+        return None
+    if not any(isinstance(cl, c.CoIncident) for cl in clauses):
+        return None
+    structural: list[c.HGQueryCondition] = []
+    value_conds: list[c.AtomValue] = []
+    for cl in clauses:
+        if isinstance(cl, c.AtomValue):
+            value_conds.append(cl)
+            continue
+        if not isinstance(cl, (c.CoIncident, c.Incident, c.AtomType)):
+            return None
+        if isinstance(cl, (c.CoIncident, c.Incident)):
+            ref = cl.other if isinstance(cl, c.CoIncident) else cl.target
+            try:
+                int(ref)
+            except (TypeError, ValueError):
+                return None  # unbound Var: multi-variable specs go
+                             # through join.extract_pattern, not here
+        structural.append(cl)
+    if len(value_conds) > 2:
+        return None
+    from hypergraphdb_tpu_torch.join.planner import try_single_var_join
+
+    return try_single_var_join(
+        graph, structural, fallback=_translate_and(graph, clauses),
+        value_conds=value_conds,
+    )
 
 
 def translate(graph, cond: c.HGQueryCondition, parallel_or: bool = False) -> Plan:

@@ -1,7 +1,7 @@
 """The serving runtime: dispatch loop, device executor, lifecycle.
 
-The port of ``hypergraphdb_tpu/serve/runtime.py`` with its BFS, pattern
-and range lanes. Request path::
+The port of ``hypergraphdb_tpu/serve/runtime.py`` with its BFS, pattern,
+range and join lanes. Request path::
 
     submit_*() → AdmissionQueue (bounded, deadline-shedding)
         → Batcher (coalesce + pad-to-bucket, flush on full/linger)
@@ -41,10 +41,16 @@ snapshot manager's device). Nothing moves work to the CPU on its own, and
 no device failure is swallowed on the way to the retry/breaker ladder: a
 failing prewarm raises from the constructor.
 
+Join batches (one pattern signature a batch) run ``ops/join.execute_join``
+over the base; the memtable is corrected at collect: a small pure-add
+dirty set (new links and their targets, at most ``join_dirty_max`` atoms)
+merges the host-enumerated tuples touching it
+(``join/host.host_join_touching``), while tombstones, revalues or a larger
+set send the whole batch to the exact host enumerator
+(``join/host.host_join``), as do anchors outside the base.
+
 Out of this slice, each raising :class:`~.types.Unservable` that names its
-ROADMAP queue 1 item: the join lane (``submit_join``, join requests,
-``prewarm_join_nbr``; item 4), AOT executables (``aot_cache_dir``; item
-6), the planner and subscriptions (``attach_planner``, ``submit_planned``,
+ROADMAP queue 1 item: AOT executables (``aot_cache_dir``; item 6), the planner and subscriptions (``attach_planner``, ``submit_planned``,
 ``attach_subscriptions``; item 7), sharding (``sharded=True``,
 ``hbm_budget_bytes``; item 8) and EXPLAIN records (``explain=True``; item
 10).
@@ -83,6 +89,8 @@ from hypergraphdb_tpu_torch.serve.stats import ServeStats
 from hypergraphdb_tpu_torch.serve.types import (
     BFSRequest,
     Clock,
+    JoinRequest,
+    JoinResult,
     PatternRequest,
     RangeRequest,
     ServeResult,
@@ -100,6 +108,15 @@ _NULL_CM = nullcontext()
 
 #: lanes of one bitmap word: the fused route's seed-block granularity
 _WORD = 32
+
+#: where a join lane's answer came from (``DeviceExecutor.join_routes``):
+#: the device (with or without a partial correction), or the exact host
+#: enumerator because the memtable was dirty past the partial path, the
+#: planner declined the signature, an anchor lies outside the base, the
+#: device window was truncated, a dirty batch's window was a prefix, or
+#: the correction's reduced pattern was not servable
+JOIN_ROUTES = ("device", "dirty", "declined", "beyond_base", "truncated",
+               "prefix", "correction")
 
 
 def _later(item: int, what: str) -> Unservable:
@@ -149,10 +166,38 @@ class ServeConfig:
     aot_cache_dir: Optional[str] = None     # AOT executables: item 6
     prewarm_aot: bool = True                # prewarm every bucket at start
     prewarm_hops: Optional[tuple] = None    # hops to warm; None → (default,)
-    prewarm_join_nbr: bool = False          # the join lane: item 4
+    #: build the co-incidence CSR (and, with ``join_factorized``, the
+    #: factorized relations) on the device at startup, for deployments
+    #: that serve joins: done lazily the build would land on the dispatch
+    #: thread inside the first join batch's deadline window after every
+    #: compaction. Opt-in: BFS/pattern-only tiers should not pay it.
+    prewarm_join_nbr: bool = False
     #: value DIMENSIONS (kind bytes, e.g. ``(ord("i"),)``) whose sorted
     #: index columns build and upload at startup
     prewarm_range_dims: tuple = ()
+    # -- the join lane (degree split / factorized / partial correction) -----
+    #: build the prefix-grouped (trie) encoding of the co/tgt relations
+    #: once per (signature-cache miss, base epoch) at plan time — lanes
+    #: probing equal rows then touch one copy. Joins-light tiers can switch
+    #: it off and keep the flat CSRs.
+    join_factorized: bool = True
+    #: degree-split plans: lanes whose const-keyed rows exceed the hub
+    #: threshold run the chunked dense-frontier chain instead of
+    #: truncating onto the host path (``ops/join.join_hub_expand``)
+    join_hub_split: bool = True
+    #: hub threshold override (row width); None = the executor's pad cap
+    join_hub_threshold: Optional[int] = None
+    #: executor shape caps for the join lane (``ops/join`` defaults: 2^15
+    #: pooled binding rows, 2^10 expansion pad)
+    join_row_cap: int = 1 << 15
+    join_pad_cap: int = 1 << 10
+    #: per-lane memtable correction: while the dirty set — new links plus
+    #: their targets — stays at most this many atoms, join batches keep
+    #: dispatching on the device and collect merges the host-enumerated
+    #: tuples touching the dirty set (``join/host.host_join_touching``);
+    #: past it (or on any tombstone/revalue) the whole batch takes the
+    #: exact host path. 0 disables the partial path.
+    join_dirty_max: int = 16
     # -- multi-chip serving: item 8 ------------------------------------------
     sharded: Optional[bool] = None
     hbm_budget_bytes: Optional[int] = None
@@ -196,6 +241,20 @@ class LaunchedBatch:
     slot: int = -1
     #: BFS batches: "fused" or "dense"
     route: Optional[str] = None
+    #: join batches: the ``join/planner.JoinPlan`` the lanes executed —
+    #: collect needs its column order to permute tuples back into the
+    #: request's variable order
+    join_plan: object = None
+    #: join batches dispatched under a SMALL pure-add dirty memtable: the
+    #: sorted touched-atom list (new links + their targets, captured at
+    #: launch) the per-lane collect correction enumerates against — None
+    #: when the memtable was clean at pin
+    join_dirty: object = None
+    #: join batches: real lanes this dispatch routed through the
+    #: degree-split hub chain, and collect-side partial memtable
+    #: corrections merged
+    join_hub_lanes: int = 0
+    join_partials: int = 0
 
 
 class DeviceExecutor:
@@ -209,11 +268,18 @@ class DeviceExecutor:
 
     ``routes`` counts the BFS batches of each route (``overlay_batches``
     the fused ones that carried a delta's overlay, K1's work) and
-    ``declined`` the reasons the fused plan gave for the dense ones; ``timing`` holds, per
-    batch kind, the batches launched and the wall seconds spent in
-    ``launch`` (``launch_s``; of it pinning the view, ``pin_s``, and
-    running the lane up to its staged outputs, ``dispatch_s``) and in
-    ``collect`` (``collect_s``; of it waiting for the device, ``wait_s``).
+    ``declined`` the reasons the fused plan gave for the dense ones, and
+    the reasons a join signature's factorized build gave (its plan then
+    serves from the flat CSRs); ``timing`` holds, per batch kind, the
+    batches launched and the wall seconds spent in ``launch``
+    (``launch_s``; of it pinning the view, ``pin_s``, and running the lane
+    up to its staged outputs, ``dispatch_s``) and in ``collect``
+    (``collect_s``; of it waiting for the device, ``wait_s``); join
+    batches also count the seconds of their launch spent planning
+    (``plan_s``: a plan and its factorized build are made once per
+    signature and base) and the device reads their launch made
+    (``host_syncs``). ``join_routes`` counts join lanes by where their
+    answer came from (:data:`JOIN_ROUTES`).
     """
 
     #: which lane family a device-served result counts under
@@ -225,8 +291,6 @@ class DeviceExecutor:
             raise ValueError("DeviceExecutor needs a graph")
         from hypergraphdb_tpu_torch.device import resolve_device, same_device
 
-        if config.prewarm_join_nbr:
-            raise _later(4, "prewarm_join_nbr (the join lane)")
         if config.aot_cache_dir:
             raise _later(6, "aot_cache_dir (AOT executables)")
         self.graph = graph
@@ -250,6 +314,10 @@ class DeviceExecutor:
         self.declined: dict = {}
         self.timing: dict = {}
         self._timing_lock = threading.Lock()
+        #: (epoch, new_atoms scanned, touched set | "full") —
+        #: _join_dirty_info's memo
+        self._join_dirty_memo: tuple = (-1, 0, frozenset())
+        self.join_routes = dict.fromkeys(JOIN_ROUTES, 0)
 
     def _time(self, kind: str, **add) -> None:
         with self._timing_lock:
@@ -295,6 +363,26 @@ class DeviceExecutor:
         return serve_range_batch(view.base, bcol, dcol, bounds,
                                  top_r=self.config.top_r, device=self.device)
 
+    def _execute_join(self, view, plan, consts, n_real: int):
+        """One join batch through the lane executor. The view's
+        epoch-cached factorized encodings (built at plan time or prewarm
+        when ``join_factorized``) serve when present; absent (or disabled)
+        the flat CSRs do — never a build on the dispatch path."""
+        from hypergraphdb_tpu_torch.ops.join import execute_join
+
+        cfg = self.config
+        fact = (view.factorized_join_rels()
+                if cfg.join_factorized else None)
+        return execute_join(view.base, plan, consts,
+                            top_r=cfg.top_r, n_real=n_real,
+                            row_cap=cfg.join_row_cap,
+                            pad_cap=cfg.join_pad_cap,
+                            hub_split=cfg.join_hub_split,
+                            hub_threshold=cfg.join_hub_threshold,
+                            factorized=(None if fact is not None
+                                        else False),
+                            device=self.device)
+
     def _range_win_pad(self) -> int:
         """Candidate gather width per column: the smallest power-of-two
         bucket holding ``top_r``."""
@@ -324,7 +412,10 @@ class DeviceExecutor:
 
     def prewarm(self, buckets, max_hops: Optional[int] = None) -> int:
         """Build, before the first request, what the first dispatches of
-        each bucket would otherwise build on the dispatch thread: the range
+        each bucket would otherwise build on the dispatch thread: with
+        ``prewarm_join_nbr`` the co-incidence CSR and the factorized
+        relations on the device (unless the snapshot is over the pair
+        budget, where the join lane serves on the host), the range
         columns of ``prewarm_range_dims``, and for BFS the fused plan, the
         device twin and each bucket's overlay on the current view; then run
         each bucket's route once on pad seeds, so K2 (and, with a delta,
@@ -338,6 +429,21 @@ class DeviceExecutor:
         )
 
         built = 0
+        if self.config.prewarm_join_nbr:
+            from hypergraphdb_tpu_torch.ops.join import (
+                factorized_relations_device,
+                nbr_max_pairs,
+                nbr_pair_count,
+                neighbor_csr_device,
+            )
+
+            base = self.mgr.base
+            if nbr_pair_count(base) <= nbr_max_pairs():
+                neighbor_csr_device(base, self.device)
+                built += 1
+                if self.config.join_factorized:
+                    factorized_relations_device(base, self.device)
+                    built += 1
         for dim in tuple(self.config.prewarm_range_dims or ()):
             value_index_column(self.mgr.base, int(dim), self.device)
             built += 1
@@ -426,8 +532,6 @@ class DeviceExecutor:
             # models the DEVICE dispatch failing — deliberately after the
             # force_host branch, so breaker-degraded batches stay immune
             self.faults.check("serve.launch", kind=kind)
-        if kind == "join":
-            raise _later(4, "the join lane")
         # pattern and range batches read base + HOST corrections only —
         # they don't pay a device-delta upload on their hot path
         t0 = time.perf_counter()
@@ -504,6 +608,8 @@ class DeviceExecutor:
                         view, ell, anchors, type_vec))
         elif kind == "range":
             self._launch_range(batch, view, out)
+        elif kind == "join":
+            self._launch_join(batch, view, out)
         else:  # pragma: no cover - batch keys come from our own requests
             raise Unservable(f"unknown batch kind {kind!r}")
         self._time(kind, pin_s=t1 - t0, dispatch_s=time.perf_counter() - t1)
@@ -591,6 +697,53 @@ class DeviceExecutor:
                 out.dev_out = self._stage(self._serve_range(
                     view, bcol, dcol, bounds))
 
+    def _launch_join(self, batch: MicroBatch, view,
+                     out: LaunchedBatch) -> None:
+        """A join batch: a memtable LINK can mint bindings anywhere in the
+        tuple space, which a compact device prefix cannot absorb. While the
+        dirty set stays SMALL and pure-add the batch still dispatches on
+        the device and collect merges the per-lane correction (tuples
+        touching the dirty atoms); tombstones, revalues, a dirty set past
+        ``join_dirty_max`` or a declined plan take the whole batch to the
+        exact host path (bounded by the next compaction). Anchors outside
+        the base's ids go to the host before the executor sees them."""
+        sig = batch.key[1]
+        n = view.base.num_atoms
+        dirty = self._join_dirty_info(view)
+        t0 = time.perf_counter()
+        plan = (None if dirty == "full"
+                else self._join_plan(sig, batch.tickets[0].request,
+                                     view.base))
+        self._time("join", plan_s=time.perf_counter() - t0)
+        if plan is None:
+            out.host_tickets = list(batch.tickets)
+            route = "dirty" if dirty == "full" else "declined"
+            self.join_routes[route] += len(batch.tickets)
+            return
+        consts = np.zeros((batch.bucket, sig.n_consts), dtype=np.int32)
+        lane = 0
+        for t in batch.tickets:
+            cv = np.asarray(t.request.consts, dtype=np.int64)
+            if len(cv) and (cv.min() < 0 or cv.max() >= n):
+                out.host_tickets.append(t)  # beyond the base
+                self.join_routes["beyond_base"] += 1
+                continue
+            consts[lane] = cv
+            out.lane_tickets.append((lane, t))
+            lane += 1
+        if not out.lane_tickets:
+            return
+        out.join_plan = plan
+        out.join_dirty = dirty
+        with self._dispatch_cm("join", batch.bucket, len(plan.steps)):
+            with self.tracer.span("join.execute", sig=str(sig.atoms)):
+                ex = self._execute_join(view, plan, consts, n_real=lane)
+            out.dev_out = self._stage((ex.counts, ex.trunc, ex.tuples))
+        if ex.hub_lanes:
+            self.stats.record_join_hub_dispatch(ex.hub_lanes)
+        out.join_hub_lanes = int(ex.hub_lanes)
+        self._time("join", host_syncs=ex.host_syncs)
+
     def _capture_candidates(self, view) -> dict:
         """Memtable candidates' (targets, type), read ONCE per batch right
         after the view is pinned: collect-time corrections then evaluate
@@ -649,6 +802,8 @@ class DeviceExecutor:
                                          self.tracer.clock)
                 launched.t_device = (launched._t_launch, t_ready)
             kind = launched.batch.key[0]
+            if kind == "join":
+                return self._collect_join(launched)
             if kind == "range":
                 return self._collect_range(launched)
             counts, first_r = self._host_arrays(launched)
@@ -672,6 +827,78 @@ class DeviceExecutor:
                                                launched.cand_records,
                                                by_target)
                 out.append((ticket, res))
+        out.extend(self._serve_host(launched.host_tickets, view.epoch))
+        return out
+
+    def _collect_join(self, launched: LaunchedBatch) -> list:
+        """Join-batch result assembly: the compact per-lane windows,
+        permuted from the plan's elimination order back to the request's
+        variable order; a truncation-flagged lane (its count a LOWER
+        bound) is re-served exactly on the host.
+
+        Batches dispatched under a small pure-add dirty memtable
+        (``launched.join_dirty``) merge the per-lane correction here: the
+        host enumerates exactly the tuples touching the dirty atoms
+        (``join/host.host_join_touching`` — sound because a new link only
+        ever mints tuples containing itself or its targets) and unions
+        them into the device answer. Lanes whose device window is a PREFIX
+        (count beyond top_r) re-serve on the host instead — a prefix
+        cannot absorb corrections, the pattern lane's rule. A pattern the
+        correction's reduced form does not serve (``JoinUnsupported``)
+        re-serves on the host too; any other failure surfaces on the
+        request."""
+        from hypergraphdb_tpu_torch.join.host import host_join_touching
+        from hypergraphdb_tpu_torch.join.ir import JoinUnsupported
+
+        view = launched.view
+        sig = launched.batch.key[1]
+        plan = launched.join_plan
+        dirty = launched.join_dirty
+        counts, trunc, tuples = self._host_arrays(launched)
+        perm = [plan.order.index(v) for v in sig.vars]
+        top_r = self.config.top_r
+
+        def host(ticket, route: str):
+            self.join_routes[route] += 1
+            self.stats.record_host_fallback()
+            return ticket, self._host_join(ticket.request, view.epoch)
+
+        out = []
+        for lane, ticket in launched.lane_tickets:
+            try:
+                rows = tuples[lane]
+                rows = rows[rows[:, 0] >= 0][:, perm].astype(np.int64)
+                count = int(counts[lane])
+                if trunc[lane] or (dirty and count > len(rows)):
+                    out.append(host(ticket, "truncated" if trunc[lane]
+                                    else "prefix"))
+                    continue
+                if dirty:
+                    try:
+                        extra = host_join_touching(
+                            self.graph, sig.bind(ticket.request.consts),
+                            dirty,
+                        )
+                    except JoinUnsupported:
+                        out.append(host(ticket, "correction"))
+                        continue
+                    if extra:
+                        merged = sorted(
+                            {tuple(int(x) for x in r) for r in rows}
+                            | set(extra)
+                        )
+                        rows = np.asarray(merged, dtype=np.int64)
+                        rows = rows.reshape(-1, len(sig.vars))[:top_r]
+                        count = len(merged)
+                    self.stats.record_join_partial_correction()
+                    launched.join_partials += 1
+                self.join_routes["device"] += 1
+                out.append((ticket, JoinResult(
+                    "join", count, rows, sig.vars,
+                    count > len(rows), view.epoch,
+                )))
+            except Exception as e:  # surface, don't kill the batch
+                out.append((ticket, e))
         out.extend(self._serve_host(launched.host_tickets, view.epoch))
         return out
 
@@ -898,11 +1125,12 @@ class DeviceExecutor:
                 elif kind == "range":
                     out.append((ticket, self._host_range(ticket.request,
                                                          epoch)))
-                elif kind == "pattern":
+                elif kind == "join":
+                    out.append((ticket, self._host_join(ticket.request,
+                                                        epoch)))
+                else:
                     out.append((ticket, self._host_pattern(ticket.request,
                                                            epoch)))
-                else:
-                    raise _later(4, "the join lane")
             except Exception as e:  # surface, don't kill the batch
                 out.append((ticket, e))
         return out
@@ -956,6 +1184,105 @@ class DeviceExecutor:
             return ServeResult("pattern", count, matches[:top_r], True,
                                view.epoch)
         return ServeResult("pattern", count, matches, False, view.epoch)
+
+    # -- join lane helpers ----------------------------------------------------
+    def _join_dirty_info(self, view):
+        """What the memtable holds that a join answer could see. Returns
+        ``None`` — clean, device lane open with no correction; a sorted
+        touched-atom list — small pure-ADD dirty set (every new link plus
+        its targets, ≤ ``join_dirty_max`` atoms): the batch still
+        dispatches on the device and collect merges the per-lane
+        correction; ``"full"`` — tombstones/revalues (a vanished witness is
+        not correctable against a compact window) or a dirty set past the
+        bound: the whole batch takes the exact host path. Fresh NODES
+        alone never dirty anything (nothing in the base points at them).
+
+        Memoized per epoch with incremental suffix scans — ``new_atoms``
+        only grows within an epoch and the touched set only accumulates
+        (the ``"full"`` verdict is sticky), so a bulk ingest costs each
+        batch only the atoms that arrived since the last one."""
+        if view.dead or view.revalued:
+            return "full"
+        epoch, n_seen, dirty = self._join_dirty_memo
+        if epoch != view.epoch:
+            n_seen, dirty = 0, frozenset()
+        limit = self.config.join_dirty_max
+        if dirty != "full" and len(view.new_atoms) > n_seen:
+            g = self.graph
+            acc = set(dirty)
+            for h in view.new_atoms[n_seen:]:
+                try:
+                    ts = g.get_targets(h)
+                except Exception:  # noqa: BLE001 - removed since: no link
+                    continue
+                if ts:
+                    acc.add(int(h))
+                    acc.update(int(t) for t in ts)
+                    if len(acc) > limit:
+                        acc = "full"
+                        break
+            dirty = acc if acc == "full" else frozenset(acc)
+        self._join_dirty_memo = (view.epoch, len(view.new_atoms), dirty)
+        if dirty == "full":
+            return "full"
+        return sorted(dirty) if dirty else None
+
+    def _join_plan(self, sig, req0: JoinRequest, base):
+        """The signature's decomposition, planned once per (signature,
+        base snapshot). The first request's constants seed the cardinality
+        estimates; the structure stays valid for every constant vector of
+        the signature. None → the planner declined (host path): a pattern
+        it does not serve, or a co-incidence relation over the pair budget
+        (declined BEFORE launch would ask the executor to build it on the
+        dispatch thread). With ``join_factorized`` the trie encoding is
+        built here, once per base epoch; a build that fails its pair
+        budget leaves the plan serving from the flat CSRs, its reason
+        counted in ``declined``."""
+        cache = getattr(base, "_join_plan_cache", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(base, "_join_plan_cache", cache)
+        if sig not in cache:
+            from hypergraphdb_tpu_torch.join.ir import JoinUnsupported
+            from hypergraphdb_tpu_torch.join.planner import plan_join
+            from hypergraphdb_tpu_torch.ops.join import (
+                factorized_relations,
+                nbr_max_pairs,
+                nbr_pair_count,
+            )
+
+            try:
+                if any(a[0] == "co" for a in sig.atoms) and \
+                        nbr_pair_count(base) > nbr_max_pairs():
+                    cache[sig] = None
+                else:
+                    with self.tracer.span("join.plan",
+                                          sig=str(sig.atoms)):
+                        cache[sig] = plan_join(
+                            base, sig.bind(req0.consts), sig,
+                            req0.consts,
+                        )
+            except JoinUnsupported:
+                cache[sig] = None
+            if cache[sig] is not None and self.config.join_factorized:
+                try:
+                    with self.tracer.span("join.factorize"):
+                        factorized_relations(base, self.device)
+                except JoinUnsupported as e:
+                    reason = f"join factorize: {e}"
+                    self.declined[reason] = self.declined.get(reason, 0) + 1
+        return cache[sig]
+
+    def _host_join(self, req: JoinRequest, epoch: int) -> JoinResult:
+        from hypergraphdb_tpu_torch.join.host import host_join
+
+        rows = host_join(self.graph, req.sig.bind(req.consts))
+        V = len(req.sig.vars)
+        arr = (np.asarray(rows, dtype=np.int64) if rows
+               else np.empty((0, V), dtype=np.int64))
+        top_r = self.config.top_r
+        return JoinResult("join", len(arr), arr[:top_r], req.sig.vars,
+                          len(arr) > top_r, epoch, served_by="host")
 
     # -- exact host fallbacks -------------------------------------------------
     def _host_bfs(self, req: BFSRequest, epoch: int) -> ServeResult:
@@ -1080,9 +1407,8 @@ class ServeRuntime:
         ``priority`` class pops first at batch formation (FIFO within a
         class). An ``admission_gate`` refusal raises
         :class:`~.types.AdmissionGated` BEFORE any queue state is touched.
-        ``explain=True`` (the reference's cost-attribution record) and
-        join requests raise :class:`~.types.Unservable` until their ROADMAP
-        items."""
+        ``explain=True`` (the reference's cost-attribution record) raises
+        :class:`~.types.Unservable` until its ROADMAP item."""
         gate = self.config.admission_gate
         if gate is not None:
             reason = gate()
@@ -1093,8 +1419,6 @@ class ServeRuntime:
                 raise AdmissionGated(str(reason))
         if explain:
             raise _later(10, "explain=True (obs/fleet.explain_record)")
-        if getattr(request, "kind", None) == "join":
-            raise _later(4, "the join lane")
         now = self.clock()
         dl = (deadline_s if deadline_s is not None
               else self.config.default_deadline_s)
@@ -1159,9 +1483,17 @@ class ServeRuntime:
     def submit_join(self, spec, distinct: bool = True,
                     deadline_s: Optional[float] = None,
                     priority: int = 0, explain: bool = False) -> Future:
-        """The reference's conjunctive-pattern JOIN entry point: raises
-        :class:`~.types.Unservable` until the join lane (item 4)."""
-        raise _later(4, "submit_join (the join lane)")
+        """Admit a conjunctive-pattern JOIN: ``spec`` is either a prebuilt
+        :class:`~.types.JoinRequest` or a ``{var: condition}`` mapping with
+        ``query.variables.Var`` cross-references
+        (``query/bridge.to_join_request`` does the extraction). Raises
+        :class:`~.types.Unservable` for specs outside the pattern
+        vocabulary. Resolves to a :class:`~.types.JoinResult`."""
+        if not isinstance(spec, JoinRequest):
+            from hypergraphdb_tpu_torch.query.bridge import to_join_request
+
+            spec = to_join_request(self.graph, spec, distinct=distinct)
+        return self.submit(spec, deadline_s, priority, explain)
 
     def submit_range(self, lo=None, hi=None, *, lo_op: str = "gte",
                      hi_op: str = "lte", type_handle: Optional[int] = None,

@@ -55,8 +55,7 @@ LEGACY_TO_DOTTED = {
     "queue_depth": "serve.queue_depth",
 }
 
-#: every request KIND the runtime serves (the reference's vocabulary; the
-#: port's executor has no join lane yet, so its counters stay at 0)
+#: every request KIND the runtime serves (the reference's vocabulary)
 LANE_KINDS = ("bfs", "pattern", "join", "range")
 
 #: every executor PATH a request can resolve through: the single-chip

@@ -11,7 +11,8 @@ lanes run their plain versions. Every answer's ``count``, ``matches``,
 seeds outside the base, typed and untyped patterns, rows over
 ``pattern_pad``, truncation, the pinned-state memtable correction; and the
 bridge (``to_request`` / ``to_range_request``, ``Unservable`` outside the
-subset). The port also reports its BFS route (``DeviceExecutor.routes``),
+subset; ``CoIncident`` conditions through the join lane). The port also
+reports its BFS route (``DeviceExecutor.routes``),
 checked where it is the point: a 1-lane bucket pads to one 32-lane word
 and rides the fused route, a pending tombstone sends a batch to the dense
 sweep. Counts: the port's lanes count exactly in int64, the reference's
@@ -544,30 +545,40 @@ def test_bridge_unservable_conditions_match_reference(case):
 
 
 def test_join_conditions_wait_for_the_join_lane():
-    """``CoIncident`` conditions are the reference's join lane; the port's
-    bridge raises ``Unservable`` naming ROADMAP item 4."""
-    g = graph_of(PORT)
-    try:
+    """``CoIncident`` conditions go to the join lane: the bridge turns
+    them into the reference's ``JoinRequest`` (signature atoms, constants,
+    ``distinct=False``), and ``submit_query`` serves them through the
+    device lane with the reference's counts, tuples and ``served_by``,
+    each equal to ``find_all``."""
+    def scenario(pkg):
+        g = graph_of(pkg)
         nodes, links, iso = build(g)
-        c = mod(PORT, "query.conditions")
-        bridge = mod(PORT, "query.bridge")
-        Unservable = mod(PORT, "serve.types").Unservable
-        rt = runtime(PORT, g, 64)
-        for cond in (c.CoIncident(nodes[0]),
-                     c.And(c.CoIncident(nodes[0]), c.Incident(nodes[1]))):
-            with pytest.raises(Unservable, match="item 4"):
-                bridge.to_request(g, cond)
-            with pytest.raises(Unservable, match="item 4"):
-                rt.submit_query(cond)
+        c = mod(pkg, "query.conditions")
+        bridge = mod(pkg, "query.bridge")
+        conds = [c.CoIncident(nodes[0]),
+                 c.And(c.CoIncident(nodes[0]), c.Incident(nodes[1])),
+                 c.And(c.CoIncident(nodes[2]), c.CoIncident(nodes[3]))]
+        reqs = [bridge.to_request(g, cond) for cond in conds]
+        rt = runtime(pkg, g, 64)
+        futs = [rt.submit_query(cond) for cond in conds]
+        drain(rt)
         rt.close()
-        ref = graph_of(PKGS[0])
-        rn, _, _ = build(ref)
-        got = mod(PKGS[0], "query.bridge").to_request(
-            ref, mod(PKGS[0], "query.conditions").CoIncident(rn[0]))
-        assert type(got).__name__ == "JoinRequest"
-        ref.close()
-    finally:
+        res = [f.result(timeout=0) for f in futs]
+        truth = [sorted(int(h) for h in g.find_all(cond)) for cond in conds]
         g.close()
+        return ([(type(q).__name__, q.sig.atoms, q.consts, q.sig.distinct)
+                 for q in reqs],
+                [(r.kind, int(r.count), r.tuples.tolist(), r.served_by,
+                  bool(r.truncated)) for r in res],
+                counters(rt)), truth
+
+    (reqs, res, cnt), truth = both(scenario)
+    assert [q[0] for q in reqs] == ["JoinRequest"] * 3
+    assert not any(q[3] for q in reqs)
+    for (kind, count, tuples, by, trunc), want in zip(res, truth):
+        assert kind == "join" and by == "device" and not trunc
+        assert [t[0] for t in tuples] == want and count == len(want)
+    assert cnt["host_fallbacks"] == 0
 
 
 # ------------------------------------------------ the no-fallback guarantees

@@ -6,8 +6,9 @@ and a fake executor whose results are each package's own
 ``ServeResult``. A scenario returns what a caller and an operator can see
 — the executor's launch/collect order, each future's outcome, the stats
 snapshot, the queue — and the two records must be equal. Then the port's
-own surface: the entry points outside its slice raise, naming their
-ROADMAP items, and ``ServeRuntime(graph)`` asks for the card.
+own surface: the join entry points reach the executor, the entry points
+outside its slice raise, naming their ROADMAP items, and
+``ServeRuntime(graph)`` asks for the card.
 
 Every future is read with ``timeout=0`` (or a bounded wait in the
 threaded case); every thread is joined with a timeout. Tolerance: exact
@@ -320,6 +321,20 @@ def admission_gate(P):
     return first, outcome(fut), view(rt, ex)
 
 
+def join_requests(P):
+    """Join requests batch by signature like the reference's: through
+    ``submit`` and ``submit_join`` with a prebuilt request."""
+    rt, ex, clock = make_runtime(P, linger=0.0)
+    JoinRequest = P.types.JoinRequest
+    futs = [rt.submit(JoinRequest("tri", (1,))),
+            rt.submit_join(JoinRequest("tri", (2,))),
+            rt.submit_join(JoinRequest("path", (3, 4)), priority=1)]
+    while rt.step(drain=True):
+        pass
+    return [outcome(f) for f in futs], view(rt, ex), \
+        [[t.request.consts for t in b.tickets] for b in ex.batches]
+
+
 SCENARIOS = {
     "bucket_for": bucket_for,
     "deadline_sheds": deadline_sheds,
@@ -342,6 +357,7 @@ SCENARIOS = {
     "launch_error": launch_error,
     "priorities": priorities,
     "admission_gate": admission_gate,
+    "join_requests": join_requests,
 }
 
 
@@ -378,6 +394,10 @@ def test_scenarios_show_what_they_test():
     assert launch_error(P)[1] == ("raise", "RuntimeError")
     assert priorities(P)[0] == [("pattern", 2), ("bfs", 3), ("bfs", 2)]
     assert admission_gate(P)[0] == "AdmissionGated"
+    outs, v, consts = join_requests(P)
+    assert [b[0] for b in v["batches"]] == [("join", "path"), ("join", "tri")]
+    assert consts == [[(3, 4)], [(1,), (2,)]]
+    assert outs == [("ok", "join", 0, "fake", False)] * 3
 
 
 # ------------------------------------------------------ the port's surface
@@ -388,16 +408,16 @@ def port():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("submit_join", 4), ("join_request", 4), ("explain", 10),
+    ("explain", 10), ("join_explain", 10),
     ("submit_planned", 7), ("attach_planner", 7),
     ("attach_subscriptions", 7)])
 def test_out_of_slice_entry_points_raise_naming_their_item(case, item):
     P = port()
     rt, ex, clock = make_runtime(P, linger=0.0)
     calls = {
-        "submit_join": lambda: rt.submit_join({"x": None}),
-        "join_request": lambda: rt.submit(P.types.JoinRequest(None, (1,))),
         "explain": lambda: rt.submit_bfs(1, explain=True),
+        "join_explain": lambda: rt.submit_join(
+            P.types.JoinRequest(None, (1,)), explain=True),
         "submit_planned": lambda: rt.submit_planned(None),
         "attach_planner": lambda: rt.attach_planner(object()),
         "attach_subscriptions": lambda: rt.attach_subscriptions(object()),
@@ -410,7 +430,7 @@ def test_out_of_slice_entry_points_raise_naming_their_item(case, item):
 
 @pytest.mark.parametrize("field,value,item", [
     ("sharded", True, 8), ("hbm_budget_bytes", 1 << 30, 8),
-    ("aot_cache_dir", "cache", 6), ("prewarm_join_nbr", True, 4)])
+    ("aot_cache_dir", "cache", 6)])
 def test_out_of_slice_options_raise_naming_their_item(field, value, item):
     from hypergraphdb_tpu_torch.core.graph import HyperGraph
 
@@ -424,6 +444,69 @@ def test_out_of_slice_options_raise_naming_their_item(field, value, item):
         assert g.incremental is None
     finally:
         g.close()
+
+
+@pytest.mark.parametrize("case", ["submit_join", "join_request"])
+def test_join_entry_points_reach_the_executor(case):
+    """The two entry points that waited for the join lane now admit their
+    request: it rides one ``("join", signature)`` batch to the executor,
+    as on the reference (the ``join_requests`` scenario)."""
+    P = port()
+    rt, ex, clock = make_runtime(P, linger=0.0)
+    req = P.types.JoinRequest("sig", (1,))
+    fut = (rt.submit_join(req) if case == "submit_join"
+           else rt.submit(req))
+    assert rt.queue.depth() == 1
+    rt.step(drain=True)
+    assert outcome(fut) == ("ok", "join", 0, "fake", False)
+    assert [b.key for b in ex.batches] == [("join", "sig")]
+
+
+def test_prewarm_join_nbr_builds_the_join_relations():
+    """``prewarm_join_nbr`` builds the co-incidence CSR and the factorized
+    relations of the manager's base before the first request, equal array
+    for array to the reference's prewarm on the same graph; without it
+    nothing is built."""
+    from tests.conftest import make_random_hypergraph
+
+    got = {}
+    for pkg in PKGS:
+        imp = importlib.import_module
+        kw = {}
+        if pkg == PKGS[1]:
+            kw = {"query": imp(f"{pkg}.core.config").QueryConfig(
+                device="cpu")}
+        g = imp(f"{pkg}.core.graph").HyperGraph(
+            imp(f"{pkg}.core.config").HGConfiguration(**kw))
+        make_random_hypergraph(g, n_nodes=40, n_links=80, seed=5)
+        inc = {"background": False}
+        cfg = {"manual": True, "prewarm_join_nbr": True}
+        if pkg == PKGS[1]:
+            inc["device"] = cfg["device"] = "cpu"
+        g.enable_incremental(**inc)
+        rt = imp(f"{pkg}.serve").ServeRuntime(
+            g, imp(f"{pkg}.serve").ServeConfig(**cfg))
+        base = rt.executor.mgr.base
+        nbr = getattr(base, "_nbr_csr", None)
+        fact = getattr(base, "_fact_rels", None)
+        got[pkg] = (
+            [np.asarray(a).tolist() for a in nbr[:2]],
+            {rel: (np.asarray(fr.group_of).tolist(),
+                   np.asarray(fr.offsets).tolist(),
+                   np.asarray(fr.flat).tolist()) for rel, fr in fact.items()})
+        rt.close()
+        g.close()
+    assert got[PKGS[1]] == got[PKGS[0]]
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+
+    g = HyperGraph()
+    make_random_hypergraph(g, n_nodes=40, n_links=80, seed=5)
+    g.enable_incremental(background=False, device="cpu")
+    rt = port().serve.ServeRuntime(
+        g, port().serve.ServeConfig(manual=True, device="cpu"))
+    assert getattr(rt.executor.mgr.base, "_nbr_csr", None) is None
+    rt.close()
+    g.close()
 
 
 def test_runtime_without_a_device_asks_for_the_card():
