@@ -333,6 +333,27 @@ class TxIndexView(HGIndex):
             vals |= merged
         return HGSortedResultSet(np.asarray(sorted(vals), dtype=np.int64))
 
+    def count_range(self, lo: Optional[bytes] = None,
+                    hi: Optional[bytes] = None, lo_inclusive: bool = True,
+                    hi_inclusive: bool = False,
+                    cap: Optional[int] = None) -> int:
+        """``len(find_range(...))`` clamped to ``cap``: the backend's own
+        count when no key in the range differs from what this transaction
+        reads (one ordered scan of the range, not of every key), else the
+        merged range's size."""
+        tx = self._tx()
+        if tx is not None:
+            def in_range(k: bytes) -> bool:
+                if lo is not None and (k < lo or (k == lo and not lo_inclusive)):
+                    return False
+                return hi is None or k < hi or (k == hi and hi_inclusive)
+
+            if self._touched_keys(tx, in_range):
+                n = len(self.find_range(lo, hi, lo_inclusive, hi_inclusive))
+                return n if cap is None else min(n, cap)
+        return self._backing.count_range(lo, hi, lo_inclusive, hi_inclusive,
+                                         cap)
+
     def find_by_value(self, value: HGHandle) -> list[bytes]:
         keys = set(self._backing.find_by_value(int(value)))
         t = self._tx()

@@ -17,8 +17,9 @@ The port's copy of ``hypergraphdb_tpu/fault``, in three parts:
   path and recover automatically.
 
 Wired consumers: ``serve/runtime.py`` (bounded deadline-aware retries +
-breaker degradation) and ``tx/manager.py`` (the commit crash points).
-The reference's peer and checkpoint points come with those modules.
+breaker degradation), ``tx/manager.py`` (the commit crash points) and
+``ops/checkpoint.py`` (the crash-atomic saves). The reference's peer
+points come with those modules.
 """
 
 from hypergraphdb_tpu_torch.fault.breaker import (
@@ -42,6 +43,10 @@ from hypergraphdb_tpu_torch.fault.registry import FaultRegistry, global_faults
 WIRED_POINTS = {
     "serve.launch": "DeviceExecutor.launch, before any device work",
     "serve.collect": "DeviceExecutor.collect, before the result download",
+    "ckpt.save_npz": "save_snapshot, after the tmp npz is written, "
+                     "before os.replace publishes it",
+    "ckpt.save_plans": "save_snapshot, after the tmp plans sidecar is "
+                       "written, before os.replace publishes it",
     "tx.commit.pre": "HGTransactionManager.commit, top-level write "
                      "commit, before the commit lock",
     "tx.commit.apply": "HGTransactionManager.commit, inside the commit "

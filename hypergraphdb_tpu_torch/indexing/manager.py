@@ -359,7 +359,10 @@ def index_stats(graph, indexer_name: str, refresh: bool = False) -> dict:
     cross-session authority, since the mutation counter resets at reopen
     (a negative counter drift says nothing about how much the index
     changed in between). ``refresh=True`` forces a
-    recount."""
+    recount. A count made inside a read-only transaction (the planner's,
+    under ``find_all``) cannot persist, since such a transaction drops its
+    writes; the reference then recounts on every query. The port keeps it
+    in the graph's memory under the same validity rules."""
     import json
 
     current = int(getattr(graph, "_mutations", 0))
@@ -368,16 +371,21 @@ def index_stats(graph, indexer_name: str, refresh: bool = False) -> dict:
     if idx is None:
         idx = graph.store.get_index(indexer_name, create=False)  # system ix
     sidx = graph.store.get_index(_STATS_INDEX, create=False)
-    if sidx is not None and not refresh:
+    memo = graph.__dict__.setdefault("_index_stats_memo", {})
+    if not refresh:
+        recs = []
+        if sidx is not None:
+            for dh in sidx.find(key).array().tolist():
+                raw = graph.store.get_data(int(dh))
+                if raw is not None:
+                    recs.append(json.loads(raw.decode("utf-8")))
+        if indexer_name in memo:
+            recs.append(memo[indexer_name])
         try:
             live_keys = idx.key_count() if idx is not None else 0
         except Exception:
             live_keys = None
-        for dh in sidx.find(key).array().tolist():
-            raw = graph.store.get_data(int(dh))
-            if raw is None:
-                continue
-            rec = json.loads(raw.decode("utf-8"))
+        for rec in recs:
             drift = current - int(rec.get("version", 0))
             rec_keys = int(rec.get("keys", 0))
             keys_ok = live_keys is not None and abs(
@@ -403,6 +411,14 @@ def index_stats(graph, indexer_name: str, refresh: bool = False) -> dict:
         "keys": keys, "entries": entries, "capped": capped,
         "version": current,
     }
+    t = graph.txman.current()
+    while t is not None and not t.readonly:
+        t = t.parent
+    if t is not None:
+        # a read-only transaction (every query runs in one) drops its
+        # writes: keep the count in memory, under the same validity rules
+        memo[indexer_name] = rec
+        return rec
 
     def persist() -> None:
         sidx = graph.store.get_index(_STATS_INDEX)

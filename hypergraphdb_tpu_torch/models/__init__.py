@@ -4,7 +4,8 @@ from hypergraphdb_tpu_torch.models.generators import (
     dbpedia_like,
     dbpedia_snapshot,
     wordnet_like,
+    zipf_hypergraph,
 )
 
 __all__ = ["Entity", "Synset", "dbpedia_like", "dbpedia_snapshot",
-           "wordnet_like"]
+           "wordnet_like", "zipf_hypergraph"]

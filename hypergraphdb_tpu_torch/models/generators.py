@@ -1,9 +1,9 @@
 """Benchmark graph families.
 
 The port's copies of ``hypergraphdb_tpu/models/generators.py``'s
-``dbpedia_snapshot`` (built straight into a snapshot), ``wordnet_like``
-and ``dbpedia_like`` (built through the graph's ingest API, so they double
-as ingest benchmarks): the same random draws in the same order, so one
+``dbpedia_snapshot`` (built straight into a snapshot), ``zipf_hypergraph``,
+``wordnet_like`` and ``dbpedia_like`` (built through the graph's ingest
+API, so they double as ingest benchmarks): the same random draws in the same order, so one
 seed gives the same graph in both packages.
 """
 
@@ -29,6 +29,29 @@ class Entity:
     """DBpedia-style node payload."""
 
     uri: str = ""
+
+
+def zipf_hypergraph(graph, n_nodes: int = 10_000, n_links: int = 5_000,
+                    max_arity: int = 5, zipf_a: float = 1.3, seed: int = 7,
+                    values: bool = True):
+    """Skewed-degree hypergraph (the shape of lexical graphs): returns
+    (node_handles, link_handles)."""
+    r = np.random.default_rng(seed)
+    nodes = graph.bulk_import(values=np.arange(n_nodes).tolist())
+    node0 = int(nodes[0])
+    popularity = r.zipf(zipf_a, size=n_links * (max_arity + 1)) % n_nodes
+    arities = r.integers(2, max_arity + 1, size=n_links)
+    target_lists = []
+    k = 0
+    for a in arities:
+        ts = popularity[k : k + a]
+        k += a
+        target_lists.append([node0 + int(t) for t in ts])
+    links = graph.bulk_import(
+        values=list(range(n_links)) if values else [None] * n_links,
+        target_lists=target_lists,
+    )
+    return nodes, links
 
 
 #: WordNet relation inventory (name, approximate share of links)

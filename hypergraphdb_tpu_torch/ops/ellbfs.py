@@ -30,10 +30,17 @@ Differences from the reference, all deliberate:
   once per BFS and reused by every hop, and the visited update is in place.
 - ``bfs_pull`` takes ``fused=False`` to force the staged chain, and a
   ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``).
+- The plan sidecar (``save_plans`` / ``load_plans``, ``HG_PLAN_CACHE``) is
+  the reference's npz, field for field, read without unpickling. A
+  corrupt cache entry is rebuilt and counted, never swallowed: only the
+  errors of a damaged file (``aot_cache.CORRUPT_ERRORS``) are caught.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import zlib
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -42,6 +49,7 @@ import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops import linemask
+from hypergraphdb_tpu_torch.ops.aot_cache import CORRUPT_ERRORS
 from hypergraphdb_tpu_torch.ops.gather_or import PLAIN_CHUNK, gather_or
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
 
@@ -240,11 +248,177 @@ def build_pull_plans(
     )
 
 
-def plans_for(snap: CSRSnapshot) -> PullBFSPlans:
-    """Plans for a snapshot, memoized on the snapshot object."""
+# ------------------------------------------------------------ plan sidecar
+
+#: version of the plan file layout; a file of another version is stale
+PLAN_FORMAT = 1
+#: environment variable naming the directory of the plan sidecar cache
+PLAN_CACHE_ENV = "HG_PLAN_CACHE"
+
+_log = logging.getLogger("hypergraphdb_tpu_torch.ops.ellbfs")
+
+
+class StalePlans(ValueError):
+    """The plan file is WELL-FORMED but belongs to a different snapshot or
+    plan format: the quiet-rebuild case loaders treat as "no sidecar",
+    deliberately distinct from a corrupt or unreadable file (rebuilt too,
+    but logged and counted as ``fault.sidecar_corrupt``)."""
+
+
+def plan_arrays(plans: PullBFSPlans) -> dict:
+    """The plan pyramid as the reference's npz fields (its field names and
+    dtypes), without the fingerprint."""
+    arrs: dict = {
+        "format": np.int64(PLAN_FORMAT),
+        "n_atoms": np.int64(plans.n_atoms),
+        "n_pad": np.int64(plans.n_pad),
+        "s1_widths": np.asarray(plans.stage1.widths, np.int64),
+        "s1_out_map": plans.stage1.out_map,
+        "s1_n_rows": np.int64(plans.stage1.n_rows),
+        "s1_concat": np.int64(plans.stage1.concat_size),
+        "s2_widths": np.asarray(plans.stage2_widths, np.int64),
+        "out_map": plans.out_map,
+        "inc_deg": plans.inc_deg,
+    }
+    for i, lvl in enumerate(plans.stage1.levels):
+        arrs[f"s1_l{i}"] = lvl
+    for i, lvl in enumerate(plans.stage2_levels):
+        arrs[f"s2_l{i}"] = lvl
+    return arrs
+
+
+def plans_from_arrays(z) -> PullBFSPlans:
+    """A plan pyramid from the fields :func:`plan_arrays` writes (a mapping
+    or an open npz). Raises :class:`StalePlans` for another format."""
+    if int(z["format"]) != PLAN_FORMAT:
+        raise StalePlans(f"plan format {int(z['format'])} != {PLAN_FORMAT}")
+
+    def levels(prefix):
+        keys = sorted((k for k in z.keys() if k.startswith(prefix)),
+                      key=lambda k: int(k[len(prefix):]))
+        return tuple(np.asarray(z[k]) for k in keys)
+
+    s1 = ReducePlan(
+        levels("s1_l"), tuple(int(w) for w in z["s1_widths"]),
+        np.asarray(z["s1_out_map"]), int(z["s1_n_rows"]),
+        int(z["s1_concat"]),
+    )
+    return PullBFSPlans(
+        n_atoms=int(z["n_atoms"]),
+        n_pad=int(z["n_pad"]),
+        stage1=s1,
+        stage2_levels=levels("s2_l"),
+        stage2_widths=tuple(int(w) for w in z["s2_widths"]),
+        out_map=np.asarray(z["out_map"]),
+        inc_deg=np.asarray(z["inc_deg"]),
+    )
+
+
+def save_plans(plans: PullBFSPlans, path, fingerprint: str = "") -> None:
+    """Persist a plan pyramid as an uncompressed .npz in the reference's
+    format (loading it is one sequential read; rebuilding it is the host
+    work of :func:`build_pull_plans`). ``path`` may be an open binary file
+    (the crash-atomic checkpoint writer hands in its tmp file).
+    ``fingerprint`` (:func:`snapshot_fingerprint`) travels with the file so
+    a loader can reject a sidecar that no longer matches its snapshot."""
+    np.savez(path, fingerprint=np.frombuffer(fingerprint.encode("ascii"),
+                                             dtype=np.uint8),
+             **plan_arrays(plans))
+
+
+def load_plans(path: str,
+               expect_fingerprint: Optional[str] = None) -> PullBFSPlans:
+    """Read a plan file written by :func:`save_plans` (or the reference's),
+    without unpickling anything. Raises :class:`StalePlans` when it is
+    another format or another snapshot's."""
+    with np.load(path, allow_pickle=False) as z:
+        if expect_fingerprint is not None:
+            got = bytes(z["fingerprint"]).decode("ascii") \
+                if "fingerprint" in z.files else ""
+            if got != expect_fingerprint:
+                raise StalePlans(
+                    f"plan file {path}: fingerprint {got!r} does not match "
+                    f"the snapshot ({expect_fingerprint!r}): stale sidecar"
+                )
+        return plans_from_arrays(z)
+
+
+def read_sidecar(path: str, fingerprint: str) -> Optional[PullBFSPlans]:
+    """The plans in ``path`` for the snapshot of ``fingerprint``, or None
+    to rebuild: a stale file quietly, a corrupt or unreadable one (one of
+    ``aot_cache.CORRUPT_ERRORS``) logged, counted in
+    ``fault.sidecar_corrupt`` and recorded as a flight incident. Anything
+    else raises."""
+    try:
+        return load_plans(path, expect_fingerprint=fingerprint)
+    except StalePlans:
+        return None
+    except CORRUPT_ERRORS:
+        from hypergraphdb_tpu_torch.obs.flight import global_flight
+        from hypergraphdb_tpu_torch.utils.metrics import global_metrics
+
+        _log.warning("plan file %s is corrupt or unreadable; plans will be "
+                     "rebuilt", path, exc_info=True)
+        global_metrics.incr("fault.sidecar_corrupt")
+        global_flight().incident("sidecar_corrupt", path=str(path))
+        return None
+
+
+def snapshot_fingerprint(snap: CSRSnapshot) -> str:
+    """Content key over the structural CSR arrays, the reference's: two
+    snapshots with the same fingerprint have identical plans."""
+    h = 0
+    for a in (
+        snap.tgt_offsets, snap.tgt_flat[: snap.n_edges_tgt],
+        snap.inc_offsets, snap.inc_links[: snap.n_edges_inc],
+    ):
+        h = zlib.crc32(np.ascontiguousarray(a).view(np.uint8), h)
+    return (f"{snap.num_atoms}_{snap.n_edges_tgt}_"
+            f"{snap.n_edges_inc}_{h:08x}")
+
+
+#: the pull plans' entry in an ``ops/aot_cache.AOTCache``: its name (with
+#: the plan format) and codec
+AOT_ENTRY = f"ops.ellbfs.pull_plans.v{PLAN_FORMAT}"
+AOT_CODEC = (plan_arrays, plans_from_arrays)
+
+
+def plans_for(snap: CSRSnapshot, aot=None) -> PullBFSPlans:
+    """Plans for a snapshot: memoized on the snapshot object and, when
+    ``HG_PLAN_CACHE`` names a directory, persisted there keyed by the
+    snapshot's content fingerprint, so a fresh process over the same graph
+    reads its plans instead of rebuilding them. A stale entry rebuilds
+    quietly and a corrupt one rebuilds counted (:func:`read_sidecar`).
+
+    ``aot``, an ``ops/aot_cache.AOTCache`` whose content key is this
+    snapshot's fingerprint, takes the place of the sidecar: the plans come
+    from it (built, or handed over from the memo, on a miss) and are
+    memoized here."""
     plans = getattr(snap, "_pull_plans", None)
+    if aot is not None:
+        have = plans
+        plans = aot.get_or_compile(
+            AOT_ENTRY, lambda: have if have is not None
+            else build_pull_plans(snap), codec=AOT_CODEC)
+        object.__setattr__(snap, "_pull_plans", plans)
     if plans is None:
-        plans = build_pull_plans(snap)
+        cache_dir = os.environ.get(PLAN_CACHE_ENV)
+        cache_path = None
+        fp = None
+        if cache_dir:
+            os.makedirs(cache_dir, exist_ok=True)
+            fp = snapshot_fingerprint(snap)
+            cache_path = os.path.join(cache_dir, f"pullplans_{fp}.npz")
+            if os.path.exists(cache_path):
+                plans = read_sidecar(cache_path, fp)
+        if plans is None:
+            plans = build_pull_plans(snap)
+            if cache_path is not None:
+                # the .npz suffix keeps np.savez from appending another;
+                # write-then-rename leaves no torn cache entry
+                tmp = cache_path[:-4] + ".tmp.npz"
+                save_plans(plans, tmp, fingerprint=fp)
+                os.replace(tmp, cache_path)
         object.__setattr__(snap, "_pull_plans", plans)
     return plans
 

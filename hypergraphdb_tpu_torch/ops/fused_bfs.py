@@ -212,15 +212,55 @@ def fused_ready(snap: CSRSnapshot, k_block: int) -> bool:
     return plan_supported(snap, k_block) is None
 
 
-def fused_plans_for(snap: CSRSnapshot) -> FusedPlan:
+#: version of the fused plan's arrays in a plan cache
+FUSED_PLAN_FORMAT = 1
+#: the fused plan's entry in an ``ops/aot_cache.AOTCache`` (its name, with
+#: the plan format)
+AOT_ENTRY = f"ops.fused_bfs.fused_plan.v{FUSED_PLAN_FORMAT}"
+
+
+def fused_plan_arrays(plan: FusedPlan) -> dict:
+    """The plan as numpy arrays (the geometry as one int64 row)."""
+    return {
+        "geom": np.asarray(plan.geom, dtype=np.int64),
+        "row_chunk_starts": plan.row_chunk_starts, "idx": plan.idx,
+        "item_off": plan.item_off, "item_row": plan.item_row,
+        "inc_deg": plan.inc_deg,
+    }
+
+
+def fused_plan_from_arrays(z) -> FusedPlan:
+    """The inverse of :func:`fused_plan_arrays`."""
+    return FusedPlan(
+        geom=FusedGeom(*(int(v) for v in z["geom"])),
+        row_chunk_starts=np.asarray(z["row_chunk_starts"]),
+        idx=np.asarray(z["idx"]), item_off=np.asarray(z["item_off"]),
+        item_row=np.asarray(z["item_row"]),
+        inc_deg=np.asarray(z["inc_deg"]))
+
+
+AOT_CODEC = (fused_plan_arrays, fused_plan_from_arrays)
+
+
+def fused_plans_for(snap: CSRSnapshot, aot=None) -> FusedPlan:
     """Fused plan for a snapshot, memoized on it. Raises ValueError when
-    :func:`plan_supported` declines, before building anything."""
+    :func:`plan_supported` declines, before building anything.
+
+    ``aot``, an ``ops/aot_cache.AOTCache`` whose content key is this
+    snapshot's fingerprint, serves the plan (built, or handed over from
+    the memo, on a miss); it is memoized here either way."""
     plan = getattr(snap, "_fused_plan", None)
-    if plan is None:
+    if plan is None or aot is not None:
         reason = plan_supported(snap, WORD)
         if reason is not None:
             raise ValueError(f"fused plan declined for this snapshot: {reason}")
-        plan = build_fused_plan(snap)
+        if aot is not None:
+            have = plan
+            plan = aot.get_or_compile(
+                AOT_ENTRY, lambda: have if have is not None
+                else build_fused_plan(snap), codec=AOT_CODEC)
+        else:
+            plan = build_fused_plan(snap)
         object.__setattr__(snap, "_fused_plan", plan)
     return plan
 

@@ -49,11 +49,24 @@ merges the host-enumerated tuples touching it
 set send the whole batch to the exact host enumerator
 (``join/host.host_join``), as do anchors outside the base.
 
+Cold start: with ``aot_cache_dir`` (or ``$HG_AOT_CACHE``) the prewarm reads
+each bucket's fused plan from ``ops/aot_cache.AOTCache``, keyed by the
+base snapshot's fingerprint, and stores what it builds; the reference
+caches XLA executables there, the port host plans (its CUDA libraries are
+cached by source hash already). ``stats_snapshot()["aot"]`` holds the
+cache's counters. Opening the cache or fingerprinting the base raises on
+failure; only a stale or corrupt entry is rebuilt, counted.
+
+Standing queries: ``attach_subscriptions`` hooks a
+``sub/manager.SubscriptionManager`` into every ``step`` and ``pump``
+(one evaluator round before batch formation, one after a finalize). The
+dispatch thread survives a failing round, but each is counted
+(``sub.pump_errors``) and logged.
+
 Out of this slice, each raising :class:`~.types.Unservable` that names its
-ROADMAP queue 1 item: AOT executables (``aot_cache_dir``; item 6), the planner and subscriptions (``attach_planner``, ``submit_planned``,
-``attach_subscriptions``; item 7), sharding (``sharded=True``,
-``hbm_budget_bytes``; item 8) and EXPLAIN records (``explain=True``; item
-10).
+ROADMAP queue 1 item: the planner (``attach_planner``, ``submit_planned``;
+item 7), sharding (``sharded=True``, ``hbm_budget_bytes``; item 8) and
+EXPLAIN records (``explain=True``; item 10).
 
 Deterministic testing: ``ServeConfig(manual=True)`` starts no thread —
 tests drive ``step()`` / ``pump()`` with an injected clock and a fake
@@ -163,7 +176,7 @@ class ServeConfig:
     faults: Optional[object] = None         # fault registry; None → global
     # -- raw speed -----------------------------------------------------------
     use_pallas_bfs: bool = True             # the fused route (K2 + K1)
-    aot_cache_dir: Optional[str] = None     # AOT executables: item 6
+    aot_cache_dir: Optional[str] = None     # plan cache; None → $HG_AOT_CACHE
     prewarm_aot: bool = True                # prewarm every bucket at start
     prewarm_hops: Optional[tuple] = None    # hops to warm; None → (default,)
     #: build the co-incidence CSR (and, with ``join_factorized``, the
@@ -291,8 +304,6 @@ class DeviceExecutor:
             raise ValueError("DeviceExecutor needs a graph")
         from hypergraphdb_tpu_torch.device import resolve_device, same_device
 
-        if config.aot_cache_dir:
-            raise _later(6, "aot_cache_dir (AOT executables)")
         self.graph = graph
         self.config = config
         self.stats = stats or ServeStats()
@@ -318,6 +329,42 @@ class DeviceExecutor:
         #: _join_dirty_info's memo
         self._join_dirty_memo: tuple = (-1, 0, frozenset())
         self.join_routes = dict.fromkeys(JOIN_ROUTES, 0)
+        #: the prewarm's plans: built in this process, and read from the
+        #: plan cache
+        self.prewarm_counts = {"built": 0, "from_cache": 0}
+        #: the persistent plan cache (``ops/aot_cache``): the configured
+        #: directory, else ``$HG_AOT_CACHE``, else None; its content key
+        #: pins entries to the base snapshot it was opened on
+        self._aot_base = None
+        self.aot = self._open_aot_cache()
+
+    def _open_aot_cache(self):
+        import os
+
+        from hypergraphdb_tpu_torch.ops.aot_cache import (
+            CACHE_ENV,
+            AOTCache,
+            default_cache,
+        )
+
+        if not self.config.aot_cache_dir and not os.environ.get(CACHE_ENV):
+            # decided before the content fingerprint, an O(E) CRC over the
+            # whole CSR
+            return None
+        self._aot_base = self.mgr.base
+        fp = self._content_key()
+        if self.config.aot_cache_dir:
+            return AOTCache(root=self.config.aot_cache_dir, content_key=fp,
+                            device=self.device)
+        return default_cache(content_key=fp, device=self.device)
+
+    def _content_key(self) -> str:
+        """Content fingerprint of the base the cache was opened on, the
+        ``snapshot_fingerprint`` half of every cache key: a restart over
+        the same graph hits, one over another graph rebuilds quietly."""
+        from hypergraphdb_tpu_torch.ops.ellbfs import snapshot_fingerprint
+
+        return snapshot_fingerprint(self._aot_base)
 
     def _time(self, kind: str, **add) -> None:
         with self._timing_lock:
@@ -416,19 +463,28 @@ class DeviceExecutor:
         ``prewarm_join_nbr`` the co-incidence CSR and the factorized
         relations on the device (unless the snapshot is over the pair
         budget, where the join lane serves on the host), the range
-        columns of ``prewarm_range_dims``, and for BFS the fused plan, the
-        device twin and each bucket's overlay on the current view; then run
-        each bucket's route once on pad seeds, so K2 (and, with a delta,
-        K1 on the overlay) is built and launched at start. Returns the
-        number of plans built. Raises whatever fails: a kernel that does
-        not build or launch fails the runtime's construction."""
+        columns of ``prewarm_range_dims``, and for BFS the fused plan (read
+        from the plan cache when one is open, once a bucket as the
+        reference warms each bucket's executable), the device twin and
+        each bucket's overlay on the current view; then run each bucket's
+        route once on pad seeds, so K2 (and, with a delta, K1 on the
+        overlay) is built and launched at start.
+
+        Returns the number of plans served from the cache, the
+        reference's figure; ``prewarm_counts`` holds it beside the number
+        of plans built. Raises whatever fails: a kernel that does not
+        build or launch fails the runtime's construction."""
         import torch
 
+        from hypergraphdb_tpu_torch.ops.fused_bfs import (
+            fused_plans_for,
+            plan_supported,
+        )
         from hypergraphdb_tpu_torch.storage.value_index import (
             value_index_column,
         )
 
-        built = 0
+        built = warm = 0
         if self.config.prewarm_join_nbr:
             from hypergraphdb_tpu_torch.ops.join import (
                 factorized_relations_device,
@@ -447,26 +503,35 @@ class DeviceExecutor:
         for dim in tuple(self.config.prewarm_range_dims or ()):
             value_index_column(self.mgr.base, int(dim), self.device)
             built += 1
-        if not self.config.use_pallas_bfs:
-            return built
-        hops = (int(max_hops) if max_hops is not None
-                else (tuple(self.config.prewarm_hops or ())
-                      or (self.config.default_max_hops,))[0])
-        view = self.mgr.pinned_view(self.config.max_lag_edges,
-                                    sync_delta=True)
-        n = view.base.num_atoms
-        top_r = min(self.config.top_r + 1, n + 1)
-        for b in buckets:
-            width = self._fused_width(b)
-            kw = self._fused_bfs_kwargs(view, width, count=False)
-            if kw is None:
-                continue
-            built += 1
-            seeds = torch.full((width,), n, dtype=torch.int32,
-                               device=self.device)
-            counts, _ = self._serve_bfs_fused(kw, seeds, hops, top_r)
-            counts.cpu()
-        return built
+        if self.config.use_pallas_bfs:
+            hops = (int(max_hops) if max_hops is not None
+                    else (tuple(self.config.prewarm_hops or ())
+                          or (self.config.default_max_hops,))[0])
+            view = self.mgr.pinned_view(self.config.max_lag_edges,
+                                        sync_delta=True)
+            n = view.base.num_atoms
+            top_r = min(self.config.top_r + 1, n + 1)
+            for b in buckets:
+                width = self._fused_width(b)
+                fresh = getattr(view.base, "_fused_plan", None) is None
+                if (self.aot is not None and view.base is self._aot_base
+                        and plan_supported(view.base, width) is None):
+                    hits, misses = self.aot.stats.hits, self.aot.stats.misses
+                    fused_plans_for(view.base, aot=self.aot)
+                    warm += self.aot.stats.hits - hits
+                    built += int(fresh and self.aot.stats.misses > misses)
+                    fresh = False
+                kw = self._fused_bfs_kwargs(view, width, count=False)
+                if kw is None:
+                    continue
+                built += int(fresh)
+                seeds = torch.full((width,), n, dtype=torch.int32,
+                                   device=self.device)
+                counts, _ = self._serve_bfs_fused(kw, seeds, hops, top_r)
+                counts.cpu()
+        self.prewarm_counts["built"] += built
+        self.prewarm_counts["from_cache"] += warm
+        return warm
 
     def _fused_bfs_kwargs(self, view, width: int, count: bool = True):
         """Route this batch through the fused hop? None keeps the dense
@@ -1386,6 +1451,11 @@ class ServeRuntime:
         #: in-flight batch: (tickets, executor token, batch key,
         #: device_attempted) — what _finalize needs
         self._pending: Optional[tuple] = None
+        #: attached ``sub.SubscriptionManager`` (``attach_subscriptions``):
+        #: the dispatch cycle drives its evaluator rounds, so standing
+        #: queries re-fire on the thread that forms batches and coalesce
+        #: with ad-hoc traffic by bucket key. None = one comparison a cycle
+        self.subscriptions = None
         self._closed = False
         self._close_started = False
         self._draining = False
@@ -1530,7 +1600,7 @@ class ServeRuntime:
             deadline_s, priority,
         )
 
-    # -- the host tiers that ride the runtime: item 7 ------------------------
+    # -- the host tiers that ride the runtime ---------------------------------
     def attach_planner(self, planner) -> None:
         raise _later(7, "attach_planner (plan/)")
 
@@ -1540,12 +1610,35 @@ class ServeRuntime:
         raise _later(7, "submit_planned (plan/)")
 
     def attach_subscriptions(self, manager) -> None:
-        raise _later(7, "attach_subscriptions (sub/)")
+        """Wire a ``sub.SubscriptionManager`` into the dispatch cycle:
+        every ``step``/``pump`` runs one evaluator round before batch
+        formation (dirty standing queries re-enter the admission queue
+        and coalesce with ad-hoc lanes) and one after a finalize
+        (completed evals notify within the same wake)."""
+        with self._close_lock:
+            self.subscriptions = manager
+
+    def _pump_subs(self) -> None:
+        """One evaluator round. A round that raises must not stop the
+        dispatch thread: it is counted (``sub.pump_errors``) and logged,
+        and the next cycle runs the next round."""
+        m = self.subscriptions
+        if m is None:
+            return
+        try:
+            m.pump()
+        except Exception:
+            import logging
+
+            m.stats.record_pump_error()
+            logging.getLogger("hypergraphdb_tpu_torch.serve").exception(
+                "subscription pump error (counted in sub.pump_errors)")
 
     # -- dispatch ------------------------------------------------------------
     def step(self, drain: bool = False) -> bool:
         """ONE synchronous collect→launch→finalize cycle (manual mode /
         tests). Returns whether a batch was dispatched."""
+        self._pump_subs()
         t_form = self.tracer.clock() if self.tracer.enabled else None
         batch = self.batcher.next_batch(self.clock(), drain=drain)
         if batch is None:
@@ -1554,6 +1647,7 @@ class ServeRuntime:
         if inflight is not None:
             self.stats.record_batch(len(inflight[0]), batch.bucket)
             self._finalize(*inflight)
+            self._pump_subs()
         return True
 
     def pump(self, drain: bool = False) -> bool:
@@ -1561,6 +1655,7 @@ class ServeRuntime:
         finalize the previously launched one — host assembly of batch N+1
         overlaps device execution of batch N. Returns whether a new batch
         was consumed."""
+        self._pump_subs()
         t_form = self.tracer.clock() if self.tracer.enabled else None
         batch = self.batcher.next_batch(self.clock(), drain=drain)
         inflight = None
@@ -1571,6 +1666,7 @@ class ServeRuntime:
         prev = self._take_pending()
         if prev is not None:
             self._finalize(*prev)
+            self._pump_subs()
         with self._close_lock:
             self._pending = inflight
         return batch is not None
@@ -1884,4 +1980,9 @@ class ServeRuntime:
         self.close(drain=True)
 
     def stats_snapshot(self) -> dict:
-        return self.stats.snapshot(queue_depth=self.queue.depth())
+        out = self.stats.snapshot(queue_depth=self.queue.depth())
+        # an injected executor has no plan cache
+        aot = getattr(self.executor, "aot", None)
+        if aot is not None:
+            out["aot"] = aot.stats.as_dict()
+        return out

@@ -1,0 +1,820 @@
+"""Standing-query evaluation: the incremental tier over the ingest delta.
+
+The port of ``hypergraphdb_tpu/sub/manager.py``. A
+:class:`SubscriptionManager` turns the serve runtime into a streaming view
+maintainer. Three moving parts:
+
+**Dirty tracking** (ingest threads). Graph mutation events, dispatched
+post-commit so listeners may read the graph, run a SOUND per-kind
+relevance predicate and mark affected subscriptions dirty:
+
+- *pattern*: a new or rewritten link whose target tuple covers every
+  anchor, or any mutation of a current match;
+- *range*: a new or revalued atom whose key falls in the window (probed
+  against bound keys computed once at subscribe), or any mutation of a
+  current match;
+- *BFS*: a link touching the reachable set (for removals, targets are
+  captured at the pre-commit remove-request event: the atom is gone by
+  the time the post-commit event fires), or any mutation of a member.
+
+Soundness means every event that can change a match set dirties it (an
+already-dirty subscription skips the predicate: the pending re-fire
+covers everything until it runs). The predicates only ever
+over-approximate, so a clean subscription's match set equals its full
+re-evaluation, the property the soak asserts.
+
+**Re-evaluation** (the dispatch thread). ``pump()``, hooked into the
+runtime's dispatch cycle, resubmits dirty subscriptions through the
+ordinary serve lanes (``submit`` of the prebuilt pattern or range
+request, ``submit_bfs``), so standing queries coalesce by bucket key into
+the same device lanes as ad-hoc traffic. The eval-seq protocol makes
+results exact without pausing ingest: the manager notes the ingest seq at
+submit (``S1``) and at resolve (``S2``); if the subscription was not
+re-dirtied in between, no relevant event landed in ``(S1, S2]``, so the
+lane's answer equals the match set at ``S2`` and anchors a sound delta. A
+re-dirtied result is discarded (the next round re-fires). A truncated
+lane result falls back to an exact host evaluation (``graph.find_all``
+or one traversal), counted ``sub.full_fallbacks``.
+
+**Delivery** (handler threads). Notifications are set deltas
+``(seq_from, seq_to, added, removed, digest)`` on a bounded
+per-subscription queue (``window`` deep). Overflow or deadline expiry
+sheds the WHOLE queue and arms a resync: a gap breaks the delta chain, so
+the consumer's next poll gets the full current set instead of a silently
+wrong one (shed-not-hang, counted ``sub.shed``). Consumers ignore any
+queued delta whose ``seq_to`` is <= the seq of a resync they applied.
+
+Differences from the reference, all deliberate:
+
+- One pump round owns a subscription's eval from submit to resolve: the
+  round marks it :data:`CLAIMED` under the manager lock, and only the
+  owner reads and clears ``inflight``. The reference picks finished
+  evals under its lock and unpacks ``sub.inflight`` outside it, where a
+  concurrent pump may have cleared it; two pumping threads then raise.
+- Nothing is dropped silently. A listener that raises is counted
+  (``sub.listener_errors``) and marks every subscription dirty, so no
+  relevant event is lost; a failing ``seq_source`` or perf feed raises;
+  only the reads that race a removal (the graph's ``HGException``) take
+  the conservative answer, as the reference's do.
+
+Lock order: manager lock -> (registry lock | subscription cond |
+admission cv); the stats lock is a leaf. ``poll`` takes the cond and the
+manager lock strictly in sequence, never nested.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from hypergraphdb_tpu_torch.core import events as ev
+from hypergraphdb_tpu_torch.core.errors import HGException
+from hypergraphdb_tpu_torch.serve.types import (
+    PatternRequest,
+    QueueFull,
+    RangeRequest,
+    RuntimeClosed,
+    ServeError,
+    Unservable,
+)
+from hypergraphdb_tpu_torch.sub.registry import (
+    Subscription,
+    SubscriptionRegistry,
+)
+from hypergraphdb_tpu_torch.sub.stats import SubStats
+
+SUB_KINDS = ("pattern", "range", "bfs")
+
+#: ``Subscription.inflight`` while one pump round owns the eval (between
+#: taking it and submitting, or between taking the finished future and
+#: applying it): no other round submits or resolves it meanwhile
+CLAIMED = ("claimed",)
+
+_log = logging.getLogger("hypergraphdb_tpu_torch.sub")
+
+
+@dataclass
+class SubConfig:
+    """Knobs of one manager."""
+
+    default_window: int = 64        # per-sub notification queue bound
+    default_deadline_s: Optional[float] = None  # notification TTL
+    staleness_bound_s: float = 5.0  # health: dirty-age SLO bound
+    max_subscriptions: int = 4096
+    #: deadline on eval submissions: bounds how long the dispatch thread
+    #: can block on a full admission queue (an eval shed by its deadline
+    #: simply re-fires), and makes standing load yield to ad-hoc traffic
+    eval_deadline_s: Optional[float] = 30.0
+    eval_priority: int = -1         # ad-hoc requests pop first
+    #: admission headroom kept free when burst-submitting evals: the
+    #: dispatch thread must never block itself out of draining its own
+    #: queue
+    submit_margin: int = 8
+    retry_backoff_s: float = 0.05   # failed eval re-fire delay
+    clock: Optional[Callable[[], float]] = None  # None -> runtime's
+
+
+class SubscriptionManager:
+    """Standing pattern / range / BFS queries over one graph + runtime.
+
+    Construct, then ``runtime.attach_subscriptions(manager)`` so the
+    dispatch cycle drives :meth:`pump`. ``seq_source`` injects an external
+    replication seq as the notification anchor; without it an internal
+    per-event counter anchors notifications."""
+
+    def __init__(self, graph, runtime, config: Optional[SubConfig] = None,
+                 seq_source: Optional[Callable[[], int]] = None,
+                 registry=None):
+        self.graph = graph
+        self.runtime = runtime
+        self.config = config or SubConfig()
+        self.stats = SubStats(registry)
+        self.subs = SubscriptionRegistry()
+        self._seq_source = seq_source
+        self._clock = (self.config.clock
+                       or getattr(runtime, "clock", None) or time.monotonic)
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._n_bfs = 0            # gates the pre-commit removal capture
+        self._pending_rm: dict[int, frozenset] = {}
+        self._listening = False
+        self._closed = False
+
+    # -- seq ------------------------------------------------------------------
+    def current_seq(self) -> int:
+        """Monotone notification anchor: the external seq when injected
+        (both clocks are monotone, so max() stays monotone), else the
+        internal per-event counter."""
+        s = self._seq
+        if self._seq_source is not None:
+            s = max(s, int(self._seq_source() or 0))
+        return s
+
+    # -- subscribe / unsubscribe ----------------------------------------------
+    def subscribe(self, kind: str, params: dict,
+                  window: Optional[int] = None,
+                  deadline_s: Optional[float] = None) -> dict:
+        """Register one standing query; returns the ``subscribed`` envelope
+        carrying the initial FULL match set and the seq it anchors (the
+        client's resume base). Raises :class:`Unservable` for shapes
+        outside the standing subset and :class:`QueueFull` at capacity."""
+        if self._closed:
+            raise RuntimeClosed("subscription manager is closed")
+        if kind not in SUB_KINDS:
+            raise Unservable(f"unknown subscription kind {kind!r}; "
+                             f"expected one of {SUB_KINDS}")
+        if len(self.subs) >= self.config.max_subscriptions:
+            raise QueueFull(
+                f"subscription capacity ({self.config.max_subscriptions})"
+            )
+        norm, request, range_keys = self._normalize(kind, params)
+        self._ensure_listeners()
+        w = int(window) if window is not None else self.config.default_window
+        if w < 1:
+            raise Unservable("window must be >= 1")
+        ttl = (deadline_s if deadline_s is not None
+               else self.config.default_deadline_s)
+        sub = self.subs.add(kind, norm, w, ttl)
+        sub.request = request
+        sub.range_keys = range_keys
+        if kind == "bfs":
+            with self._lock:
+                self._n_bfs += 1
+        # initial snapshot: the sub is already listener-visible, so any
+        # mutation landing DURING the eval marks it dirty and the first
+        # pump re-fires; a seq movement across the eval is treated the
+        # same way (conservative: the snapshot may be torn)
+        s_before = self.current_seq()
+        matches = self._full_eval(sub)
+        with self._lock:
+            s_after = self.current_seq()
+            sub.matches = matches
+            sub.last_seq = s_after
+            sub.refresh_digest()
+            if s_after != s_before:
+                sub.dirty = True
+                if sub.dirty_since is None:
+                    sub.dirty_since = self._clock()
+        self.stats.record_subscribe(len(self.subs))
+        return {
+            "what": "subscribed", "id": sub.sid, "kind": kind,
+            "seq": sub.last_seq, "window": w,
+            "matches": sorted(sub.matches), "digest": sub.digest,
+        }
+
+    def unsubscribe(self, sid: str) -> dict:
+        sub = self.subs.remove(sid)
+        if sub is None:
+            raise Unservable(f"unknown subscription {sid!r}")
+        if sub.kind == "bfs":
+            with self._lock:
+                self._n_bfs -= 1
+        with sub.cond:
+            sub.closed = True
+            sub.cond.notify_all()
+        self.stats.record_unsubscribe(len(self.subs))
+        return {"what": "unsubscribed", "id": sid}
+
+    def _normalize(self, kind: str, params: dict):
+        """Validate and normalize one subscription's parameters; returns
+        ``(normalized_params, prebuilt_request, range_keys)``."""
+        if kind == "pattern":
+            anchors = tuple(int(a) for a in params.get("anchors", ()))
+            th = params.get("type_handle")
+            req = PatternRequest(anchors,
+                                 None if th is None else int(th))
+            norm = {"anchors": list(req.anchors),
+                    "type_handle": req.type_handle}
+            return norm, req, None
+        if kind == "range":
+            if params.get("limit") is not None or params.get("desc"):
+                raise Unservable(
+                    "standing range queries are window-only: limit/desc "
+                    "have no incremental delta semantics (a top-k's "
+                    "membership depends on atoms outside it)"
+                )
+            from hypergraphdb_tpu_torch.query.bridge import to_range_request
+
+            req = to_range_request(
+                self.graph, params.get("lo"), params.get("hi"),
+                lo_op=params.get("lo_op", "gte"),
+                hi_op=params.get("hi_op", "lte"),
+                type_handle=params.get("type_handle"),
+                anchor=params.get("anchor"),
+            )
+            norm = {"lo": params.get("lo"), "hi": params.get("hi"),
+                    "lo_op": req.lo_op, "hi_op": req.hi_op,
+                    "type_handle": req.type_handle, "anchor": req.anchor}
+            return norm, req, self._bound_keys(req)
+        seed = int(params["seed"])
+        hops = params.get("max_hops")
+        hops = (int(hops) if hops is not None
+                else self.runtime.config.default_max_hops)
+        if hops < 1:
+            raise Unservable("bfs max_hops must be >= 1")
+        include = bool(params.get("include_seed", False))
+        norm = {"seed": seed, "max_hops": hops, "include_seed": include}
+        return norm, None, None
+
+    def _bound_keys(self, req: RangeRequest) -> tuple:
+        """(lo_key, hi_key) order-preserving byte bounds, computed ONCE at
+        subscribe so the per-event window probe never re-runs the
+        typesystem (the runtime's ``_range_keys`` discipline)."""
+        ts = self.graph.typesystem
+
+        def key_of(v):
+            if v is None:
+                return None
+            vt = ts.infer(v)
+            if vt is None:
+                raise Unservable(f"value {v!r} has no registered type")
+            return vt.to_key(v)
+
+        return key_of(req.values[0]), key_of(req.values[1])
+
+    # -- dirty tracking (ingest threads) --------------------------------------
+    def _ensure_listeners(self) -> None:
+        """Attach graph listeners on first use: bulk ingest keeps its
+        no-events fast path until someone actually subscribes."""
+        with self._lock:
+            if self._listening or self._closed:
+                return
+            self._listening = True
+        e = self.graph.events
+        e.add_listener(ev.HGAtomAddedEvent, self._on_added)
+        e.add_listener(ev.HGAtomRemovedEvent, self._on_removed)
+        e.add_listener(ev.HGAtomReplacedEvent, self._on_replaced)
+        e.add_listener(ev.HGAtomRemoveRequestEvent, self._on_remove_request)
+
+    def _detach_listeners(self) -> None:
+        with self._lock:
+            if not self._listening:
+                return
+            # flipped BEFORE the removals: _ensure_listeners is gated on
+            # _closed, so nobody re-attaches concurrently
+            self._listening = False
+        e = self.graph.events
+        e.remove_listener(ev.HGAtomAddedEvent, self._on_added)
+        e.remove_listener(ev.HGAtomRemovedEvent, self._on_removed)
+        e.remove_listener(ev.HGAtomReplacedEvent, self._on_replaced)
+        e.remove_listener(ev.HGAtomRemoveRequestEvent,
+                          self._on_remove_request)
+
+    def _listener_failed(self, what: str) -> None:
+        """A listener raised: dirty tracking must never break a write, but
+        the event may have been relevant, so every subscription goes
+        dirty (the next round re-evaluates them all) and the failure is
+        counted and logged."""
+        _log.warning("subscription dirty tracking failed (%s); marking "
+                     "every subscription dirty", what, exc_info=True)
+        self.stats.record_listener_error()
+        now = self._clock()
+        with self._lock:
+            for sub in self.subs.all():
+                sub.dirty = True
+                if sub.dirty_since is None:
+                    sub.dirty_since = now
+        self.runtime.queue.wake()
+
+    def _on_remove_request(self, graph, event) -> int:
+        """PRE-commit capture: a removed link's targets are unreadable once
+        the post-commit removed event fires, and BFS relevance needs them.
+        Gated on BFS subscriptions existing at all."""
+        try:
+            if self._n_bfs:
+                h = int(event.handle)
+                tgts = _targets(graph, h)
+                if tgts:
+                    self._pending_rm[h] = tgts
+        except Exception:
+            self._listener_failed("remove request")
+        return ev.HGListener.CONTINUE
+
+    def _on_added(self, graph, event) -> int:
+        try:
+            self._note(graph, int(event.handle), alive=True,
+                       rm_targets=None)
+        except Exception:
+            self._listener_failed("add")
+        return ev.HGListener.CONTINUE
+
+    def _on_replaced(self, graph, event) -> int:
+        try:
+            self._note(graph, int(event.handle), alive=True,
+                       rm_targets=None)
+        except Exception:
+            self._listener_failed("replace")
+        return ev.HGListener.CONTINUE
+
+    def _on_removed(self, graph, event) -> int:
+        try:
+            h = int(event.handle)
+            self._note(graph, h, alive=False,
+                       rm_targets=self._pending_rm.pop(h, frozenset()))
+        except Exception:
+            self._listener_failed("remove")
+        return ev.HGListener.CONTINUE
+
+    def _note(self, graph, h: int, alive: bool, rm_targets) -> None:
+        """One mutation: advance the seq, run the relevance predicates,
+        nudge the dispatch loop if anything went dirty. ``alive`` means
+        the atom is readable (add/replace); removals carry the
+        pre-captured targets instead."""
+        tgts: Optional[frozenset] = None if alive else rm_targets
+        key = _UNSET if alive else None  # a dead atom has no value key
+
+        def targets() -> frozenset:
+            nonlocal tgts
+            if tgts is None:
+                tgts = _targets(graph, h)
+            return tgts
+
+        def value_key():
+            nonlocal key
+            if key is _UNSET:
+                from hypergraphdb_tpu_torch.storage.value_index import (
+                    value_key_of,
+                )
+
+                key = value_key_of(graph, h)
+            return key
+
+        woke = False
+        with self._lock:
+            self._seq += 1
+            now = None
+            for sub in self.subs.all():
+                if sub.dirty:
+                    continue  # pending full re-fire already covers this
+                if not self._relevant(graph, sub, h, alive,
+                                      targets, value_key):
+                    continue
+                sub.dirty = True
+                if sub.dirty_since is None:
+                    if now is None:
+                        now = self._clock()
+                    sub.dirty_since = now
+                woke = True
+        if woke:
+            self.runtime.queue.wake()  # un-park the dispatch loop
+
+    def _relevant(self, graph, sub: Subscription, h: int, alive: bool,
+                  targets, value_key) -> bool:
+        """SOUND per-kind relevance of one mutation to one clean
+        subscription: may over-approximate, never under."""
+        if sub.kind == "pattern":
+            if h in sub.matches:
+                return True
+            if not alive:
+                return False
+            req = sub.request
+            if not set(req.anchors).issubset(targets()):
+                return False
+            if req.type_handle is not None:
+                try:
+                    if int(graph.get_type_handle_of(h)) != int(
+                        req.type_handle
+                    ):
+                        return False
+                except HGException:
+                    return True  # unreadable type: stay conservative
+            return True
+        if sub.kind == "range":
+            if h in sub.matches:
+                return True
+            if not alive:
+                return False
+            return self._range_live_match(graph, sub.request, h,
+                                          sub.range_keys, value_key())
+        # bfs: anything touching the reachable set (members + seed)
+        reach = sub.matches
+        seed = sub.params["seed"]
+        if h in reach or h == seed:
+            return True
+        t = targets()
+        return bool(t) and (seed in t or not reach.isdisjoint(t))
+
+    def _range_live_match(self, graph, req: RangeRequest, h: int,
+                          keys: tuple, key) -> bool:
+        """The full live range predicate (kind, bounds, type, anchor)
+        against a precomputed value key: the runtime's
+        ``_range_matches_host`` logic, listener edition."""
+        if key is None or key[0] != req.dim:
+            return False
+        lo_key, hi_key = keys
+        payload = key[1:]
+        if lo_key is not None:
+            lo = lo_key[1:]
+            if payload < lo or (payload == lo and req.lo_op == "gt"):
+                return False
+        if hi_key is not None:
+            hi = hi_key[1:]
+            if payload > hi or (payload == hi and req.hi_op == "lt"):
+                return False
+        try:
+            if req.type_handle is not None and int(
+                graph.get_type_handle_of(h)
+            ) != int(req.type_handle):
+                return False
+            if req.anchor is not None and int(req.anchor) not in {
+                int(t) for t in graph.get_targets(h)
+            }:
+                return False
+        except HGException:
+            return True  # torn read: stay conservative
+        return True
+
+    # -- re-evaluation (dispatch thread) --------------------------------------
+    def pump(self) -> None:
+        """One evaluator round, driven from the runtime's dispatch cycle:
+        resolve finished evals, shed expired notifications, re-fire dirty
+        subscriptions, refresh gauges. Cheap when idle."""
+        now = self._clock()
+        self._resolve_inflight()
+        self._shed_expired(now)
+        self._submit_dirty(now)
+        self._gauges(now)
+
+    def _submit_dirty(self, now: float) -> None:
+        with self._lock:
+            cands = [s for s in self.subs.all()
+                     if s.dirty and s.inflight is None and not s.closed
+                     and s.retry_at <= now]
+        if not cands:
+            return
+        # headroom: never submit the dispatch thread into its own
+        # backpressure (eval deadlines bound the residual race)
+        cfg = self.runtime.config
+        budget = (cfg.max_queue - self.runtime.queue.depth()
+                  - self.config.submit_margin)
+        submitted = 0
+        for sub in cands[:max(0, budget)]:
+            with self._lock:
+                if not sub.dirty or sub.inflight is not None:
+                    continue
+                sub.dirty = False
+                sub.inflight = CLAIMED
+                s1 = self.current_seq()
+            try:
+                fut = self._submit_eval(sub)
+            except ServeError:
+                # QueueFull / AdmissionGated / closed: stay dirty, back
+                # off, staleness keeps score
+                with self._lock:
+                    sub.inflight = None
+                    sub.dirty = True
+                    sub.retry_at = now + self.config.retry_backoff_s
+                continue
+            except BaseException:
+                with self._lock:
+                    sub.inflight = None
+                    sub.dirty = True
+                raise
+            with self._lock:
+                sub.inflight = (fut, s1)
+            submitted += 1
+        if submitted:
+            self.stats.record_eval_round(
+                submitted, max(0, len(self.subs) - submitted)
+            )
+
+    def _submit_eval(self, sub: Subscription):
+        cfg = self.config
+        if sub.kind == "pattern" or sub.kind == "range":
+            return self.runtime.submit(sub.request, cfg.eval_deadline_s,
+                                       cfg.eval_priority)
+        p = sub.params
+        return self.runtime.submit_bfs(
+            p["seed"], p["max_hops"], deadline_s=cfg.eval_deadline_s,
+            include_seed=p["include_seed"], priority=cfg.eval_priority,
+        )
+
+    def _resolve_inflight(self) -> None:
+        # take every finished eval under the lock: from here this round
+        # owns it (CLAIMED), so no other round reads or clears it
+        with self._lock:
+            done = []
+            for s in self.subs.all():
+                inf = s.inflight
+                if inf is not None and inf is not CLAIMED and inf[0].done():
+                    done.append((s, inf[0]))
+                    s.inflight = CLAIMED
+        latencies = []
+        for i, (sub, fut) in enumerate(done):
+            try:
+                new, failed = self._eval_result(sub, fut)
+            except BaseException:
+                # release what this round still owns before raising
+                with self._lock:
+                    for s, _f in done[i:]:
+                        s.inflight = None
+                        s.dirty = True
+                raise
+            with self._lock:
+                sub.inflight = None
+                if failed:
+                    sub.dirty = True
+                    sub.retry_at = self._clock() + \
+                        self.config.retry_backoff_s
+                elif sub.dirty:
+                    # re-dirtied mid-flight: the answer's seq anchor is
+                    # unprovable; discard, the next round re-fires
+                    self.stats.record_eval()
+                else:
+                    self.stats.record_eval()
+                    latency = self._apply(sub, new, self.current_seq())
+                    if latency is not None:
+                        latencies.append(latency)
+        for latency in latencies:
+            self._observe_sub_perf(latency)
+
+    def _eval_result(self, sub: Subscription, fut) -> tuple:
+        """(new match set, failed) of one finished eval. A serve error
+        (backpressure, a shed deadline) re-fires later; any other error is
+        an eval error, counted."""
+        try:
+            res = fut.result()
+            if res.truncated:
+                # the compact window cannot carry the full set: one exact
+                # host pass instead
+                self.stats.record_full_fallback()
+                return self._full_eval(sub), False
+            return {int(x) for x in res.matches}, False
+        except ServeError:
+            return None, True
+        except Exception:
+            _log.warning("subscription %s: eval failed", sub.sid,
+                         exc_info=True)
+            self.stats.record_eval_error()
+            return None, True
+
+    def _apply(self, sub: Subscription, new: set, s2: int) -> Optional[float]:
+        """Commit one clean eval (caller holds the manager lock): diff,
+        advance the seq anchor, push the delta. Returns the dirty →
+        notified wall seconds when a delta was pushed (the ``sub`` lane's
+        perf sample), else None."""
+        added = new - sub.matches
+        removed = sub.matches - new
+        seq_from = sub.last_seq
+        since = sub.dirty_since
+        sub.matches = new
+        sub.last_seq = s2
+        sub.dirty_since = None
+        if not added and not removed:
+            return None  # no news: the anchor still advances (freshness)
+        sub.refresh_digest()
+        self._enqueue(sub, {
+            "what": "notification", "id": sub.sid,
+            "seq_from": seq_from, "seq_to": s2,
+            "added": sorted(added), "removed": sorted(removed),
+            "digest": sub.digest,
+        })
+        return (None if since is None
+                else max(0.0, self._clock() - since))
+
+    def _observe_sub_perf(self, latency_s: float) -> None:
+        """Feed the runtime's perf sentinel (``ServeConfig(perf=...)``)
+        one delivered notification on the ``sub`` lane: ingest-dirty →
+        delta-enqueued wall seconds."""
+        perf = getattr(self.runtime, "perf", None)
+        if perf is not None:
+            perf.observe("sub", latency_s)
+
+    def _enqueue(self, sub: Subscription, env: dict) -> None:
+        with sub.cond:
+            if sub.needs_resync or sub.closed:
+                return  # the armed resync supersedes queued deltas
+            if len(sub.queue) >= sub.window:
+                # overflow: a dropped delta breaks the chain; shed the
+                # whole queue and resync instead of delivering a lie
+                n = len(sub.queue)
+                sub.queue.clear()
+                sub.needs_resync = True
+                self.stats.record_shed(n + 1)
+            else:
+                sub.queue.append((self._clock(), env))
+                self.stats.record_notify()
+            sub.cond.notify_all()
+
+    def _shed_expired(self, now: float) -> None:
+        for sub in self.subs.all():
+            ttl = sub.deadline_s
+            if ttl is None:
+                continue
+            with sub.cond:
+                if not sub.queue or now - sub.queue[0][0] <= ttl:
+                    continue
+                # one expired delta gaps the chain: shed everything
+                # queued and resync (shed-not-hang)
+                n = len(sub.queue)
+                sub.queue.clear()
+                sub.needs_resync = True
+                self.stats.record_shed(n)
+                sub.cond.notify_all()
+
+    def _gauges(self, now: float) -> None:
+        depth = 0
+        oldest: Optional[float] = None
+        for sub in self.subs.all():
+            with sub.cond:
+                depth += len(sub.queue)
+            ds = sub.dirty_since
+            if ds is not None and (oldest is None or ds < oldest):
+                oldest = ds
+        self.stats.set_queue_depth(depth)
+        self.stats.set_staleness(0.0 if oldest is None
+                                 else max(0.0, now - oldest))
+
+    # -- full-evaluation oracles ----------------------------------------------
+    def _full_eval(self, sub: Subscription) -> set:
+        """The exact host answer for one subscription, against the live
+        graph: the initial snapshot, the truncation fallback and the
+        differential soak's ground truth all share this path."""
+        g = self.graph
+        p = sub.params
+        from hypergraphdb_tpu_torch.query import conditions as c
+
+        if sub.kind == "pattern":
+            cls = [c.Incident(a) for a in p["anchors"]]
+            if p["type_handle"] is not None:
+                cls.append(c.AtomType(p["type_handle"]))
+            cond = cls[0] if len(cls) == 1 else c.And(*cls)
+            return {int(h) for h in g.find_all(cond)}
+        if sub.kind == "range":
+            req = sub.request
+            cls = []
+            lo, hi = req.values
+            if lo is not None:
+                cls.append(c.AtomValue(lo, req.lo_op))
+            if hi is not None:
+                cls.append(c.AtomValue(hi, req.hi_op))
+            if req.type_handle is not None:
+                cls.append(c.AtomType(req.type_handle))
+            if req.anchor is not None:
+                cls.append(c.Incident(req.anchor))
+            cond = cls[0] if len(cls) == 1 else c.And(*cls)
+            return {int(h) for h in g.find_all(cond)}
+        from hypergraphdb_tpu_torch.algorithms.traversals import (
+            HGBreadthFirstTraversal,
+        )
+
+        out: set = set()
+        seed = p["seed"]
+        try:
+            if not g.contains(seed):
+                return out
+            if p["include_seed"]:
+                out.add(seed)
+            for _link, nbr in HGBreadthFirstTraversal(
+                g, seed, max_distance=p["max_hops"]
+            ):
+                out.add(int(nbr))
+        except HGException:
+            # a seed racing removal mid-traversal: the partial set is
+            # still anchored; the next dirty round settles it
+            _log.debug("bfs full-eval raced a mutation", exc_info=True)
+        return out
+
+    # -- delivery (handler threads) -------------------------------------------
+    def poll(self, sid: str, max_notes: int = 32,
+             timeout_s: Optional[float] = None) -> dict:
+        """Long-poll one subscription's queue. Returns a ``notifications``
+        envelope (possibly empty on timeout), or a ``resync`` envelope
+        carrying the full current set after a shed: the consumer replaces
+        its set and ignores queued deltas whose ``seq_to`` <= the
+        resync's ``seq``."""
+        sub = self.subs.get(sid)
+        if sub is None:
+            raise Unservable(f"unknown subscription {sid!r}")
+        self.stats.record_poll()
+        deadline = (None if timeout_s is None
+                    else self._clock() + max(0.0, timeout_s))
+        resync = False
+        notes: list = []
+        with sub.cond:
+            while True:
+                if sub.closed:
+                    raise Unservable(f"subscription {sid!r} is closed")
+                if sub.needs_resync:
+                    sub.needs_resync = False
+                    sub.queue.clear()  # superseded deltas
+                    resync = True
+                    break
+                if sub.queue:
+                    while sub.queue and len(notes) < max(1, max_notes):
+                        notes.append(sub.queue.popleft()[1])
+                    more = bool(sub.queue)
+                    break
+                remaining = (None if deadline is None
+                             else deadline - self._clock())
+                if remaining is not None and remaining <= 0:
+                    more = False
+                    break
+                sub.cond.wait(remaining)
+        if resync:
+            # cond released; the manager lock gives a coherent (matches,
+            # seq, digest) triple: any delta enqueued in the gap has
+            # seq_to <= this seq and the client drops it
+            with self._lock:
+                matches = list(sub.matches)
+                seq, digest = sub.last_seq, sub.digest
+            self.stats.record_resync()
+            return {"what": "resync", "id": sid, "seq": seq,
+                    "matches": sorted(matches), "digest": digest}
+        return {"what": "notifications", "id": sid, "notes": notes,
+                "more": more}
+
+    # -- observability / lifecycle --------------------------------------------
+    def health_section(self) -> dict:
+        """The ``sub`` health section: staleness (the oldest un-notified
+        dirty age) against the configured bound, and the port's error
+        counters."""
+        now = self._clock()
+        with self._lock:
+            subs = self.subs.all()
+            dirty = sum(1 for s in subs if s.dirty)
+            inflight = sum(1 for s in subs if s.inflight is not None)
+            oldest = min((s.dirty_since for s in subs
+                          if s.dirty_since is not None), default=None)
+        staleness = 0.0 if oldest is None else max(0.0, now - oldest)
+        bound = self.config.staleness_bound_s
+        return {
+            "active": len(subs), "dirty": dirty, "inflight": inflight,
+            "staleness_s": round(staleness, 6), "bound_s": bound,
+            "violating": staleness > bound,
+            "notified_total": self.stats.notified,
+            "shed_total": self.stats.shed,
+            "pump_errors": self.stats.pump_errors,
+            "listener_errors": self.stats.listener_errors,
+        }
+
+    def close(self) -> None:
+        """Detach from the graph and wake every parked poller; the runtime
+        is NOT closed (it outlives its standing queries)."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self._detach_listeners()
+        for sub in self.subs.all():
+            with sub.cond:
+                sub.closed = True
+                sub.cond.notify_all()
+
+
+def _targets(graph, h: int) -> frozenset:
+    """The targets of ``h``, empty when it is gone (a racing removal)."""
+    try:
+        return frozenset(int(t) for t in graph.get_targets(h))
+    except HGException:
+        return frozenset()
+
+
+class _Unset:
+    __slots__ = ()
+
+
+_UNSET = _Unset()

@@ -1,0 +1,122 @@
+"""Standing-query registry: subscriptions and their per-sub state.
+
+The port of ``hypergraphdb_tpu/sub/registry.py``.
+
+A :class:`Subscription` is one standing pattern / range / BFS query with
+the state the incremental evaluator and the delivery plane share:
+
+- ``matches`` — the current FULL match set (atom handles), the thing
+  deltas are diffed against;
+- ``last_seq`` — the ingest seq the client is notified through (the
+  resume anchor: a notification carries ``seq_from == last_seq`` before
+  it advances);
+- ``digest`` — order-independent 64-bit digest of ``matches`` (the
+  residual match-set digest; rides every notification so a consumer can
+  audit that its replayed set matches the server's);
+- ``queue`` — the bounded per-subscription notification queue
+  (``window`` deep) with its condition variable (long-poll parking);
+- ``dirty`` / ``inflight`` — the evaluator's re-fire state.
+
+The :class:`SubscriptionRegistry` is a locked id → subscription map;
+evaluation policy lives in :class:`~hypergraphdb_tpu_torch.sub.manager
+.SubscriptionManager`, wire shapes in :mod:`hypergraphdb_tpu_torch.sub.wire`.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Iterable, Optional
+
+_MASK64 = (1 << 64) - 1
+
+
+def match_digest(matches: Iterable[int]) -> int:
+    """Order-independent 64-bit digest of a match set: XOR of each
+    handle's splitmix64 finalizer — O(n), incrementally updatable
+    (XOR-in an added handle, XOR-out a removed one), and collision-safe
+    enough for a drift AUDIT (the diff itself is always exact)."""
+    d = 0
+    for h in matches:
+        x = (int(h) + 0x9E3779B97F4A7C15) & _MASK64
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+        d ^= x ^ (x >> 31)
+    return d & _MASK64
+
+
+@dataclass
+class Subscription:
+    """One standing query. Mutable state is guarded by the owning
+    manager's lock EXCEPT the notification queue, which the delivery
+    plane guards with ``cond`` (enqueue from the dispatch thread, drain
+    from HTTP handler threads)."""
+
+    sid: str
+    kind: str                        # "pattern" | "range" | "bfs"
+    params: dict                     # normalized request parameters
+    window: int                      # bounded queue depth (backpressure)
+    deadline_s: Optional[float]      # notification TTL before shed
+    # -- evaluator state (manager lock) --
+    matches: set = field(default_factory=set)
+    last_seq: int = 0
+    digest: int = 0
+    dirty: bool = False
+    dirty_since: Optional[float] = None
+    #: (future, eval_seq) of the eval in flight, or the manager's CLAIMED
+    #: marker while one pump round owns it (submitting or resolving)
+    inflight: object = None
+    retry_at: float = 0.0                # failed-eval backoff gate
+    #: prebuilt serve request (PatternRequest / RangeRequest; None for
+    #: bfs, whose request is rebuilt from params per submit)
+    request: object = None
+    # range acceleration: precomputed order-preserving bound keys
+    # (dim, lo_key, hi_key) so the per-event window probe never re-runs
+    # the typesystem
+    range_keys: Optional[tuple] = None
+    # -- delivery state (cond) --
+    queue: deque = field(default_factory=deque)
+    cond: threading.Condition = field(default_factory=threading.Condition)
+    needs_resync: bool = False
+    closed: bool = False
+
+    def refresh_digest(self) -> None:
+        self.digest = match_digest(self.matches)
+
+
+class SubscriptionRegistry:
+    """Locked id → :class:`Subscription` map. Ids are process-local
+    (``sub-<n>``); cross-process identity is the front door's concern
+    (it maps its own ids onto each backend's)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._subs: dict[str, Subscription] = {}
+        self._ids = itertools.count(1)
+
+    def add(self, sub_kind: str, params: dict, window: int,
+            deadline_s: Optional[float]) -> Subscription:
+        with self._lock:
+            sid = f"sub-{next(self._ids)}"
+            sub = Subscription(sid=sid, kind=sub_kind, params=params,
+                               window=window, deadline_s=deadline_s)
+            self._subs[sid] = sub
+            return sub
+
+    def get(self, sid: str) -> Optional[Subscription]:
+        with self._lock:
+            return self._subs.get(sid)
+
+    def remove(self, sid: str) -> Optional[Subscription]:
+        with self._lock:
+            return self._subs.pop(sid, None)
+
+    def all(self) -> list:
+        with self._lock:
+            return list(self._subs.values())
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._subs)

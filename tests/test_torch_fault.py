@@ -292,10 +292,11 @@ def test_scenarios_see_real_mixes():
 
 
 def test_wired_points_are_the_ports_sites():
-    """The port lists the four points it wires, each a reference point."""
+    """The port lists the six points it wires, each a reference point."""
     ref, port = fault(PKGS[0]), fault(PKGS[1])
     assert set(port.WIRED_POINTS) == {"serve.launch", "serve.collect",
-                                      "tx.commit.pre", "tx.commit.apply"}
+                                      "tx.commit.pre", "tx.commit.apply",
+                                      "ckpt.save_npz", "ckpt.save_plans"}
     assert set(port.WIRED_POINTS) <= set(ref.WIRED_POINTS)
     assert port.global_faults() is port.global_faults()
     assert port.global_faults() is not ref.global_faults()

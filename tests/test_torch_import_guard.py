@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "hypergraphdb_tpu_torch"
 #: top-level packages the port must never import
@@ -90,3 +92,19 @@ def test_graph_layer_runs_with_msgpack_and_sortedcontainers_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "hypergraphdb_tpu_torch.ops.bitfrontier",
+    "hypergraphdb_tpu_torch.ops.checkpoint",
+    "hypergraphdb_tpu_torch.ops.aot_cache",
+    "hypergraphdb_tpu_torch.sub",
+    "hypergraphdb_tpu_torch.sub.manager",
+    "hypergraphdb_tpu_torch.sub.registry",
+    "hypergraphdb_tpu_torch.sub.stats",
+    "hypergraphdb_tpu_torch.sub.wire",
+])
+def test_guard_covers_the_persistence_and_subscription_modules(module):
+    """The packed BFS, persistence and subscription modules are among the
+    modules the guard imports with the reference blocked."""
+    assert module in _module_names()

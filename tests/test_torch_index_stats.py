@@ -79,3 +79,70 @@ def test_user_index_stats_persist_and_recount():
     assert first["entries"] == 500 == first["keys"] and again == first
     assert drifted["entries"] == 2500 and forced["entries"] == 2500
     assert by_value["entries"] >= 2500 and missing["entries"] == 0
+
+
+def test_query_time_counts_are_kept_in_memory():
+    """The planner's whole-index count, made inside ``find_all``'s
+    read-only transaction, cannot persist there (the transaction drops
+    its writes; the reference recounts on every query). The port keeps
+    it in the graph's memory under the same validity rules: the second
+    query scans no index, and the answers and estimates equal the
+    reference's."""
+    from hypergraphdb_tpu_torch.storage import api
+
+    def build(pkg, g, hg, qc):
+        g.config.query.range_estimate_cap = 64
+        cond = hg.and_(hg.value(-1, "gt"), hg.value(400, "lt"))
+        return (sorted(g.get(h) for h in g.find_all(cond)),
+                qc.compile_query(g, hg.value(-1, "gt")).plan.estimate(g))
+
+    assert on_both(build)[0] == list(range(400))
+    g, hg, qc = valued(PKGS[1])
+    g.config.query.range_estimate_cap = 64
+    cond = hg.and_(hg.value(-1, "gt"), hg.value(400, "lt"))
+    scans = []
+    real = api.HGIndex.bulk_items
+
+    def counted(self, lo=None):
+        scans.append(self.name)
+        return real(self, lo)
+
+    api.HGIndex.bulk_items = counted
+    try:
+        first = sorted(g.find_all(cond))
+        n_first = len(scans)
+        assert sorted(g.find_all(cond)) == first
+        assert n_first >= 1 and len(scans) == n_first
+        assert "hg.byvalue" in g._index_stats_memo
+    finally:
+        api.HGIndex.bulk_items = real
+        g.close()
+
+
+def test_range_count_in_a_transaction_reads_its_own_writes():
+    """``count_range`` through the transactional view: the backend's
+    ordered count where the transaction touched nothing in the range, the
+    merged range where it did; both equal ``len(find_range)`` clamped to
+    the cap."""
+    from hypergraphdb_tpu_torch.core.graph import IDX_BY_VALUE
+
+    g, hg, qc = valued(PKGS[1])
+    try:
+        idx = g.store.get_index(IDX_BY_VALUE)
+        lo = g.typesystem.infer(100).to_key(100)
+        hi = g.typesystem.infer(200).to_key(200)
+        assert idx.count_range(lo, hi) == len(idx.find_range(lo, hi)) == 100
+        assert idx.count_range(lo, hi, cap=10) == 10
+
+        def inside():
+            g.add(150)
+            g.add(150)
+            got = idx.count_range(lo, hi)
+            assert got == len(idx.find_range(lo, hi)) == 102
+            assert idx.count_range(lo, hi, cap=101) == 101
+            return got
+
+        assert g.txman.transact(inside) == 102
+        assert idx.count_range(lo, hi) == 102
+    finally:
+        g.close()

@@ -409,8 +409,7 @@ def port():
 
 @pytest.mark.parametrize("case,item", [
     ("explain", 10), ("join_explain", 10),
-    ("submit_planned", 7), ("attach_planner", 7),
-    ("attach_subscriptions", 7)])
+    ("submit_planned", 7), ("attach_planner", 7)])
 def test_out_of_slice_entry_points_raise_naming_their_item(case, item):
     P = port()
     rt, ex, clock = make_runtime(P, linger=0.0)
@@ -420,7 +419,6 @@ def test_out_of_slice_entry_points_raise_naming_their_item(case, item):
             P.types.JoinRequest(None, (1,)), explain=True),
         "submit_planned": lambda: rt.submit_planned(None),
         "attach_planner": lambda: rt.attach_planner(object()),
-        "attach_subscriptions": lambda: rt.attach_subscriptions(object()),
     }
     with pytest.raises(P.types.Unservable, match=f"item {item}"):
         calls[case]()
@@ -429,8 +427,7 @@ def test_out_of_slice_entry_points_raise_naming_their_item(case, item):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("sharded", True, 8), ("hbm_budget_bytes", 1 << 30, 8),
-    ("aot_cache_dir", "cache", 6)])
+    ("sharded", True, 8), ("hbm_budget_bytes", 1 << 30, 8)])
 def test_out_of_slice_options_raise_naming_their_item(field, value, item):
     from hypergraphdb_tpu_torch.core.graph import HyperGraph
 
@@ -444,6 +441,73 @@ def test_out_of_slice_options_raise_naming_their_item(field, value, item):
         assert g.incremental is None
     finally:
         g.close()
+
+
+class FakeManager:
+    """A subscription manager that records when the dispatch cycle runs
+    its evaluator rounds, in the fake executor's event log."""
+
+    def __init__(self, ex):
+        self.ex = ex
+
+    def pump(self):
+        self.ex.events.append(("sub.pump",))
+
+
+def subscription_rounds(P):
+    """Where ``step`` and ``pump`` run the attached manager's rounds: one
+    before batch formation, one after each finalize."""
+    rt, ex, clock = make_runtime(P, linger=0.0)
+    rt.attach_subscriptions(FakeManager(ex))
+    assert rt.subscriptions is not None
+    futs = [rt.submit_bfs(1), rt.submit_bfs(2)]
+    rt.step(drain=True)
+    futs.append(rt.submit_bfs(3))
+    rt.pump(drain=True)
+    rt.pump(drain=True)
+    rt.step(drain=True)                   # nothing queued: one round
+    return [outcome(f) for f in futs], view(rt, ex)
+
+
+def test_attach_subscriptions_drives_rounds_as_on_the_reference():
+    """The entry point that waited for the subscription tier now wires a
+    manager into the dispatch cycle: its rounds run at the same points of
+    ``step`` and ``pump`` as on the reference."""
+    ref, prt = (subscription_rounds(package(p)) for p in PKGS)
+    assert prt == ref
+    events = prt[1]["events"]
+    assert events[:4] == [("sub.pump",), ("launch", 0), ("collect", 0),
+                          ("sub.pump",)]
+    assert events.count(("sub.pump",)) == 6
+
+
+def test_aot_cache_dir_opens_the_plan_cache_as_on_the_reference(tmp_path):
+    """The option that waited for item 6 now opens the cache: keyed by the
+    same content fingerprint as the reference's on the same graph, and
+    ``stats_snapshot()["aot"]`` carries the reference's counter names."""
+    from tests.conftest import make_random_hypergraph
+
+    got = {}
+    for pkg in PKGS:
+        imp = importlib.import_module
+        kw, cfg = {}, {"manual": True, "aot_cache_dir": str(tmp_path / pkg),
+                       "prewarm_aot": False}
+        if pkg == PKGS[1]:
+            kw = {"query": imp(f"{pkg}.core.config").QueryConfig(
+                device="cpu")}
+            cfg["device"] = "cpu"
+        g = imp(f"{pkg}.core.graph").HyperGraph(
+            imp(f"{pkg}.core.config").HGConfiguration(**kw))
+        make_random_hypergraph(g, n_nodes=40, n_links=80, seed=5)
+        rt = imp(f"{pkg}.serve").ServeRuntime(
+            g, imp(f"{pkg}.serve").ServeConfig(**cfg))
+        aot = rt.executor.aot
+        got[pkg] = (aot.content_key, aot.dir.startswith(str(tmp_path / pkg)),
+                    rt.stats_snapshot()["aot"])
+        rt.close()
+        g.close()
+    assert got[PKGS[1]] == got[PKGS[0]]
+    assert got[PKGS[1]][0]                # a real fingerprint, not ""
 
 
 @pytest.mark.parametrize("case", ["submit_join", "join_request"])
