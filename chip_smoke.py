@@ -211,6 +211,46 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     c6's cold-start probe in two fresh processes, the plan cache empty
     then full (the second with no miss and a disk hit), both answers
     equal to a host BFS.
+20. Planned and observed serving (after 17, before 11): (a) phases 16 and
+    17 wrote this run's c6, c9, c10 (patterns and subscriptions) and c11
+    windows as bench-shaped records into ``build/bench_records/``;
+    ``obs.perf.seed_baseline`` seeds a baseline from them, read back
+    through ``load_baseline``, each lane beside the repository's CPU
+    record, and the planner's choices under the two sets of priors
+    counted. (b) c11's graph from phase 17 served through one
+    ``ServeRuntime`` with the bfs, pattern, range and join lanes and a
+    ``plan.QueryPlanner`` priced from (a)'s file
+    (``from_committed_baseline``): a seeded corpus of
+    :data:`C20_PER_FORM` conditions of each of five forms (value windows
+    over link values, incident patterns, co-incidence, BFS, an equality),
+    every enumerable forced shape of every condition equal to the host
+    shape (``graph.find_all``), K2 launching on the bfs shape; the
+    unforced choices by shape, est_rows against actual rows, ``plan()``
+    alone and each choice's host-to-host milliseconds; a Poisson flood of
+    ``submit_planned`` at c10's 1,000/s and 2.0 s deadline with tracing
+    off and at sample rate 1.0; then links committed without compaction
+    and the bfs shape again at lag 0, K1 launching on its overlay; then
+    c11's memtable compacted and phase 17's profiled 256-lane join batch
+    re-timed on the graph it now profiles. (d)
+    ``explain=True`` on one batch of each lane and on planned requests
+    (device seconds within the wall latency, lane and bucket the batch's,
+    ``plan`` with ``actual_rows``); a ``TelemetryServer`` on
+    ``127.0.0.1:0`` scraped by ``HTTPNodeSource``, every ``serve.*`` and
+    ``plan.*`` sample equal to ``ServeStats``, ``/healthz`` ok; perf and
+    explain errors 0. (c) the drift drill on a graph of its own, built as
+    phase 16 builds c6's (phase 16's graph stays as its profile found
+    it): a quiet window's record, taken on a runtime without the
+    sentinel, as the bfs lane's baseline; a ``PerfSentinel`` (windows
+    :data:`C20_WINDOWS`, ``min_samples`` :data:`C20_MIN_SAMPLES`) passed
+    to a second c6 runtime as ``ServeConfig.perf``; a quiet window fires
+    nothing, c6's traffic beside c6's writer makes ``bfs`` alone violate
+    with one ``perf_drift_bfs`` incident, its flight dump and a
+    ``torch.profiler`` trace under ``build/chip_smoke_drift/``;
+    ``FleetCollector.fleet_perf`` names ``bfs`` alone and
+    ``fleet_objectives``' ``perf_drift`` burns; a planner on that runtime
+    whose feedback learned a 4x bfs overcount counts a guard veto on a
+    condition derived from the planner's cost terms
+    (:func:`guard_veto`).
 11. The device's busy share of the main path (fused and staged), the
     h1 ∩ h2 intersection, the pattern windows, the two served delta
     routes, a join triangle window and a hub-heavy split dispatch, a
@@ -218,7 +258,9 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     ``torch.profiler``, after every timed phase; the join's binary
     searches are named ranges, their device time logged; one served
     1024-lane batch of each of phase 16's legs and one 256-lane join batch
-    of phase 17; the packed BFS of c2 and of one 10M block.
+    of phase 17; the packed BFS of c2 and of one 10M block. It fails if a
+    path queued as device work records no device operation, or if the
+    device is busy longer than the profiled runs' own wall.
 
 Every log line carries the card's name and power limit. The last lines are
 the card line, one JSON line of kernel records and the result
@@ -229,12 +271,14 @@ beside it, the script prints no result and exits non-zero.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -292,6 +336,8 @@ class Smoke:
         self.profiles: list = []
         #: phase 15's graph, its manager and hubs, for phase 17 (d)
         self.query_graph = None
+        #: c11's graph (phase 17), for phase 20
+        self.c11 = None
 
     def log(self, msg: str) -> None:
         print(f"[{self.card}] {msg}", flush=True)
@@ -316,12 +362,29 @@ class Smoke:
         return start.elapsed_time(end) / reps
 
     def profile_later(self, name: str, fn, unprofiled_ms: float,
-                      reps: int = 1, setup=None, teardown=None) -> None:
+                      reps: int = 1, setup=None, teardown=None,
+                      device: bool = True) -> None:
         """Queue ``fn`` for :func:`phase_profiles`: ``reps`` runs under
         ``torch.profiler``, set against ``unprofiled_ms``, the wall time of
         one run without it; ``setup`` and ``teardown``, where given, run
-        just before and after, outside the profile."""
-        self.profiles.append((name, fn, unprofiled_ms, reps, setup, teardown))
+        just before and after, outside the profile. ``device=False``
+        marks a path that may run on the host alone."""
+        from types import SimpleNamespace
+
+        self.profiles.append(SimpleNamespace(
+            name=name, fn=fn, wall_ms=unprofiled_ms, reps=reps, setup=setup,
+            teardown=teardown, device=device))
+
+    def retime_profile(self, name: str) -> tuple:
+        """Re-time the queued path ``name`` (the median of three warm
+        calls) after a later phase changed the graph it runs on; returns
+        the old and the new unprofiled wall."""
+        import numpy as np
+
+        entry = next(p for p in self.profiles if p.name == name)
+        old = entry.wall_ms
+        entry.wall_ms = float(np.median(served_ms(self, entry.fn, runs=3)))
+        return old, entry.wall_ms
 
     @staticmethod
     def bound_ms(nbytes: int, ops: int) -> float:
@@ -4563,7 +4626,7 @@ def phase_query(s: Smoke, records: dict) -> dict:
         rec[f"c3_{form}_qps"] = qps
         s.profile_later(f"c3 find_all, {form} form ({PATTERN_PAIRS} queries)",
                         lambda conds=conds: [g.find_all(c) for c in conds],
-                        wall * 1e3)
+                        wall * 1e3, device=False)
 
     # -- (d) the hub queries at the port's default ----------------------------
     hub = hub_queries(s, g, hubs, rows, vals, "hub query")
@@ -4609,8 +4672,7 @@ def phase_query(s: Smoke, records: dict) -> dict:
 
     # the c3 profiles queued above run last (phase_profiles): the graph
     # closes after the last of them
-    name, fn, ms, reps, setup, _ = s.profiles[-1]
-    s.profiles[-1] = (name, fn, ms, reps, setup, close)
+    s.profiles[-1].teardown = close
     # phase 17 (d) runs the join pushdown on this graph before it closes
     s.query_graph = (g, mgr, hubs)
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -4999,6 +5061,9 @@ def serve_c6(s: Smoke) -> None:
     s.expect(rec["host_fallbacks"] == 0,
              f"serve c6: {rec['host_fallbacks']} host fallbacks; every seed "
              f"is in the base, the routing rules send none")
+    bench_record(s, "BENCH_C6", "c6_serving", dict(
+        serving_payload(rec), batched_vs_unbatched=rec["served_qps"]
+        / base_qps))
     # K2 runs each hop of every fused batch, K1 the overlay of each
     s.expect(n_k["fused_hop"] >= C6_HOPS * rec["bfs_routes"]["fused"] > 0
              and rec["overlay_batches"] > 0 and n_k["gather_or"] > 0,
@@ -5313,6 +5378,9 @@ def serve_c10(s: Smoke) -> None:
           f"notifications; health {health}; served "
           f"{rec['served_qps']:.1f} requests/s, p50 {rec['p50_ms']} ms "
           f"(c10 without subscriptions: 822.2-952.0 requests/s on an H100 80GB HBM3 at 700 W)")
+    bench_record(s, "BENCH_C10", "c10_pattern", dict(
+        serving_payload(rec), sub={"notify_ms_p50": pct(0.50),
+                                   "notify_ms_p99": pct(0.99)}))
     s.expect(sub_stats["sub.eval_errors"] == 0
              and sub_stats["sub.pump_errors"] == 0
              and sub_stats["sub.listener_errors"] == 0,
@@ -5448,6 +5516,7 @@ def serve_c9(s: Smoke) -> None:
         rt.close(drain=False, timeout=SV_WAIT_S)
     st = rt.stats_snapshot()
     s.log(f"serve c9: the same flood again {rec['again_qps']:.1f} requests/s")
+    bench_record(s, "BENCH_C9", "c9_value_index", serving_payload(rec))
     s.expect(st["breaker_trips"] == 0 and st["retries"] == 0
              and st["errors"] == 0 and st["host_fallbacks"] == 0,
              f"serve c9: after the second flood {st}")
@@ -5721,6 +5790,7 @@ def serve_c11(s: Smoke) -> None:
         rec = serve_report(s, "c11", rt, wall, C11_REQUESTS, len(served),
                            shed)
         jr = join_route_check(s, "c11", rt)
+        bench_record(s, "BENCH_C11", "c11_join", serving_payload(rec))
         t = rt.executor.timing.get("join", {})
         n_dev = max(rec["device_dispatches"], 1)
         s.log(f"join c11: partial corrections "
@@ -5876,6 +5946,7 @@ def serve_c11(s: Smoke) -> None:
         mgr.close()
         g.close()
 
+    s.c11 = SimpleNamespace(g=g, mgr=mgr, e0=e0, deg=deg, anchors=anchors)
     s.profile_later("serve c11 256-lane join batch", one_batch,
                     float(np.median(ms256)), reps=3, teardown=close)
 
@@ -5999,50 +6070,887 @@ def phase_join_serve(s: Smoke) -> None:
     s.log(f"join: phase 17 in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------- 20. planned and observed serving
+
+#: this run's serving windows as bench-shaped records (phases 16, 17), the
+#: input of phase 20's ``seed_baseline``
+BENCH_RECORDS = ROOT / "build" / "bench_records"
+#: the drift drill's flight dumps and incident profile
+DRIFT_DIR = ROOT / "build" / "chip_smoke_drift"
+#: (b): the corpus's seed and size (26 conditions of each of five forms:
+#: value windows, incident patterns, co-incidence, BFS, an equality), the
+#: runtime's buckets and result window, c10's flood (1,000/s, deadline
+#: 2.0 s; 256 requests: a host-planned request runs ``find_all`` on the
+#: submitting thread, up to 0.46 s at c11's scale, and card-seeded priors
+#: send up to 78 of the 130 conditions there), the links committed
+#: without compaction for K1's delta batch, and the requests of each lane
+#: sent with ``explain=True``
+C20_SEED, C20_PER_FORM = 41, 26
+C20_BUCKETS, C20_TOP_R = (16, 64, 256), 256
+C20_FLOOD, C20_QPS, C20_DEADLINE_S = 256, 1000.0, 2.0
+C20_DELTA_LINKS, C20_EXPLAIN_N = 8, 5
+#: (c): quiet c6 arrivals a window (1 s at c6's 2,000/s); the sentinel's
+#: windows, min_samples and evaluation interval. c6 beside its writer
+#: serves 1-200 requests in one or two batches (PERF.md §5), so the
+#: windows are short and min_samples small: one loaded batch of 4 or more
+#: completions fills both windows. The loaded window starts after the
+#: long window has emptied of quiet samples.
+C20_QUIET_N = 2048
+C20_WINDOWS, C20_MIN_SAMPLES, C20_EVAL_S = (1.0, 3.0), 4, 0.25
+#: (c): the drill baseline's tolerance factors. c6 at 2,000/s runs near
+#: its saturation on an H100 80GB HBM3 at 700 W, where one quiet window's
+#: p50 came out at 46-132 ms and its p99 at 56-204 ms in successive
+#: windows of one run; beside the writer a served request waits 3.4-10 s
+C20_FACTORS = {"p50_s": 4.0, "p99_s": 6.0, "device_s_per_req": 3.0}
+#: (c): the incident profile's bound and the sample ring. Beside the
+#: writer a batch runs 3-10 s on the H100, and with the reference's 2 s
+#: bound the tick of a batch already in flight closed the session before
+#: the probe batch ran; the drill closes the session itself
+C20_PROFILE_S, C20_MAX_SAMPLES = 30.0, 1 << 17
+#: (c): the guard drill's BFS depth: deep enough that the estimator's
+#: growth model (the seed's degree times the mean degree per extra hop)
+#: reaches its cap, the live-atom count
+C20_VETO_HOPS = 32
+
+
+def bench_record(s: Smoke, prefix: str, key: str, payload: dict) -> None:
+    """One of this run's serving windows as a bench-shaped record
+    (``obs.perf.seed_baseline`` reads ``<prefix>_*.json``)."""
+    BENCH_RECORDS.mkdir(parents=True, exist_ok=True)
+    rec = {"schema_version": 2, "tag": "card", "backend": "cuda",
+           "device": s.card, "recorded_unix": int(time.time()),
+           key: payload}
+    (BENCH_RECORDS / f"{prefix}_card.json").write_text(
+        json.dumps(rec, indent=1, sort_keys=True) + "\n")
+
+
+def serving_payload(rec: dict) -> dict:
+    """The bench's open-loop serving shape of a :func:`serve_report`."""
+    return {"latency_ms_p50": rec["p50_ms"], "latency_ms_p99": rec["p99_ms"],
+            "served_qps": rec["served_qps"]}
+
+
+def planned_priors(s: Smoke) -> tuple:
+    """(a): the baseline seeded from this run's records, read back through
+    ``load_baseline``, each lane beside the repository's CPU record."""
+    from hypergraphdb_tpu_torch.obs.perf import load_baseline, seed_baseline
+
+    path = ROOT / "build" / "PERF_BASELINE_card.json"
+    seeded = seed_baseline(str(BENCH_RECORDS), out_path=str(path))
+    card = load_baseline(str(path))
+    cpu = load_baseline(str(ROOT / "PERF_BASELINE.json"))
+    s.expect(card == seeded and card["backend"] == "cuda"
+             and sorted(card["lanes"]) == ["bfs", "join", "pattern",
+                                           "range", "sub"],
+             f"planned (a): the seeded baseline {card}")
+    for kind in sorted(card["lanes"]):
+        got, ref = card["lanes"][kind], cpu["lanes"].get(kind, {})
+        s.log(f"planned (a): lane {kind} on the card p50 {got.get('p50_s')} "
+              f"s, p99 {got.get('p99_s')} s, qps {got.get('qps')}; the CPU "
+              f"record p50 {ref.get('p50_s')} s, p99 {ref.get('p99_s')} s, "
+              f"qps {ref.get('qps')}")
+    s.log(f"planned (a): seeded from {card['source']} into {path.name}")
+    return card, cpu, path
+
+
+def planned_corpus(g, e0: int, deg, anchors, r) -> list:
+    """(b)'s corpus on c11's graph, the forms of the reference's planner
+    suite: ``(form, condition)`` pairs, :data:`C20_PER_FORM` of each."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.query import conditions as qc
+
+    def link_of(value: int) -> int:
+        return int(g.find_one(qc.AtomValue(int(value), "eq")))
+
+    lt = int(g.get_type_handle_of(link_of(C11_V0)))
+    order = np.argsort(-deg, kind="stable")
+    hubs = [e0 + int(x) for x in order[:C20_PER_FORM]]
+    rares = [e0 + int(x) for x in np.flatnonzero(deg == 2)[:C20_PER_FORM]]
+    out = []
+    for i in range(C20_PER_FORM):
+        v = C11_V0 + int(r.integers(8, C11_LINKS - 16))
+        w = int(r.integers(4, C20_TOP_R - 3))
+        form = i % 3
+        if form == 0:
+            cond = qc.And(qc.AtomValue(v, "gte"), qc.AtomValue(v + w, "lte"))
+        elif form == 1:
+            cond = qc.And(qc.AtomValue(v, "gte"), qc.AtomValue(v + w, "lte"),
+                          qc.AtomType(lt))
+        else:
+            a = int(g.get_targets(link_of(v))[0])
+            cond = qc.And(qc.AtomValue(v - 8, "gte"),
+                          qc.AtomValue(v + 8, "lte"), qc.Incident(a))
+        out.append(("window", cond))
+    for i in range(C20_PER_FORM):
+        if i % 2 == 0:
+            cond = qc.And(qc.Incident(hubs[i]), qc.AtomType(lt))
+        else:
+            rare = rares[i]
+            link = int(g.get_incidence_set(rare).array()[0])
+            x = [int(t) for t in g.get_targets(link) if int(t) != rare][0]
+            cond = qc.And(qc.Incident(rare), qc.Incident(x))
+        out.append(("incident", cond))
+    picks = r.choice(len(anchors), size=2 * C20_PER_FORM, replace=False)
+    for i in range(C20_PER_FORM):
+        a = int(anchors[picks[i]])
+        cond = (qc.And(qc.CoIncident(a)) if i % 2 == 0 else
+                qc.And(qc.CoIncident(a), qc.AtomValue(0, "gte")))
+        out.append(("coincident", cond))
+    for i in range(C20_PER_FORM):
+        a = int(anchors[picks[C20_PER_FORM + i]])
+        out.append(("bfs", qc.And(qc.BFS(a, 2), qc.AtomType(lt))))
+    for i in range(C20_PER_FORM):
+        v = C11_V0 + int(r.integers(0, C11_LINKS))
+        out.append(("equality", qc.AtomValue(v, "eq")))
+    return out
+
+
+def timed_future(fut, stamps: list, i: int):
+    """Stamp ``fut``'s completion time into ``stamps[i]``."""
+    fut.add_done_callback(
+        lambda _f: stamps.__setitem__(i, time.perf_counter()))
+    return fut
+
+
+def planned_flood(s: Smoke, rt, corpus, truth, order, gaps) -> dict:
+    """c10's rate of ``submit_planned`` over the corpus: open-loop
+    arrivals, then every future; served answers against the truth."""
+    from hypergraphdb_tpu_torch.serve import DeadlineExceeded
+
+    n = len(order)
+    t_sub, t_done = [0.0] * n, [0.0] * n
+    futs = []
+    t0 = time.perf_counter()
+    next_t = t0
+    for i, gap in enumerate(gaps):
+        next_t += gap
+        pause = next_t - time.perf_counter()
+        if pause > 0:
+            time.sleep(pause)
+        t_sub[i] = time.perf_counter()
+        futs.append(timed_future(rt.submit_planned(
+            corpus[order[i]][1], deadline_s=C20_DEADLINE_S), t_done, i))
+    served, shed, bad = [], 0, []
+    for i, f in enumerate(futs):
+        try:
+            res = f.result(timeout=SV_WAIT_S)
+        except DeadlineExceeded:
+            shed += 1
+            continue
+        served.append(i)
+        if list(res.matches) != truth[order[i]]:
+            bad.append(int(order[i]))
+    wall = time.perf_counter() - t0
+    lat = sorted(t_done[i] - t_sub[i] for i in served)
+    pct = (lambda q: round(1e3 * lat[min(len(lat) - 1, int(q * len(lat)))],
+                           3) if lat else None)
+    s.expect(not bad, f"planned flood: answers differ from find_all for "
+             f"conditions {bad[:8]}")
+    return {"served": len(served), "shed": shed, "wall_s": wall,
+            "served_qps": len(served) / wall, "p50_ms": pct(0.5),
+            "p99_ms": pct(0.99)}
+
+
+def planned_exact(s: Smoke, rt, corpus) -> tuple:
+    """Every enumerable forced shape of every condition, shape by shape
+    (the host shape first: it IS ``graph.find_all``), each answer equal to
+    the host's. Returns (the truths, a record per shape)."""
+    shapes_of = [rt.planner.shapes_for(cond) for _, cond in corpus]
+    truth, per_shape = {}, {}
+    for shape in ("host", "range_first", "pattern", "join", "bfs"):
+        idx = [i for i, sh in enumerate(shapes_of) if shape in sh]
+        if not idx:
+            continue
+        reset_launches()
+        t0 = time.perf_counter()
+        futs = [(i, rt.submit_planned(corpus[i][1], force_shape=shape))
+                for i in idx]
+        res = [(i, f.result(timeout=SV_WAIT_S)) for i, f in futs]
+        secs = time.perf_counter() - t0
+        n_k = launches()
+        served_by: dict = {}
+        for i, rr in res:
+            served_by[rr.served_by] = served_by.get(rr.served_by, 0) + 1
+            if shape == "host":
+                truth[i] = list(rr.matches)
+            s.expect(list(rr.matches) == truth[i]
+                     and rr.count == len(truth[i])
+                     and rr.plan["shape"] == shape,
+                     f"planned exactness: condition {i} "
+                     f"({corpus[i][0]}) forced {shape}: {rr.count} rows, "
+                     f"find_all {len(truth[i])}")
+        per_shape[shape] = {"conditions": len(idx), "s": round(secs, 3),
+                            "launches": n_k, "served_by": served_by}
+        s.log(f"planned (b) exactness: {shape} forced on {len(idx)} "
+              f"conditions equal to find_all in {secs:.3f} s; served by "
+              f"{served_by}; launches {n_k}")
+    return truth, per_shape
+
+
+def planned_unforced(s: Smoke, rt, corpus, truth) -> dict:
+    """Each condition unforced, one at a time: the choice, the estimate
+    against the actual rows, ``plan()`` alone and each choice's host to
+    host milliseconds."""
+    import numpy as np
+
+    planner = rt.planner
+    plan_ms = []
+    for _, cond in corpus:
+        t0 = time.perf_counter()
+        planner.plan(cond)
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    by_shape: dict = {}
+    errs = []
+    for i, (form, cond) in enumerate(corpus):
+        t0 = time.perf_counter()
+        res = rt.submit_planned(cond).result(timeout=SV_WAIT_S)
+        ms = (time.perf_counter() - t0) * 1e3
+        s.expect(list(res.matches) == truth[i],
+                 f"planned unforced: condition {i} ({form}) chose "
+                 f"{res.plan['shape']}: {res.count} rows, find_all "
+                 f"{len(truth[i])}")
+        shape = res.plan["shape"]
+        by_shape.setdefault(shape, {"n": 0, "ms": [], "forms": {}})
+        rec = by_shape[shape]
+        rec["n"] += 1
+        rec["ms"].append(ms)
+        rec["forms"][form] = rec["forms"].get(form, 0) + 1
+        errs.append(abs(res.plan["est_rows"] - res.plan["actual_rows"])
+                    / max(res.plan["actual_rows"], 1))
+    out = {shape: {"chosen": v["n"], "forms": v["forms"],
+                   "ms_median": round(float(np.median(v["ms"])), 3),
+                   "ms_max": round(max(v["ms"]), 3)}
+           for shape, v in sorted(by_shape.items())}
+    hist = rt.stats.registry.get("plan.abs_rel_error")
+    p50, p90, p99 = hist.percentiles((0.5, 0.9, 0.99))
+    s.log(f"planned (b) unforced: choices {out}; plan() alone median "
+          f"{float(np.median(plan_ms)):.3f} ms (max {max(plan_ms):.3f}) a "
+          f"condition; est_rows against actual rows: abs rel error median "
+          f"{float(np.median(errs)):.4f}, max {max(errs):.4f} over this "
+          f"pass; plan.abs_rel_error p50 {p50}, p90 {p90}, p99 {p99} over "
+          f"{hist.count} planned requests")
+    return out
+
+
+def planned_explain(s: Smoke, g, corpus, card, est, anchors) -> dict:
+    """(d): ``explain=True`` on :data:`C20_EXPLAIN_N` requests of each lane
+    (one batch each) and on planned ones, through a manual runtime with
+    tracing and device timing: device seconds within the wall latency,
+    lane and bucket those of the batch, ``plan`` with ``actual_rows``."""
+    from hypergraphdb_tpu_torch import obs
+    from hypergraphdb_tpu_torch.plan import QueryPlanner
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+    from hypergraphdb_tpu_torch.serve.batcher import bucket_for
+
+    tracer = obs.Tracer().enable()
+    rte = ServeRuntime(g, ServeConfig(buckets=C20_BUCKETS, max_linger_s=0.0,
+                                      top_r=C20_TOP_R, manual=True,
+                                      tracer=tracer, device_timing=True))
+    rte.attach_planner(QueryPlanner(g, estimator=est, baseline=card,
+                                    top_r=C20_TOP_R))
+    n = C20_EXPLAIN_N
+    lanes = {
+        "bfs": lambda k: rte.submit_bfs(int(anchors[k]), max_hops=2,
+                                        explain=True),
+        "pattern": lambda k: rte.submit_pattern([int(anchors[k])],
+                                                explain=True),
+        "range": lambda k: rte.submit_range(lo=C11_V0 + 97 * k,
+                                            hi=C11_V0 + 97 * k + 8,
+                                            explain=True),
+        "join": lambda k: rte.submit_join(c11_spec(int(anchors[k])),
+                                          explain=True),
+    }
+    checked = {}
+    try:
+        for kind, submit in lanes.items():
+            stamps, t_sub, futs = [0.0] * n, [0.0] * n, []
+            for k in range(n):
+                t_sub[k] = time.perf_counter()
+                futs.append(timed_future(submit(k), stamps, k))
+            drain(rte)
+            for k, f in enumerate(futs):
+                res = f.result(timeout=SV_WAIT_S)
+                rec = f.explain
+                wall = stamps[k] - t_sub[k]
+                path = "host" if res.served_by == "host" else "device"
+                s.expect(rec is not None and rec["lane"] == f"{kind}/{path}"
+                         and rec["bucket"] == bucket_for(n, C20_BUCKETS)
+                         and rec["lanes_real"] == n
+                         and (rec["device_s"] or 0.0) <= wall,
+                         f"planned (d) explain {kind}: record {rec}, served "
+                         f"by {res.served_by}, wall {wall:.6f} s")
+            checked[kind] = rec
+        # planned: the first requests of each form, one at a time
+        picks = [i for form in ("window", "incident", "coincident", "bfs",
+                                "equality")
+                 for i in [j for j, (f, _) in enumerate(corpus)
+                           if f == form][:2]]
+        for i in picks:
+            t0 = time.perf_counter()
+            stamps = [0.0]
+            f = timed_future(rte.submit_planned(corpus[i][1], explain=True),
+                             stamps, 0)
+            drain(rte)
+            res = f.result(timeout=SV_WAIT_S)
+            rec = f.explain
+            wall = stamps[0] - t0
+            ok = (rec is not None and rec["plan"]["actual_rows"]
+                  == res.plan["actual_rows"]
+                  and rec["plan"]["shape"] == res.plan["shape"])
+            if ok and res.plan["shape"] != "host":
+                ok = (rec["kind"] == res.lane_kind
+                      and rec["bucket"] in C20_BUCKETS
+                      and (rec["device_s"] or 0.0) <= wall)
+            s.expect(ok, f"planned (d) explain: condition {i} "
+                     f"({corpus[i][0]}) record {rec}, result plan "
+                     f"{res.plan}, wall {wall:.6f} s")
+        s.expect(rte.stats.explain_errors == 0
+                 and rte.stats.perf_observe_errors == 0,
+                 f"planned (d): explain errors {rte.stats.explain_errors}, "
+                 f"perf errors {rte.stats.perf_observe_errors}")
+    finally:
+        rte.close()
+    s.log(f"planned (d) explain: {n} requests of each lane in one batch "
+          f"each and {len(picks)} planned requests: every record's lane and "
+          f"bucket those of its batch, device seconds within the wall "
+          f"latency, planned records with actual_rows; e.g. "
+          + "; ".join(f"{k} device {v['device_s']} s of total "
+                      f"{v['total_s']} s, occupancy {v['occupancy']}"
+                      for k, v in checked.items()))
+    return checked
+
+
+def planned_telemetry(s: Smoke, rt, tracer) -> None:
+    """(d): a ``TelemetryServer`` over the runtime's registry on
+    ``127.0.0.1:0``, scraped through ``HTTPNodeSource``: every ``serve.*``
+    and ``plan.*`` sample equal to ``ServeStats``, ``/healthz`` ok."""
+    from hypergraphdb_tpu_torch.obs.export import sample_value
+    from hypergraphdb_tpu_torch.obs.fleet import HTTPNodeSource
+    from hypergraphdb_tpu_torch.obs.http import (
+        TelemetryServer,
+        runtime_health,
+    )
+
+    srv = TelemetryServer(registries=[rt.stats.registry], tracer=tracer,
+                          health=runtime_health(rt)).start()
+    try:
+        scrape = HTTPNodeSource("c11", srv.url, timeout_s=30.0).scrape()
+    finally:
+        srv.stop()
+    s.expect(scrape.ok and scrape.healthy,
+             f"planned (d) telemetry: scrape ok {scrape.ok}, healthy "
+             f"{scrape.healthy}, error {scrape.error}")
+    text = scrape.metrics_text
+    checked, bad = 0, []
+    for m in rt.stats.registry.instruments():
+        if not m.name.startswith(("serve.", "plan.")):
+            continue
+        base = m.name.replace(".", "_")
+        if m.kind == "counter":
+            pairs = [(base + "_total", m.value)]
+        elif m.kind == "gauge":
+            pairs = [(base, m.value)]
+        else:
+            buckets, total, count = m.export_state()
+            pairs = [(base + "_count", count), (base + "_sum", total)]
+        for name, want in pairs:
+            got = sample_value(text, name)
+            checked += 1
+            if got is None or abs(got - float(want)) > 1e-9 * max(
+                    1.0, abs(float(want))):
+                bad.append((name, got, want))
+    s.expect(not bad and checked > 0,
+             f"planned (d) telemetry: /metrics differs from ServeStats "
+             f"{bad[:6]}")
+    plan = scrape.health.get("plan") or {}
+    s.log(f"planned (d) telemetry: /metrics parsed, {checked} serve.* and "
+          f"plan.* samples equal to ServeStats; /healthz ok, its plan "
+          f"section: corrections {plan.get('corrections_active')}, guard "
+          f"vetoes {plan.get('guard_vetoes')}, priors from "
+          f"{(plan.get('priors') or {}).get('source')}")
+
+
+def planned_c11(s: Smoke, card: dict, cpu: dict, path: Path) -> None:
+    """(b) and (d): the planner over c11's graph from phase 17."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch import obs
+    from hypergraphdb_tpu_torch.plan import (
+        CardinalityEstimator,
+        PlanFeedback,
+        QueryPlanner,
+    )
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+
+    c11 = s.c11
+    g, mgr = c11.g, c11.mgr
+    r = np.random.default_rng(C20_SEED)
+    t0 = time.perf_counter()
+    corpus = planned_corpus(g, c11.e0, c11.deg, c11.anchors, r)
+    est = CardinalityEstimator(g, mgr=mgr)
+    tracer = obs.Tracer().disable()
+    rt = ServeRuntime(g, ServeConfig(
+        buckets=C20_BUCKETS, max_queue=8192, max_linger_s=0.002,
+        top_r=C20_TOP_R, tracer=tracer,
+        prewarm_range_dims=(ord("i"),)))
+    try:
+        rt.attach_planner(QueryPlanner.from_committed_baseline(
+            g, path=str(path), estimator=est, top_r=C20_TOP_R))
+        s.log(f"planned (b): {len(corpus)} conditions on c11's graph "
+              f"({est.n_atoms()} live atoms in the base); runtime with the "
+              f"bfs, pattern, range and join lanes up in "
+              f"{time.perf_counter() - t0:.2f} s")
+        # the choices under the card's priors and the CPU record's, with
+        # the feedback off: how many differ
+        fixed = [QueryPlanner(g, estimator=est, baseline=b, top_r=C20_TOP_R,
+                              feedback=PlanFeedback(enabled=False))
+                 for b in (card, cpu)]
+        shapes = [[p.plan(cond).shape for _, cond in corpus] for p in fixed]
+        differ = sum(a != b for a, b in zip(*shapes))
+        mix = [{sh: row.count(sh) for sh in sorted(set(row))}
+               for row in shapes]
+        s.log(f"planned (a): {differ} of {len(corpus)} choices differ "
+              f"between the card's priors ({mix[0]}) and the CPU record's "
+              f"({mix[1]}), feedback off")
+
+        truth, per_shape = planned_exact(s, rt, corpus)
+        s.expect(per_shape["bfs"]["launches"]["fused_hop"] > 0,
+                 f"planned (b): K2 never launched on the bfs shape "
+                 f"{per_shape['bfs']}")
+        planned_unforced(s, rt, corpus, truth)
+
+        order = r.integers(0, len(corpus), size=C20_FLOOD)
+        gaps = r.exponential(1.0 / C20_QPS, size=C20_FLOOD)
+        rt.stats.reset()
+        off = planned_flood(s, rt, corpus, truth, order, gaps)
+        tracer.enable()
+        tracer.set_sample_rate("serve.request", 1.0)
+        on = planned_flood(s, rt, corpus, truth, order, gaps)
+        s.log(f"planned (b) flood at {C20_QPS:.0f}/s, deadline "
+              f"{C20_DEADLINE_S} s: tracing off {off}; tracing on at sample "
+              f"rate 1.0 {on}; tracing on/off served requests/s "
+              f"{on['served_qps'] / off['served_qps']:.4f}")
+        planned_telemetry(s, rt, tracer)
+        s.expect(rt.stats.perf_observe_errors == 0
+                 and rt.stats.explain_errors == 0
+                 and rt.stats.errors == 0 and rt.stats.breaker_trips == 0,
+                 f"planned (b): {rt.stats_snapshot()}")
+        planned_explain(s, g, corpus, card, est, c11.anchors)
+
+        # K1: a bfs-shape batch that reads a delta (links committed, not
+        # compacted; the runtime's max_lag_edges is 0)
+        bfs_idx = [i for i, (f, _) in enumerate(corpus) if f == "bfs"]
+        seeds = [corpus[i][1].clauses[0].start for i in bfs_idx]
+        for j in range(C20_DELTA_LINKS):
+            g.add_link((int(seeds[j % len(seeds)]), c11.e0 + int(r.integers(
+                0, C11_ENTITIES))), value=C11_INGEST_V0 - 100 - j)
+        routes0 = dict(rt.executor.routes)
+        over0 = rt.executor.overlay_batches
+        reset_launches()
+        futs = [rt.submit_planned(corpus[i][1], force_shape="bfs")
+                for i in bfs_idx]
+        res = [f.result(timeout=SV_WAIT_S) for f in futs]
+        n_k = launches()
+        for i, rr in zip(bfs_idx, res):
+            want = sorted(int(h) for h in g.find_all(corpus[i][1]))
+            s.expect(list(rr.matches) == want,
+                     f"planned (b) delta: condition {i}: {rr.count} rows, "
+                     f"find_all over the live graph {len(want)}")
+        overlay = rt.executor.overlay_batches - over0
+        s.expect(n_k["gather_or"] > 0 and n_k["fused_hop"] > 0
+                 and overlay > 0,
+                 f"planned (b) delta: launches {n_k}, overlay batches "
+                 f"{overlay}, routes {rt.executor.routes} (from {routes0})")
+        s.log(f"planned (b) delta: {C20_DELTA_LINKS} links in the memtable; "
+              f"{len(bfs_idx)} bfs-shape requests equal to find_all over the "
+              f"live graph; launches {n_k} ({overlay} batches with an "
+              f"overlay); routes {rt.executor.routes}")
+        rt.close(drain=True, timeout=SV_WAIT_S)
+    finally:
+        rt.close(drain=False, timeout=SV_WAIT_S)
+    # phase 17's profiled join batch reads c11's graph: a dirty memtable
+    # would send it to host_join, so the links go into the base, and its
+    # unprofiled wall is taken again on the graph it will profile
+    compact_now(s, mgr, "planned (b) delta")
+    name = "serve c11 256-lane join batch"
+    old, new = s.retime_profile(name)
+    s.log(f"planned (b) delta: compacted; {name} re-timed at {new:.3f} ms "
+          f"(phase 17: {old:.3f} ms)")
+
+
+def guard_veto(s: Smoke, rt, g, mgr, seeds, prior: float) -> dict:
+    """(c): a planner attached to the drill's runtime (its guard bound to
+    the sentinel) whose feedback has learned that the bfs shape
+    overcounts 4x, so its correction ``c`` is 0.25. On
+    ``And(BFS(seed, C20_VETO_HOPS), Not(Incident(x)) for k - 1 anchors)``
+    the planner has two candidates (its ``_cost``): host, at
+    ``B + N k S``, and bfs, at ``P + rows (G + (k - 1) F)``, with ``B``,
+    ``S``, ``G``, ``F`` the constants ``HOST_BASE_S``, ``HOST_SCAN_S``,
+    ``GATHER_S``, ``FILTER_S``, ``N`` the live atoms, ``P`` the bfs prior
+    (the loaded window's p50) and ``R`` the bfs estimate. The corrected
+    argmin (rows ``c R``) is bfs once
+    ``k (N S - c R F) > P - B + c R (G - F)``, and ``k`` is the least such
+    count. The raw argmin (rows ``R``) stays host while
+    ``k (N S - R F) < P - B + R (G - F)``; at ``R = N`` and ``F = S`` that
+    holds for every ``k`` once ``P > B + N (F - G)``: seconds for a
+    loaded bfs window at c6's scale, tens of ms for a quiet one. So the
+    sentinel's violating bfs lane must veto the corrected choice."""
+    from hypergraphdb_tpu_torch.plan import (
+        CardinalityEstimator,
+        PlanFeedback,
+        QueryPlanner,
+    )
+    from hypergraphdb_tpu_torch.plan.planner import (
+        FILTER_S,
+        GATHER_S,
+        HOST_BASE_S,
+        HOST_SCAN_S,
+    )
+    from hypergraphdb_tpu_torch.query import conditions as qc
+
+    est = CardinalityEstimator(g, mgr=mgr)
+    est.refresh()
+    fb = PlanFeedback(min_samples=8)
+    for _ in range(8):
+        fb.observe("bfs", 4.0, 1.0)
+    corr = fb.correction("bfs")
+    seed = int(seeds[0])
+    n = float(est.n_atoms())
+    big_r = est.bfs_frontier(seed, C20_VETO_HOPS).rows
+    k = max(1, int((prior - HOST_BASE_S + corr * big_r * (GATHER_S - FILTER_S))
+                   // (n * HOST_SCAN_S - corr * big_r * FILTER_S)) + 1)
+    cond = qc.And(qc.BFS(seed, C20_VETO_HOPS),
+                  *[qc.Not(qc.Incident(int(x))) for x in seeds[1:k]])
+    base = {"lanes": {"bfs": {"p50_s": prior}}}
+    raw = QueryPlanner(g, estimator=est, baseline=base,
+                       feedback=PlanFeedback(enabled=False)).plan(cond)
+    warm = QueryPlanner(g, estimator=est, baseline=base, feedback=fb)
+    corrected = warm.plan(cond)
+    out = {"bfs_prior_s": prior, "live_atoms": n, "bfs_rows": big_r,
+           "correction": corr, "hops": C20_VETO_HOPS, "clauses": k,
+           "raw": (raw.shape, round(raw.cost, 6)),
+           "corrected": (corrected.shape, round(corrected.cost, 6))}
+    s.expect(raw.shape == "host" and corrected.shape == "bfs",
+             f"planned (c) guard: the derived condition does not flip the "
+             f"argmin onto bfs: {out}, alternatives {corrected.alternatives}")
+    rt.attach_planner(warm)
+    vetoed = warm.plan(cond)
+    out["vetoed_to"] = vetoed.shape
+    s.expect(vetoed.guard_vetoed and vetoed.shape == "host"
+             and rt.stats.plan_guard_vetoes == 1,
+             f"planned (c) guard: {vetoed}, vetoes "
+             f"{rt.stats.plan_guard_vetoes}")
+    s.log(f"planned (c) guard: {out}; plan.guard_vetoes "
+          f"{rt.stats.plan_guard_vetoes}")
+    return out
+
+
+def drift_drill(s: Smoke, card: dict) -> None:
+    """(c): the reference's acceptance drill on a graph of its own, built
+    as phase 16 builds c6's, with a real slowdown (c6's writer) in place
+    of a fake clock. The graphs that phases 16 and 17 queued for
+    :func:`phase_profiles` stay as those phases left them."""
+    import threading
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.obs.fleet import (
+        FleetCollector,
+        LocalNodeSource,
+    )
+    from hypergraphdb_tpu_torch.obs.flight import (
+        FlightRecorder,
+        parse_flight_jsonl,
+    )
+    from hypergraphdb_tpu_torch.obs.http import runtime_health
+    from hypergraphdb_tpu_torch.obs.perf import PerfSentinel
+    from hypergraphdb_tpu_torch.obs.slo import fleet_objectives
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+
+    shutil.rmtree(DRIFT_DIR, ignore_errors=True)
+    DRIFT_DIR.mkdir(parents=True)
+    g, r, e0, mgr = serve_graph(s, "drill (c6's shape)", C20_SEED + 1, None,
+                                C6_MANAGER)
+    seeds = (e0 + r.integers(0, SV_ENTITIES, size=C6_REQUESTS)).astype(
+        np.int64)
+
+    def cfg(**kw):
+        return ServeConfig(buckets=(64, 256, 1024), max_queue=8192,
+                           max_linger_s=0.005, max_lag_edges=C6_BATCH_LINKS,
+                           top_r=SV_TOP_R, **kw)
+
+    def warm(rt):
+        # every bucket once, as phase 16 warms c6's runtime
+        for b in (64, 256, 1024):
+            for f in [rt.submit_bfs(int(seeds[j]), max_hops=C6_HOPS)
+                      for j in range(b)]:
+                f.result(timeout=SV_WAIT_S)
+
+    def arrivals(rt, n):
+        gaps = r.exponential(1.0 / C6_QPS, size=n)
+        return open_loop(
+            rt, lambda i, dl: rt.submit_bfs(int(seeds[i % len(seeds)]),
+                                            max_hops=C6_HOPS, deadline_s=dl),
+            gaps, C6_DEADLINE_S)
+
+    rt = sen = None
+    ingested = {"atoms": 0, "errors": [], "t0": None}
+
+    def writer():
+        try:
+            ingested["t0"] = time.monotonic()
+            for _ in range(C6_BATCHES):
+                subj = r.integers(0, SV_ENTITIES, size=C6_BATCH_LINKS)
+                obj = r.integers(0, SV_ENTITIES, size=C6_BATCH_LINKS)
+                g.bulk_import(values=list(range(C6_BATCH_LINKS)),
+                              target_lists=[[e0 + int(a), e0 + int(b)]
+                                            for a, b in zip(subj, obj)])
+                ingested["atoms"] += C6_BATCH_LINKS
+        except Exception as e:  # noqa: BLE001 - failed below
+            ingested["errors"].append(repr(e))
+
+    try:
+        # the quiet record on a runtime without the sentinel: every
+        # bucket's first use, then one quiet window
+        rtq = ServeRuntime(g, cfg())
+        try:
+            warm(rtq)
+            rtq.stats.reset()
+            served, shed, wall = arrivals(rtq, C20_QUIET_N)
+            lat = rtq.stats_snapshot()["latency_ms"]
+            rtq.close(drain=True, timeout=SV_WAIT_S)
+        finally:
+            rtq.close(drain=False, timeout=SV_WAIT_S)
+        quiet = {"p50_s": lat["p50"] / 1e3, "p99_s": lat["p99"] / 1e3,
+                 "qps": len(served) / wall, "backend": "cuda",
+                 "note": "quiet c6 window (chip_smoke.py phase 20)"}
+        baseline = dict(card, lanes=dict(card["lanes"], bfs=quiet),
+                        factors=C20_FACTORS)
+        s.log(f"planned (c) drill: the quiet record {quiet} ({len(served)} "
+              f"served, {shed} shed of {C20_QUIET_N}); factors "
+              f"{C20_FACTORS}")
+        flight = FlightRecorder(clock=time.monotonic,
+                                incident_dir=str(DRIFT_DIR),
+                                min_dump_interval_s=0.0)
+        sen = PerfSentinel(baseline=baseline, clock=time.monotonic,
+                           flight=flight, windows=C20_WINDOWS,
+                           min_samples=C20_MIN_SAMPLES,
+                           eval_interval_s=C20_EVAL_S,
+                           profile_s=C20_PROFILE_S,
+                           max_samples=C20_MAX_SAMPLES)
+        rt = ServeRuntime(g, cfg(perf=sen))
+        served_q, shed_q, wall_q = arrivals(rt, C20_QUIET_N)
+        snap_q = sen.snapshot()["lanes"]["bfs"]
+        s.expect(flight.incidents == 0 and not snap_q["violating"]
+                 and all(w["status"] == "clear"
+                         for w in snap_q["windows"]),
+                 f"planned (c) drill: the quiet window fired "
+                 f"{flight.incidents} incidents; bfs lane {snap_q}")
+        s.log(f"planned (c) drill: quiet window {len(served_q)} served, "
+              f"{shed_q} shed in {wall_q:.3f} s; sentinel windows "
+              + "; ".join(f"{w['span_s']} s: {w['status']}, n {w['n']}, "
+                          f"p50 {w.get('p50_s')}, p99 {w.get('p99_s')}"
+                          for w in snap_q["windows"]) + "; 0 incidents")
+        time.sleep(C20_WINDOWS[-1] + 0.5)     # quiet samples out of windows
+        rt.stats.reset()
+        wt = threading.Thread(target=writer, name="drill-writer",
+                              daemon=True)
+        wt.start()
+        t_w = time.perf_counter()
+        while (ingested["atoms"] < C6_BATCH_LINKS and not ingested["errors"]
+               and time.perf_counter() - t_w < SV_WAIT_S):
+            time.sleep(0.001)
+        served_l, shed_l, wall_l = arrivals(rt, C6_REQUESTS)
+        # the window's one or two batches ran before the alert opened the
+        # profile; a probe batch beside the still-running writer is the
+        # degraded lane's device work inside the session
+        t_probe = [time.monotonic()]
+        probe = [rt.submit_bfs(int(x), max_hops=C6_HOPS)
+                 for x in seeds[:C6_CHECK_SEEDS]]
+        for f in probe:
+            f.result(timeout=SV_WAIT_S)
+        t_probe.append(time.monotonic())
+        probe_after = wt.is_alive()
+        wt.join(timeout=SV_WAIT_S)
+        s.expect(not wt.is_alive() and not ingested["errors"],
+                 f"planned (c) drill: writer {ingested['errors']}")
+        lat_l = rt.stats_snapshot()["latency_ms"]
+        # the alert edge's tick may still be opening the profile on the
+        # dispatch thread (its futures resolve first): wait for the lane
+        # to name its dump and profile
+        t_w = time.perf_counter()
+        while True:
+            snap = sen.snapshot()
+            lane = snap["lanes"]["bfs"]
+            if ((lane["last_incident"] and lane["last_profile"])
+                    or time.perf_counter() - t_w > SV_WAIT_S):
+                break
+            time.sleep(0.05)
+        health = sen.health_summary()
+        s.expect(flight.incidents == 1 and health["violating"] == ["bfs"]
+                 and lane["alerts_total"] == 1,
+                 f"planned (c) drill: {flight.incidents} incidents, "
+                 f"violating {health['violating']}, bfs lane {lane}")
+        dump = lane["last_incident"]
+        s.expect(dump is not None and lane["last_profile"] is not None,
+                 f"planned (c) drill: no dump or profile named: {lane}")
+        recs = parse_flight_jsonl(open(dump).read())
+        inc = [x for x in recs if x["kind"] == "incident"]
+        s.expect([x["reason"] for x in inc] == ["perf_drift_bfs"],
+                 f"planned (c) drill: incidents in {dump}: {inc}")
+        to_incident = inc[0]["t"] - ingested["t0"]
+        sen.close()
+        # the session may be closing on the dispatch thread (a tick past
+        # its bound): its manifest gains t1 once the trace is written
+        prof = Path(lane["last_profile"])
+        trace = prof / "trace.json"
+        t_w = time.perf_counter()
+        while True:
+            manifest = json.loads((prof / "PROFILE.json").read_text())
+            if "t1" in manifest or time.perf_counter() - t_w > SV_WAIT_S:
+                break
+            time.sleep(0.05)
+        s.expect(trace.exists() and trace.stat().st_size > 0
+                 and manifest["profiler_active"] and "t1" in manifest,
+                 f"planned (c) drill: profile {prof}: {manifest}")
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        s.expect(kernels > 0,
+                 f"planned (c) drill: the incident profile holds no kernel "
+                 f"({len(events)} events; the probe batch ran "
+                 f"{'beside' if probe_after else 'after'} the writer, from "
+                 f"{t_probe[0]} to {t_probe[1]}; the session {manifest})")
+        s.log(f"planned (c) drill: loaded window {len(served_l)} served, "
+              f"{shed_l} shed of {C6_REQUESTS} in {wall_l:.3f} s beside "
+              f"{ingested['atoms']} links, p50 {lat_l['p50']} ms, p99 "
+              f"{lat_l['p99']} ms; one incident perf_drift_bfs "
+              f"{to_incident:.3f} s after the writer started, dump "
+              f"{Path(dump).name} ({len(recs)} records), profile "
+              f"{prof.name}: trace.json {trace.stat().st_size} bytes, "
+              f"{len(events)} events ({kernels} kernels), manifest "
+              f"{manifest}; the probe batch ran "
+              f"{'beside' if probe_after else 'after'} the writer; the "
+              f"incident {({k: v for k, v in inc[0].items() if k != 't'})}")
+
+        col = FleetCollector(
+            [LocalNodeSource("c6", registries=[rt.stats.registry,
+                                               sen.registry],
+                             health=runtime_health(rt))],
+            flight=FlightRecorder(), poll_interval_s=0)
+        col.poll()
+        fp = col.fleet_perf()
+        s.expect(fp["violating"] == {"c6": ["bfs"]}
+                 and fp["nodes_reporting"] == 1,
+                 f"planned (c) drill: fleet_perf {fp}")
+        mon = fleet_objectives(col)
+        col.slo = mon
+        for _ in range(3):
+            time.sleep(0.05)
+            col.poll()
+        drift = mon.snapshot()["perf_drift"]
+        w0 = drift["windows"][0]
+        s.expect(w0["burning"] and w0["error_ratio"] == 1.0,
+                 f"planned (c) drill: perf_drift objective {drift}")
+        s.log(f"planned (c) drill: fleet_perf violating {fp['violating']}, "
+              f"alerts {fp['alerts_total']}; perf_drift objective burning "
+              f"at {w0['burn_rate']}x over {w0['events']} polls")
+        compact_now(s, mgr, "drill")
+        guard_veto(s, rt, g, mgr, seeds, lat_l["p50"] / 1e3)
+        s.expect(rt.stats.perf_observe_errors == 0
+                 and rt.stats.explain_errors == 0,
+                 f"planned (c) drill: perf errors "
+                 f"{rt.stats.perf_observe_errors}, explain errors "
+                 f"{rt.stats.explain_errors}")
+        rt.close(drain=True, timeout=SV_WAIT_S)
+    finally:
+        if rt is not None:
+            rt.close(drain=False, timeout=SV_WAIT_S)
+        if sen is not None:
+            sen.close()
+        mgr.close()
+        g.close()
+
+
+def phase_planned(s: Smoke) -> None:
+    """Phase 20: planned and observed serving (see the legs)."""
+    t0 = time.perf_counter()
+    card, cpu, path = planned_priors(s)
+    planned_c11(s, card, cpu, path)
+    drift_drill(s, card)
+    s.log(f"planned: phase 20 in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
     the card, summed, against the path's unprofiled wall time. Runs after
     every timed phase, because once a profile has run the tracer stays
-    attached and slows every later launch."""
+    attached and slows every later launch. The share can pass 100 % by
+    the profiler's own cost: the kernels it times run slower than
+    without it. Fails, once every path is logged, where a path queued as
+    device work recorded no device operation, or where the union of the
+    device operations' intervals exceeds the wall of the profiled runs
+    themselves, which one stream cannot do."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch = s.torch
-    for name, fn, unprofiled_ms, reps, setup, teardown in s.profiles:
-        if setup is not None:
-            setup()
+    faults = []
+    for p in s.profiles:
+        if p.setup is not None:
+            p.setup()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            t0 = time.perf_counter()
+            for _ in range(p.reps):
+                p.fn()
             torch.cuda.synchronize()
-        if teardown is not None:
-            teardown()
+            profiled_ms = (time.perf_counter() - t0) * 1e3 / p.reps
+        if p.teardown is not None:
+            p.teardown()
         events = prof.key_averages()
         # a named range shows on the device timeline too, spanning its
         # kernels and the gaps between them: not an operation of its own
         rows = [e for e in events if e.device_type == DeviceType.CUDA
                 and not e.key.startswith("join.")]
         rows.sort(key=lambda e: -e.self_device_time_total)
-        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / reps
-        n_ops = sum(e.count for e in rows) / reps
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / p.reps
+        n_ops = sum(e.count for e in rows) / p.reps
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and not e.name.startswith("join."))
+        union_us, end = 0.0, float("-inf")
+        for lo, hi in spans:
+            if hi > end:
+                union_us += hi - max(lo, end)
+                end = hi
+        union_ms = union_us / 1e3 / p.reps
+        share = 100 * busy_ms / p.wall_ms
         top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} "
                         f"ms x{e.count}" for e in rows[:8])
-        s.log(f"profile {name} ({reps} runs): device busy {busy_ms:.4f} ms "
-              f"a run of {unprofiled_ms:.3f} ms wall unprofiled "
-              f"({100 * busy_ms / unprofiled_ms:.1f} %), {n_ops:.1f} device "
-              f"operations a run; top: {top}")
+        s.log(f"profile {p.name} ({p.reps} runs): device busy "
+              f"{busy_ms:.4f} ms a run of {p.wall_ms:.3f} ms wall "
+              f"unprofiled ({share:.1f} %), {n_ops:.1f} device operations a "
+              f"run, their intervals' union {union_ms:.4f} ms in "
+              f"{profiled_ms:.3f} ms wall profiled; top: {top}")
+        if p.device and n_ops == 0:
+            faults.append(f"{p.name}: no device operation")
+        if union_ms > profiled_ms:
+            faults.append(f"{p.name}: device busy {union_ms:.4f} ms in "
+                          f"{profiled_ms:.3f} ms wall")
         # named ranges (the join's binary searches): device time of the
         # operations launched inside each
         ranges = [e for e in events if e.key.startswith("join.")
                   and e.device_type == DeviceType.CPU]
-        if ranges:
-            s.log(f"profile {name}: " + "; ".join(
-                f"{e.key} {e.device_time_total / 1e3 / reps:.3f} ms a run "
-                f"({100 * e.device_time_total / 1e3 / reps / busy_ms:.1f} % "
-                f"of busy) x{e.count / reps:.0f}" for e in ranges))
+        if ranges and busy_ms > 0:
+            s.log(f"profile {p.name}: " + "; ".join(
+                f"{e.key} {e.device_time_total / 1e3 / p.reps:.3f} ms a run "
+                f"({100 * e.device_time_total / 1e3 / p.reps / busy_ms:.1f} "
+                f"% of busy) x{e.count / p.reps:.0f}" for e in ranges))
+    s.expect(not faults, "profiles: " + "; ".join(faults))
 
 
 def main(argv: list[str]) -> int:
@@ -6082,8 +6990,10 @@ def main(argv: list[str]) -> int:
         phase_persist(s, snap, truth)
         phase_ingest(s)
         phase_query(s, records)
+        shutil.rmtree(BENCH_RECORDS, ignore_errors=True)
         phase_serve(s)
         phase_join_serve(s)
+        phase_planned(s)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -115,3 +115,46 @@ def profile(logdir: Optional[str]):
         prof.stop()
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@contextmanager
+def thread_profile(logdir: Optional[str]):
+    """:func:`profile` held by a thread of its own. A ``torch.profiler``
+    session must stop on the thread that started it, but the perf
+    sentinel opens an incident session on whichever thread ticks it (the
+    dispatch thread) and closes it on whichever evaluates the bound or
+    calls ``close()``. The owning thread starts and stops the session; the
+    card's activity is traced process-wide, so the capture still holds
+    every kernel the serving threads launch. An error starting or
+    stopping the session raises from ``__enter__`` / ``__exit__``."""
+    if not logdir:
+        yield None
+        return
+    import threading
+
+    started, stop = threading.Event(), threading.Event()
+    box: dict = {}
+
+    def run():
+        try:
+            with profile(logdir) as prof:
+                box["prof"] = prof
+                started.set()
+                stop.wait()
+        except BaseException as e:  # noqa: BLE001 - re-raised by the owner
+            box["error"] = e
+        finally:
+            started.set()
+
+    t = threading.Thread(target=run, name="hg-profile", daemon=True)
+    t.start()
+    started.wait()
+    try:
+        if "error" in box:
+            raise box["error"]
+        yield box["prof"]
+    finally:
+        stop.set()
+        t.join()
+        if "error" in box:
+            raise box["error"]

@@ -63,10 +63,21 @@ Standing queries: ``attach_subscriptions`` hooks a
 dispatch thread survives a failing round, but each is counted
 (``sub.pump_errors``) and logged.
 
-Out of this slice, each raising :class:`~.types.Unservable` that names its
-ROADMAP queue 1 item: the planner (``attach_planner``, ``submit_planned``;
-item 7), sharding (``sharded=True``, ``hbm_budget_bytes``; item 8) and
-EXPLAIN records (``explain=True``; item 10).
+Planned queries: ``attach_planner`` binds a ``plan.QueryPlanner`` to this
+runtime's stats and perf sentinel; ``submit_planned`` dispatches the
+cheapest lane strategy for an ``And(...)`` and filters the residual
+clauses on the host (a truncated lane window is re-served by
+``graph.find_all``, so a plan may be wrong about cost, never about rows).
+EXPLAIN: ``explain=True`` force-samples the request's trace and attaches
+``obs.fleet.explain_record`` to ``future.explain``; it needs a tracer. A
+record that fails to assemble is counted (``serve.explain_errors``) and
+``future.explain`` is None; a perf sentinel that raises inside the
+planner's guard is counted (``serve.perf_observe_errors``) and vetoes
+nothing. Neither fault reaches the request.
+
+Out of this slice, raising :class:`~.types.Unservable` that names its
+ROADMAP queue 1 item: sharding (``sharded=True``, ``hbm_budget_bytes``;
+item 8).
 
 Deterministic testing: ``ServeConfig(manual=True)`` starts no thread —
 tests drive ``step()`` / ``pump()`` with an injected clock and a fake
@@ -1456,6 +1467,9 @@ class ServeRuntime:
         #: queries re-fire on the thread that forms batches and coalesce
         #: with ad-hoc traffic by bucket key. None = one comparison a cycle
         self.subscriptions = None
+        #: attached ``plan.QueryPlanner`` (``attach_planner``): the
+        #: cost-based chooser behind ``submit_planned``; None refuses it
+        self.planner = None
         self._closed = False
         self._close_started = False
         self._draining = False
@@ -1477,8 +1491,16 @@ class ServeRuntime:
         ``priority`` class pops first at batch formation (FIFO within a
         class). An ``admission_gate`` refusal raises
         :class:`~.types.AdmissionGated` BEFORE any queue state is touched.
-        ``explain=True`` (the reference's cost-attribution record) raises
-        :class:`~.types.Unservable` until its ROADMAP item."""
+
+        ``explain=True`` requests per-request COST ATTRIBUTION: the
+        request's trace is force-sampled and, at resolve time, an
+        ``obs.fleet.explain_record`` (serving lane, bucket/pad occupancy,
+        device seconds, retries, breaker state, trace id — assembled from
+        the ticket's own span tree) is attached to the returned future as
+        ``future.explain`` BEFORE the result is delivered. Requires
+        tracing (the span tree IS the record's source): raises
+        :class:`~.types.Unservable` when the runtime's tracer is
+        disabled."""
         gate = self.config.admission_gate
         if gate is not None:
             reason = gate()
@@ -1487,18 +1509,25 @@ class ServeRuntime:
                 from hypergraphdb_tpu_torch.serve.types import AdmissionGated
 
                 raise AdmissionGated(str(reason))
-        if explain:
-            raise _later(10, "explain=True (obs/fleet.explain_record)")
+        if explain and not self.tracer.enabled:
+            raise Unservable(
+                "explain=True needs tracing: enable the runtime's tracer "
+                "(obs.enable(), or ServeConfig(tracer=Tracer().enable()))"
+            )
         now = self.clock()
         dl = (deadline_s if deadline_s is not None
               else self.config.default_deadline_s)
         ticket = Ticket(
             request=request, submit_t=now,
             deadline_t=None if dl is None else now + dl,
-            priority=int(priority),
+            priority=int(priority), explain=bool(explain),
         )
         if self.tracer.enabled:  # the ONE gate read on the disabled path
             self._trace_submit(ticket)
+            if explain and ticket.trace is not None:
+                # the record is built from the FINISHED trace — an
+                # explain request must survive any head sampling rate
+                ticket.trace.force_sample()
         try:
             self.queue.submit(ticket)
         except Exception as e:
@@ -1600,14 +1629,136 @@ class ServeRuntime:
             deadline_s, priority,
         )
 
-    # -- the host tiers that ride the runtime ---------------------------------
+    # -- planned submission (hgplan) -----------------------------------------
     def attach_planner(self, planner) -> None:
-        raise _later(7, "attach_planner (plan/)")
+        """Wire a ``plan.QueryPlanner`` into this runtime: its telemetry
+        binds to THIS runtime's ``ServeStats`` (``plan.*`` metrics ride the
+        serving registry) and — unless the planner already carries one —
+        its guard binds to this runtime's perf sentinel (a learned
+        correction may never steer the argmin onto a lane in the
+        sentinel's ``violating`` set). A sentinel whose summary raises
+        is counted (``serve.perf_observe_errors``) and vetoes nothing.
+        ``submit_planned`` is refused until this is called."""
+        with self._close_lock:
+            planner.stats = self.stats
+            if planner.lane_degraded is None and self.perf is not None:
+                perf, stats = self.perf, self.stats
+
+                def _lane_degraded(kind: str) -> bool:
+                    try:
+                        violating = perf.health_summary().get(
+                            "violating", ())
+                    except Exception:  # noqa: BLE001 - counted
+                        stats.record_perf_error()
+                        return False
+                    return kind in violating
+
+                planner.lane_degraded = _lane_degraded
+            self.planner = planner
 
     def submit_planned(self, condition, deadline_s: Optional[float] = None,
                        priority: int = 0, explain: bool = False,
                        force_shape: Optional[str] = None) -> Future:
-        raise _later(7, "submit_planned (plan/)")
+        """Admit a query CONDITION through the attached cost-based
+        planner: enumerate the candidate lane strategies, dispatch the
+        cheapest (``force_shape`` overrides), host-filter the residual
+        clauses, and resolve to a ``plan.PlannedResult`` whose ``plan``
+        dict carries ``est_rows`` / ``actual_rows`` / the chosen shape.
+        With ``explain=True`` the future's ``.explain`` record grows the
+        same ``plan`` sub-dict beside the lane attribution (the host shape
+        has no lane and no trace: a minimal record).
+
+        Exactness matches ``graph.find_all(condition)``: a truncated lane
+        window is re-served on the host."""
+        planner = self.planner
+        if planner is None:
+            raise Unservable(
+                "no planner attached: build a plan.QueryPlanner and "
+                "attach_planner() it before submit_planned"
+            )
+        choice = planner.plan(condition, force_shape=force_shape)
+        if choice.request is None:
+            return self._planned_host(planner, choice, explain)
+        inner = self.submit(choice.request, deadline_s, priority, explain)
+        outer: Future = Future()
+
+        def _done(f: Future) -> None:
+            try:
+                res = f.result()
+            except Exception as e:
+                outer.set_exception(e)
+                return
+            try:
+                out = self._finish_planned(planner, choice, res)
+                if explain:
+                    ex = dict(getattr(f, "explain", None) or {})
+                    ex["plan"] = out.plan
+                    outer.explain = ex
+            except Exception as e:  # residual/feedback fault → caller
+                outer.set_exception(e)
+                return
+            outer.set_result(out)
+
+        inner.add_done_callback(_done)
+        return outer
+
+    def _planned_host(self, planner, choice, explain: bool) -> Future:
+        """The host shape: no lane, no queue — the exact scan the
+        brute-force oracle defines, executed inline on the caller."""
+        from hypergraphdb_tpu_torch.plan.planner import PlannedResult
+
+        matches = tuple(sorted(
+            int(h) for h in self.graph.find_all(choice.condition)))
+        planner.observe(choice, len(matches))
+        plan_rec = choice.explain()
+        plan_rec["actual_rows"] = len(matches)
+        res = PlannedResult(
+            kind="planned", count=len(matches), matches=matches,
+            truncated=False, epoch=choice.epoch, lane_kind="host",
+            served_by="host", plan=plan_rec,
+        )
+        fut: Future = Future()
+        if explain:
+            fut.explain = {"lane": {"kind": "host", "path": "host"},
+                           "plan": plan_rec}
+        fut.set_result(res)
+        return fut
+
+    def _finish_planned(self, planner, choice, res):
+        """Turn one lane result into the planned answer: close the
+        feedback loop on the PRE-residual row count, then either apply
+        the residual filter or — when the lane window truncated — serve
+        the whole condition on the host (a truncated result has an exact
+        ``count`` but only a prefix of ``matches``)."""
+        from hypergraphdb_tpu_torch.plan.planner import PlannedResult
+
+        actual = int(res.count)
+        planner.observe(choice, actual)
+        plan_rec = choice.explain()
+        plan_rec["actual_rows"] = actual
+        if bool(res.truncated):
+            matches = tuple(sorted(
+                int(h) for h in self.graph.find_all(choice.condition)))
+            served_by = "host"
+        else:
+            if getattr(res, "kind", None) == "join":
+                # a single-variable join: project the "x" column and
+                # dedupe — distinct=False keeps one row per WITNESSING
+                # binding (auxiliary link variables), not per atom
+                col = res.vars.index("x") if "x" in res.vars else 0
+                rows = {int(t[col]) for t in res.tuples}
+            else:
+                rows = {int(h) for h in res.matches}
+            g = self.graph
+            matches = tuple(sorted(
+                h for h in rows
+                if all(cl.satisfies(g, h) for cl in choice.residual)))
+            served_by = res.served_by
+        return PlannedResult(
+            kind="planned", count=len(matches), matches=matches,
+            truncated=False, epoch=getattr(res, "epoch", choice.epoch),
+            lane_kind=res.kind, served_by=served_by, plan=plan_rec,
+        )
 
     def attach_subscriptions(self, manager) -> None:
         """Wire a ``sub.SubscriptionManager`` into the dispatch cycle:
@@ -1857,6 +2008,8 @@ class ServeRuntime:
                 path = ("host"
                         if getattr(res, "served_by", None) == "host"
                         else device_lane)
+                if ticket.explain:
+                    self._attach_explain(ticket, res, key, path, token)
                 if ticket.resolve(res):
                     # a cancel()ed future neither raises out of the
                     # dispatch thread nor counts as a completion
@@ -1881,6 +2034,67 @@ class ServeRuntime:
                     "perf sentinel tick failed (continuing)",
                     exc_info=True,
                 )
+
+    def _attach_explain(self, ticket, res, key, path: str,
+                        token=None) -> None:
+        """The EXPLAIN resolve path: finish the ticket's trace EARLY
+        (terminal ``resolve`` — ``Ticket.resolve``'s own close then
+        no-ops, first end wins) and attach the cost-attribution record to
+        the future BEFORE the result is delivered, so a caller reading
+        ``fut.result()`` then ``fut.explain`` never races this thread.
+        The record is assembled FROM the finished span tree
+        (``obs.fleet.explain_record``). A record that fails to assemble
+        leaves ``future.explain`` None and is counted
+        (``serve.explain_errors``): the request itself still resolves."""
+        tr = ticket.trace
+        if tr is None:
+            return
+        tr.finish_terminal("resolve", parent=tr.marks.get("root"))
+        from hypergraphdb_tpu_torch.obs.fleet import explain_record
+
+        try:
+            ticket.future.explain = explain_record(
+                tr, result=res, lane_path=path,
+                breaker_state=(None if key is None
+                               else self.breaker.state_of(key)),
+                shard_owner=self._shard_owner(ticket.request),
+                join=self._join_explain(res, path, token),
+            )
+        except Exception:  # noqa: BLE001 - counted, never fails a resolve
+            ticket.future.explain = None
+            self.stats.record_explain_error()
+
+    @staticmethod
+    def _join_explain(res, path: str, token):
+        """Join attribution for the EXPLAIN record: the plan shape —
+        ``bushy`` / ``hub`` (degree-split lanes in this batch) / ``flat``
+        / ``host`` (exact host path, no device plan) — plus the batch's
+        ``hub_dispatches`` and collect-side ``partial_corrections``. None
+        for non-join requests."""
+        if getattr(res, "kind", None) != "join":
+            return None
+        plan = getattr(token, "join_plan", None)
+        hub = int(getattr(token, "join_hub_lanes", 0) or 0)
+        if path == "host" or plan is None:
+            shape = "host"
+        elif type(plan).__name__ == "BushyJoinPlan":
+            shape = "bushy"
+        elif hub:
+            shape = "hub"
+        else:
+            shape = "flat"
+        return {
+            "plan": shape,
+            "hub_dispatches": hub,
+            "partial_corrections": int(
+                getattr(token, "join_partials", 0) or 0),
+        }
+
+    def _shard_owner(self, request):
+        """The mesh partition owning this request's primary id, for the
+        EXPLAIN record: None until the port serves sharded (ROADMAP
+        queue 1, item 8)."""
+        return None
 
     def _recover_collect(self, tickets, token, key, device,
                          exc: BaseException):

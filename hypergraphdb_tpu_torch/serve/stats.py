@@ -120,6 +120,7 @@ DOTTED_NAMES = LANE_NAMES + PLAN_NAMES + (
     "serve.errors",
     "serve.host_fallbacks",
     "serve.perf_observe_errors",
+    "serve.explain_errors",
     "serve.batches",
     "serve.device_dispatches",
     "serve.sharded_dispatches",
@@ -175,6 +176,7 @@ class ServeStats:
         self._range_dispatches = r.counter("serve.range_dispatches")
         self._retries = r.counter("serve.retries")
         self._perf_errors = r.counter("serve.perf_observe_errors")
+        self._explain_errors = r.counter("serve.explain_errors")
         self._join_hub = r.counter("serve.join.hub_dispatches")
         self._join_partial = r.counter("serve.join.partial_corrections")
         self._breaker_trips = r.counter("serve.breaker_trips")
@@ -222,7 +224,7 @@ class ServeStats:
             self._sharded_dispatches, self._range_dispatches,
             self._device_seconds,
             self._join_hub, self._join_partial,
-            self._retries, self._perf_errors,
+            self._retries, self._perf_errors, self._explain_errors,
             self._breaker_trips, self._breaker_state,
             self._lanes_real, self._lanes_padded, self._latency,
             self._queue_depth,
@@ -292,6 +294,13 @@ class ServeStats:
         evidence that observations are being dropped."""
         with self._lock:
             self._perf_errors.inc()
+
+    def record_explain_error(self) -> None:
+        """An ``explain=True`` request's EXPLAIN record failed to assemble
+        (the port's addition: the reference sets ``future.explain`` to
+        None and counts nothing). The request itself still resolved."""
+        with self._lock:
+            self._explain_errors.inc()
 
     def record_join_hub_dispatch(self, n_lanes: int = 1) -> None:
         """``n_lanes`` real join lanes dispatched through the
@@ -505,6 +514,14 @@ class ServeStats:
     @property
     def join_partial_corrections(self) -> int:
         return self._join_partial.value
+
+    @property
+    def perf_observe_errors(self) -> int:
+        return self._perf_errors.value
+
+    @property
+    def explain_errors(self) -> int:
+        return self._explain_errors.value
 
     @property
     def plan_requests(self) -> int:

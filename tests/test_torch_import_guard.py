@@ -103,8 +103,18 @@ def test_graph_layer_runs_with_msgpack_and_sortedcontainers_blocked():
     "hypergraphdb_tpu_torch.sub.registry",
     "hypergraphdb_tpu_torch.sub.stats",
     "hypergraphdb_tpu_torch.sub.wire",
+    "hypergraphdb_tpu_torch.obs.export",
+    "hypergraphdb_tpu_torch.obs.perf",
+    "hypergraphdb_tpu_torch.obs.slo",
+    "hypergraphdb_tpu_torch.obs.http",
+    "hypergraphdb_tpu_torch.obs.fleet",
+    "hypergraphdb_tpu_torch.plan",
+    "hypergraphdb_tpu_torch.plan.feedback",
+    "hypergraphdb_tpu_torch.plan.stats",
+    "hypergraphdb_tpu_torch.plan.planner",
 ])
 def test_guard_covers_the_persistence_and_subscription_modules(module):
-    """The packed BFS, persistence and subscription modules are among the
-    modules the guard imports with the reference blocked."""
+    """The packed BFS, persistence, subscription, observability and
+    planner modules are among the modules the guard imports with the
+    reference blocked."""
     assert module in _module_names()

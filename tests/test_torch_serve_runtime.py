@@ -6,8 +6,9 @@ and a fake executor whose results are each package's own
 ``ServeResult``. A scenario returns what a caller and an operator can see
 — the executor's launch/collect order, each future's outcome, the stats
 snapshot, the queue — and the two records must be equal. Then the port's
-own surface: the join entry points reach the executor, the entry points
-outside its slice raise, naming their ROADMAP items, and
+own surface: the join entry points reach the executor, the planner and
+EXPLAIN entry points refuse what the reference refuses, the options
+outside the port's slice raise naming their ROADMAP item, and
 ``ServeRuntime(graph)`` asks for the card.
 
 Every future is read with ``timeout=0`` (or a bounded wait in the
@@ -407,23 +408,33 @@ def port():
     return package(PKGS[1])
 
 
-@pytest.mark.parametrize("case,item", [
-    ("explain", 10), ("join_explain", 10),
-    ("submit_planned", 7), ("attach_planner", 7)])
-def test_out_of_slice_entry_points_raise_naming_their_item(case, item):
-    P = port()
-    rt, ex, clock = make_runtime(P, linger=0.0)
-    calls = {
-        "explain": lambda: rt.submit_bfs(1, explain=True),
-        "join_explain": lambda: rt.submit_join(
-            P.types.JoinRequest(None, (1,)), explain=True),
-        "submit_planned": lambda: rt.submit_planned(None),
-        "attach_planner": lambda: rt.attach_planner(object()),
-    }
-    with pytest.raises(P.types.Unservable, match=f"item {item}"):
-        calls[case]()
-    assert rt.queue.depth() == 0 and ex.events == []
-    assert rt.stats.submitted == 0
+@pytest.mark.parametrize("case", [
+    "explain", "join_explain", "submit_planned", "attach_planner"])
+def test_planner_and_explain_refuse_as_the_reference(case):
+    """The planner and EXPLAIN entry points refuse exactly what the
+    reference refuses — ``explain=True`` without a tracer,
+    ``submit_planned`` without an attached planner, ``attach_planner`` of
+    an object that is not a planner — with the same exception class, and
+    touch no queue state."""
+    outs = []
+    for pkg in PKGS:
+        P = package(pkg)
+        rt, ex, clock = make_runtime(P, linger=0.0)
+        calls = {
+            "explain": lambda: rt.submit_bfs(1, explain=True),
+            "join_explain": lambda: rt.submit_join(
+                P.types.JoinRequest(None, (1,)), explain=True),
+            "submit_planned": lambda: rt.submit_planned(None),
+            "attach_planner": lambda: rt.attach_planner(object()),
+        }
+        with pytest.raises(Exception) as info:
+            calls[case]()
+        assert rt.queue.depth() == 0 and ex.events == []
+        assert rt.stats.submitted == 0
+        outs.append(type(info.value).__name__)
+    assert outs[1] == outs[0]
+    assert outs[1] == ("AttributeError" if case == "attach_planner"
+                       else "Unservable")
 
 
 @pytest.mark.parametrize("field,value,item", [
