@@ -251,6 +251,32 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     whose feedback learned a 4x bfs overcount counts a guard veto on a
     condition derived from the planner's cost terms
     (:func:`guard_veto`).
+21. Sharding on the card (after 20; ``parallel/sharded``,
+    ``ops/sharded_serving``, ``serve/sharded``): (a) phase 4's snapshot
+    row-sharded (``ShardedSnapshot.from_host``) on a 1-shard and on a
+    4-shard mesh of the card, ``bfs_packed_sharded`` for phase 4's first
+    256 seeds, 3 hops, its visited words and edge counts bit for bit
+    against the single-device ``bfs_packed``: the build's seconds and
+    bytes, seconds a run, edges/s, the peak memory against
+    ``bfs_memory_bytes``; (b) bench c8 at its defaults (seed 23, 200,000
+    entities and 400,000 links, its manager, 2,048 closed-loop BFS
+    requests at 2 hops, buckets 64/256/1024, linger 2 ms, ``top_r`` 16)
+    through ``ServeRuntime`` three ways: one device, ``sharded=True`` (a
+    1-shard mesh of the card) and a ``ShardedExecutor`` over 4 shards of
+    the card; the first 64 results equal across the three (every 8th
+    against the host BFS), sharded dispatches in both sharded runs;
+    served requests/s, p50/p99, batches, ``launch`` and ``collect`` a
+    batch; (c) on c8's graph over 4 shards, 64 pattern requests over link
+    anchor pairs and 64 triangle joins against the one-device runtime and
+    the host, then 10,000 links committed and 1,000 atoms removed (900
+    links, 100 entities), 64 BFS seeds at lag 0 and again after a forced
+    compaction (which must re-shard: the epochs compare), each against a
+    host BFS over the live graph; (d) ``mesh_report``'s 4 shards tiling
+    the partition map, ``_shard_owner`` equal to ``PartitionMap.owner_of``
+    on 256 ids, the perf sentinel's ``shard_skew`` fed (ratio 1.0: the
+    shards share the card), and AUTO (``hbm_budget_bytes`` 1) staying on
+    ``DeviceExecutor`` on one card. Shards of one card run one after
+    another on it: the figures measure the code paths, not scaling.
 11. The device's busy share of the main path (fused and staged), the
     h1 ∩ h2 intersection, the pattern windows, the two served delta
     routes, a join triangle window and a hub-heavy split dispatch, a
@@ -6800,6 +6826,25 @@ def drift_drill(s: Smoke, card: dict) -> None:
         s.expect([x["reason"] for x in inc] == ["perf_drift_bfs"],
                  f"planned (c) drill: incidents in {dump}: {inc}")
         to_incident = inc[0]["t"] - ingested["t0"]
+        # the alert edge can come on the probe batch's own completion, so
+        # the session may open after the probe's kernels ran. Then the
+        # lane's device work runs once more inside it, straight through
+        # the executor: it feeds the sentinel nothing, and the lane stays
+        # violating for the fleet and the guard below
+        opened = json.loads((Path(lane["last_profile"])
+                             / "PROFILE.json").read_text())["t0"]
+        if opened > t_probe[0]:
+            t_probe = [time.monotonic()]
+            view = rt.executor._pin_view("bfs")
+            rt.executor._serve_bfs(
+                view, s.torch.from_numpy(np.asarray(
+                    seeds[:C6_CHECK_SEEDS], dtype=np.int32)).to(s.dev),
+                C6_HOPS, SV_TOP_R + 1)
+            s.torch.cuda.synchronize()
+            t_probe.append(time.monotonic())
+            s.log(f"planned (c) drill: the session opened at {opened}, "
+                  f"inside or after the probe batch; the lane's BFS ran "
+                  f"again inside it, from {t_probe[0]} to {t_probe[1]}")
         sen.close()
         # the session may be closing on the dispatch thread (a tick past
         # its bound): its manifest gains t1 once the trace is written
@@ -6881,6 +6926,405 @@ def phase_planned(s: Smoke) -> None:
     s.log(f"planned: phase 20 in {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------- 21. sharding on the card
+
+#: 21 (a): phase 4's snapshot row-sharded over 1 and 4 shards of the card,
+#: phase 4's first S21_SEEDS seeds, 3 hops, 2^19-entry scatter slices
+S21_SEEDS, S21_SHARDS, S21_CHUNK = 256, 4, 1 << 19
+#: bench c8 (bench.py:1401) at its defaults: seed 23, the c6-shaped graph
+#: (200,000 entities, 400,000 links, link values the chunk's positions),
+#: its manager, 2,048 closed-loop BFS requests at 2 hops, buckets
+#: 64/256/1024, linger 2 ms, top_r 16; the first 64 results compared
+C8_SEED = 23
+C8_MANAGER = dict(headroom=1.8, delta_bucket_min=1 << 14,
+                  pack_pad_multiple=1 << 17)
+C8_REQUESTS, C8_HOPS, C8_BUCKETS, C8_LINGER_S, C8_PROBE = (
+    2048, 2, (64, 256, 1024), 0.002, 64)
+#: 21 (c): on c8's graph over 4 shards: pattern requests over link anchor
+#: pairs, triangle joins, then links committed and atoms removed (links,
+#: then entities) and BFS probes at lag 0, before and after a compaction
+C21_PATTERNS, C21_JOINS, C21_PROBES = 64, 64, 64
+#: 21 (b): one c8 batch of the largest bucket served alone (nothing queued
+#: before it) on one device and on 4 shards, each then profiled
+C21_ALONE = ("serve c8 1024-lane BFS batch alone (one device)",
+             "serve c8 1024-lane BFS batch alone (4 shards)")
+C21_LINKS, C21_REMOVED_LINKS, C21_REMOVED_ENTITIES = 10_000, 900, 100
+
+
+def sharded_10m(s: Smoke, snap, truth: dict) -> None:
+    """21 (a): ``bfs_packed_sharded`` over phase 4's snapshot on a 1-shard
+    and a 4-shard mesh of the card, each run's visited words and edge
+    counts bit for bit against the single-device ``bfs_packed``."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.bitfrontier import (
+        bfs_memory_bytes,
+        bfs_packed,
+    )
+    from hypergraphdb_tpu_torch.parallel.sharded import (
+        ShardedSnapshot,
+        bfs_packed_sharded,
+        make_mesh,
+    )
+
+    torch = s.torch
+    N = snap.num_atoms
+    seeds = np.asarray(truth["seeds"][:S21_SEEDS], dtype=np.int32)
+    t0 = time.perf_counter()
+    want, want_cnt, _ = bfs_packed(snap, seeds, HOPS, k_block=S21_SEEDS,
+                                   edge_chunk=S21_CHUNK, device=s.dev)
+    torch.cuda.synchronize()
+    s.log(f"sharded 10M: single-device bfs_packed, {S21_SEEDS} seeds x "
+          f"{HOPS} hops, {time.perf_counter() - t0:.3f} s")
+    W = want.shape[1]
+    for n in (1, S21_SHARDS):
+        mesh = make_mesh([s.dev] * n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sdev = ShardedSnapshot.from_host(snap, mesh, edge_chunk=S21_CHUNK)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = bfs_packed_sharded(sdev, seeds, HOPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        plan = bfs_memory_bytes(N, snap.n_edges_inc, snap.n_edges_tgt,
+                                k_block=S21_SEEDS, n_dev=n,
+                                edge_chunk=S21_CHUNK)
+        vis = res.visited
+        s.expect(vis.shape == (S21_SEEDS, n * sdev.n_loc // 32)
+                 and torch.equal(vis[:, :W], want)
+                 and not bool(vis[:, W:].any()),
+                 f"sharded 10M, {n} shards: visited words differ from "
+                 f"bfs_packed")
+        s.expect(torch.equal(res.edges_touched, want_cnt),
+                 f"sharded 10M, {n} shards: edge counts differ from "
+                 f"bfs_packed")
+        edges = int(res.edges_touched.sum())
+        s.log(f"sharded 10M, {n} shard(s) of one card (n_loc "
+              f"{sdev.n_loc}): built in {build_s:.3f} s, {sdev.nbytes()} "
+              f"device bytes; {S21_SEEDS} seeds x {HOPS} hops in "
+              f"{secs:.3f} s, {edges} edges ({edges / secs:.4e} edges/s); "
+              f"peak {peak / 2**30:.3f} GiB over the resident "
+              f"{base / 2**30:.3f} GiB, bfs_memory_bytes (n_dev {n}) "
+              f"{plan['total'] / 2**30:.3f} GiB a device; visited words "
+              f"and edge counts equal bfs_packed's bit for bit")
+        del sdev, res, vis
+        torch.cuda.empty_cache()
+    del want, want_cnt
+    torch.cuda.empty_cache()
+
+
+def c8_config(**kw):
+    from hypergraphdb_tpu_torch.serve import ServeConfig
+
+    return ServeConfig(buckets=C8_BUCKETS, max_linger_s=C8_LINGER_S,
+                       top_r=SV_TOP_R, prewarm_aot=False, **kw)
+
+
+def c8_run(s: Smoke, what: str, rt, seeds) -> tuple:
+    """bench c8's ``run``: each bucket warmed off the clock, then a
+    closed-loop flood of every seed. Returns (the first C8_PROBE results
+    as (count, matches), the record, sharded dispatches)."""
+    try:
+        for b in C8_BUCKETS:
+            warm = [rt.submit_bfs(int(seeds[j % len(seeds)]),
+                                  max_hops=C8_HOPS) for j in range(b)]
+            for f in warm:
+                f.result(timeout=SV_WAIT_S)
+        rt.stats.reset()
+        with rt.executor._timing_lock:
+            rt.executor.timing.clear()
+        t0 = time.perf_counter()
+        futs = [rt.submit_bfs(int(x), max_hops=C8_HOPS) for x in seeds]
+        results = [f.result(timeout=SV_WAIT_S) for f in futs]
+        wall = time.perf_counter() - t0
+        rec = serve_report(s, what, rt, wall, len(seeds), len(results), 0)
+        probe = [(int(r.count), [int(m) for m in r.matches])
+                 for r in results[:C8_PROBE]]
+        return probe, rec, rt.stats.sharded_dispatches
+    finally:
+        rt.close(drain=True, timeout=120)
+
+
+def serve_c8(s: Smoke):
+    """21 (b): bench c8 at its defaults, three ways: one device
+    (``sharded=False``), ``sharded=True`` (a 1-shard mesh of the card) and
+    a ``ShardedExecutor`` over 4 shards of the card. Then one batch of the
+    largest bucket alone on one device and on 4 shards, each queued for
+    :func:`phase_profiles` (the last one's teardown closes c8's graph)."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.parallel.sharded import make_mesh
+    from hypergraphdb_tpu_torch.serve import (
+        DeviceExecutor,
+        ServeRuntime,
+        ShardedExecutor,
+    )
+
+    g, r, e0, mgr = serve_graph(s, "c8", C8_SEED, None, C8_MANAGER)
+    seeds = (e0 + r.integers(0, SV_ENTITIES, size=C8_REQUESTS)).astype(
+        np.int64)
+    runs = {}
+    rt = ServeRuntime(g, c8_config(sharded=False))
+    s.expect(type(rt.executor) is DeviceExecutor,
+             f"c8: sharded=False gave {type(rt.executor).__name__}")
+    runs["one device"] = c8_run(s, "c8 one device", rt, seeds)
+    rt = ServeRuntime(g, c8_config(sharded=True))
+    s.expect(isinstance(rt.executor, ShardedExecutor)
+             and rt.executor.n_dev == 1,
+             "c8: sharded=True is not a 1-shard ShardedExecutor")
+    runs["sharded=True, 1 shard"] = c8_run(s, "c8 sharded=True, 1 shard",
+                                           rt, seeds)
+    cfg = c8_config(sharded=True)
+    ex = ShardedExecutor(g, cfg, mesh=make_mesh([s.dev] * S21_SHARDS))
+    runs[f"{S21_SHARDS} shards"] = c8_run(
+        s, f"c8 {S21_SHARDS} shards of one card",
+        ServeRuntime(g, cfg, executor=ex), seeds)
+    probe0 = runs["one device"][0]
+    for what, (probe, rec, n_sh) in runs.items():
+        s.expect(probe == probe0, f"c8 {what}: the first {C8_PROBE} "
+                 f"results differ from the one-device run's")
+        if what != "one device":
+            s.expect(n_sh > 0, f"c8 {what}: no sharded dispatch")
+    for k in range(0, C8_PROBE, 8):
+        want = graph_bfs(g, int(seeds[k]), C8_HOPS)
+        s.expect(probe0[k] == (len(want), want[:SV_TOP_R]),
+                 f"c8: request {k} differs from the host BFS")
+    s.log(f"c8: differential_equal over the first {C8_PROBE} results of "
+          f"the three runs (every 8th against the host BFS); sharded "
+          f"dispatches {[runs[w][2] for w in runs]}; served requests/s "
+          f"{ {w: round(v[1]['served_qps'], 1) for w, v in runs.items()} } "
+          f"(shards of one card share it: code paths, not scaling)")
+    rt1, batch1, ms1 = c8_batch_alone(s, g, seeds, "one device", None)
+    s.profile_later(C21_ALONE[0], batch1, ms1, teardown=rt1.close)
+    rt4, batch4, ms4 = c8_batch_alone(s, g, seeds, f"{S21_SHARDS} shards",
+                                      make_mesh([s.dev] * S21_SHARDS))
+
+    def close():
+        rt4.close()
+        g.close()
+
+    s.profile_later(C21_ALONE[1], batch4, ms4, teardown=close)
+    return g, e0, mgr
+
+
+def c8_batch_alone(s: Smoke, g, seeds, what: str, mesh):
+    """One batch of c8's largest bucket through a manual runtime (one
+    device when ``mesh`` is None), nothing queued before it: its wall and
+    its ms in ``launch`` and ``collect``, the median of three warm
+    batches. In the closed loop, launch N+1 precedes collect N, so there
+    a batch's split says where the host waited. Returns the runtime (left
+    open for the profile), the batch and its median wall."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.serve import ServeRuntime, ShardedExecutor
+
+    cfg = c8_config(sharded=mesh is not None, manual=True)
+    ex = None if mesh is None else ShardedExecutor(g, cfg, mesh=mesh)
+    rt = ServeRuntime(g, cfg, executor=ex)
+    lanes = [int(x) for x in seeds[: C8_BUCKETS[-1]]]
+
+    def one_batch():
+        futs = [rt.submit_bfs(x, max_hops=C8_HOPS) for x in lanes]
+        drain(rt)
+        futs[-1].result(timeout=SV_WAIT_S)
+
+    one_batch()  # the pin (and, sharded, the split) off the clock
+    with rt.executor._timing_lock:
+        rt.executor.timing.clear()
+    ms = served_ms(s, one_batch, runs=3)
+    t = rt.executor.timing["bfs"]
+    n = t["batches"]
+    split = {k[:-2]: round(v * 1e3 / n, 3) for k, v in t.items()
+             if k.endswith("_s")}
+    s.log(f"c8: one {len(lanes)}-lane batch alone, {what}: "
+          f"{spread(ms)}; ms a batch {split} over {n} batches (the "
+          f"warm-up's included; pin and dispatch lie inside launch, the "
+          f"event wait inside collect)")
+    return rt, one_batch, float(np.median(ms))
+
+
+def sharded_lanes(s: Smoke, g, e0: int, mgr) -> None:
+    """21 (c) and (d) on c8's graph: the pattern and join lanes through a
+    4-shard executor against the one-device runtime and the host; the
+    delta at lag 0 and across a compaction; placement and health."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch import join, obs
+    from hypergraphdb_tpu_torch.obs.perf import shard_skew
+    from hypergraphdb_tpu_torch.parallel.sharded import make_mesh
+    from hypergraphdb_tpu_torch.query import conditions as qc
+    from hypergraphdb_tpu_torch.serve import (
+        DeviceExecutor,
+        ServeConfig,
+        ServeRuntime,
+        ShardedExecutor,
+    )
+    from hypergraphdb_tpu_torch.storage.partitioned import PartitionMap
+
+    r = np.random.default_rng(C8_SEED + 1)
+    sen = obs.PerfSentinel(flight=obs.FlightRecorder())
+    cfg = ServeConfig(buckets=C8_BUCKETS, max_linger_s=0.0, top_r=SV_TOP_R,
+                      prewarm_aot=False, manual=True, perf=sen)
+    ex = ShardedExecutor(g, cfg, mesh=make_mesh([s.dev] * S21_SHARDS))
+    rt_sh = ServeRuntime(g, cfg, executor=ex)
+    rt_one = ServeRuntime(g, ServeConfig(
+        buckets=C8_BUCKETS, max_linger_s=0.0, top_r=SV_TOP_R,
+        prewarm_aot=False, manual=True, sharded=False))
+    try:
+        base = mgr.pinned_view(sync_delta=False).base
+        n1 = base.num_atoms + 1
+        links = np.flatnonzero(base.is_link[:n1] & (base.arity[:n1] == 2))
+        pairs = []
+        for lk in r.choice(links, size=4 * C21_PATTERNS, replace=False):
+            a, b = (int(x) for x in base.targets_row(int(lk)))
+            if a != b:
+                pairs.append((a, b))
+        pairs = pairs[:C21_PATTERNS]
+
+        def both(submit, n: int):
+            futs = [[submit(rt, i) for i in range(n)]
+                    for rt in (rt_sh, rt_one)]
+            drain(rt_sh)
+            drain(rt_one)
+            return [[f.result(timeout=SV_WAIT_S) for f in fs] for fs in futs]
+
+        n0 = rt_sh.stats.sharded_dispatches
+        sh, one = both(lambda rt, i: rt.submit_pattern(list(pairs[i])),
+                       len(pairs))
+        for (a, b), x, y in zip(pairs, sh, one):
+            want = sorted(int(h) for h in g.find_all(
+                qc.And(qc.Incident(a), qc.Incident(b))))
+            s.expect(x.count == y.count == len(want)
+                     and x.matches.tolist() == y.matches.tolist()
+                     == want[:SV_TOP_R],
+                     f"sharded lanes: pattern {a, b} gave {x.count} and "
+                     f"{y.count}, the host {len(want)}")
+        s.expect(rt_sh.stats.sharded_dispatches > n0,
+                 "sharded lanes: the patterns took no sharded dispatch")
+        anchors = [int(a) for a, _ in pairs[:C21_JOINS]]
+        n0 = rt_sh.stats.sharded_dispatches
+        sh, one = both(lambda rt, i: rt.submit_join(c11_spec(anchors[i])),
+                       len(anchors))
+        for a, x, y in zip(anchors, sh, one):
+            want = join.host_join(g, join.extract_pattern(g, c11_spec(a)))
+            got = [tuple(int(v) for v in row) for row in x.tuples]
+            s.expect(x.count == y.count == len(want)
+                     and np.array_equal(x.tuples, y.tuples)
+                     and got == want[:SV_TOP_R],
+                     f"sharded lanes: join at {a} gave {x.count} and "
+                     f"{y.count}, the host {len(want)}")
+        s.expect(rt_sh.stats.sharded_dispatches > n0,
+                 "sharded lanes: the joins took no sharded dispatch")
+        s.log(f"sharded lanes: {len(pairs)} patterns and {len(anchors)} "
+              f"triangle joins through {S21_SHARDS} shards equal the "
+              f"one-device runtime and the host (join routes "
+              f"{ex.join_routes})")
+
+        # the delta at lag 0: links committed, links and entities removed
+        subj = r.integers(0, SV_ENTITIES, size=C21_LINKS)
+        obj = r.integers(0, SV_ENTITIES, size=C21_LINKS)
+        new = g.bulk_import(values=list(range(C21_LINKS)),
+                            target_lists=[[e0 + int(a), e0 + int(b)]
+                                          for a, b in zip(subj, obj)])
+        gone = [int(h) for h in r.choice(
+            np.concatenate([links, np.asarray(new, dtype=np.int64)]),
+            size=C21_REMOVED_LINKS, replace=False)]
+        gone += [e0 + int(x) for x in r.choice(
+            SV_ENTITIES, size=C21_REMOVED_ENTITIES, replace=False)]
+        t0 = time.perf_counter()
+        for h in gone:
+            if g.store.get_link(h) is not None:
+                g.remove(h)
+        s.log(f"sharded lanes: {C21_LINKS} links committed and "
+              f"{len(gone)} atoms removed in {time.perf_counter() - t0:.2f} "
+              f"s; memtable {mgr.delta_edges} edge entries")
+        dead = set(gone)
+        probes = [e0 + int(x) for x in r.integers(0, SV_ENTITIES,
+                                                  size=4 * C21_PROBES)]
+        probes = [x for x in probes if x not in dead][:C21_PROBES]
+        epochs = []
+        for when in ("lag 0", "after a compaction"):
+            if when != "lag 0":
+                compact_now(s, mgr, "c8")
+            futs = [rt_sh.submit_bfs(x, max_hops=C8_HOPS) for x in probes]
+            drain(rt_sh)
+            check_results(s, f"sharded {when}", futs,
+                          [graph_bfs(g, x, C8_HOPS) for x in probes],
+                          SV_TOP_R)
+            epochs.append(ex.mesh_report()["sharded_epoch"])
+        s.expect(0 <= epochs[0] < epochs[1] == mgr.compactions,
+                 f"sharded lanes: sharded epochs {epochs}, the manager's "
+                 f"{mgr.compactions}: the compaction did not re-shard")
+        s.log(f"sharded lanes: {len(probes)} BFS seeds at lag 0 and after "
+              f"a compaction equal the host BFS over the live graph; the "
+              f"sharded base re-sharded at epoch {epochs[0]} -> "
+              f"{epochs[1]}")
+
+        # (d) placement and health
+        rep = ex.mesh_report()
+        pm = PartitionMap(**{k: rep["partition_map"][k]
+                             for k in ("n_parts", "part_size", "capacity")})
+        spans = [(sh["gid_lo"], sh["gid_hi"]) for sh in rep["shards"]]
+        s.expect(rep["devices"] == S21_SHARDS and spans == pm.ranges()
+                 and spans[0][0] == 0
+                 and all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+                 and spans[-1][1] >= pm.capacity,
+                 f"mesh_report: shards {spans} do not tile {pm.ranges()}")
+        sample = r.integers(0, pm.capacity + 1000, size=256)
+        owners = [rt_sh._shard_owner(SimpleNamespace(seed=int(x)))
+                  for x in sample]
+        s.expect(owners == [pm.owner_of(int(x)) for x in sample],
+                 "_shard_owner differs from PartitionMap.owner_of")
+        s.expect(sen.mesh_source == ex.mesh_report,
+                 "the sentinel's mesh source is not the executor's report")
+        skew = sen.tick()["skew"] or {}
+        # shards of one card read one memory figure, and equal spans
+        s.expect((s.dev.type != "cuda" or skew.get(
+                     "hbm_bytes_in_use", {}).get("ratio") == 1.0)
+                 and skew.get("gid_span", {}).get("ratio") == 1.0
+                 and set(shard_skew(rep)) <= set(skew),
+                 f"shard_skew not fed: {skew}")
+        s.log(f"sharded health: {rep['devices']} shards tile the partition "
+              f"map {pm.ranges()}; _shard_owner equals owner_of on 256 "
+              f"ids; shard_skew {skew}")
+    finally:
+        rt_sh.close()
+        rt_one.close()
+        sen.close()
+    rt = ServeRuntime(g, ServeConfig(hbm_budget_bytes=1, manual=True,
+                                     prewarm_aot=False))
+    try:
+        s.expect(type(rt.executor) is DeviceExecutor,
+                 f"AUTO on one card took {type(rt.executor).__name__}")
+    finally:
+        rt.close()
+    s.log("sharded health: AUTO (hbm_budget_bytes 1) stays on "
+          "DeviceExecutor on one card")
+
+
+def phase_sharded(s: Smoke, snap, truth: dict) -> None:
+    """Phase 21: sharding on the card (see the legs)."""
+    t0 = time.perf_counter()
+    sharded_10m(s, snap, truth)
+    g, e0, mgr = serve_c8(s)
+    try:
+        sharded_lanes(s, g, e0, mgr)
+        # (c) changed the graph the queued batches read
+        for name in C21_ALONE:
+            old, new = s.retime_profile(name)
+            s.log(f"c8: {name} re-timed on the changed graph: {old:.3f} "
+                  f"-> {new:.3f} ms")
+    except BaseException:
+        g.close()  # else the queued profile's teardown closes it
+        raise
+    s.log(f"sharded: phase 21 in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_profiles(s: Smoke) -> None:
     """The device's busy share of each path queued by the timed phases,
     from ``torch.profiler``: the kernels, copies and fills it records on
@@ -6895,6 +7339,12 @@ def phase_profiles(s: Smoke) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # host calls that can wait for the card: a synchronise (a blocking
+    # copy from pageable memory synchronises the stream), a launch into
+    # a full launch queue, a read of a device value
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaLaunchKernel", "cudaMemcpyAsync",
+             "aten::_local_scalar_dense", "aten::nonzero")
     torch = s.torch
     faults = []
     for p in s.profiles:
@@ -6936,6 +7386,12 @@ def phase_profiles(s: Smoke) -> None:
               f"unprofiled ({share:.1f} %), {n_ops:.1f} device operations a "
               f"run, their intervals' union {union_ms:.4f} ms in "
               f"{profiled_ms:.3f} ms wall profiled; top: {top}")
+        held = [e for e in events if e.device_type == DeviceType.CPU
+                and e.key in waits]
+        s.log(f"profile {p.name}: host calls that can wait, a run: "
+              + ("; ".join(f"{e.key} x{e.count / p.reps:.0f} "
+                           f"{e.cpu_time_total / 1e3 / p.reps:.3f} ms"
+                           for e in held) or "none"))
         if p.device and n_ops == 0:
             faults.append(f"{p.name}: no device operation")
         if union_ms > profiled_ms:
@@ -6994,6 +7450,7 @@ def main(argv: list[str]) -> int:
         phase_serve(s)
         phase_join_serve(s)
         phase_planned(s)
+        phase_sharded(s, snap, truth)
         phase_profiles(s)
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

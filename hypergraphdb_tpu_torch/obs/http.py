@@ -1,8 +1,8 @@
 """HTTP telemetry endpoint: the scrape surface a replicated tier needs.
 
-The port of ``hypergraphdb_tpu/obs/http.py``. The health payload has no
-``mesh`` section until the port serves sharded (ROADMAP queue 1, item 8):
-a ``DeviceExecutor`` has no ``mesh_report``.
+The port of ``hypergraphdb_tpu/obs/http.py``. The health payload carries
+a ``mesh`` section when the runtime's executor is the sharded one (its
+``mesh_report``).
 
 A tiny stdlib ``http.server`` thread exposing the process's telemetry —
 no framework, no dependency, safe to run beside the serving runtime:

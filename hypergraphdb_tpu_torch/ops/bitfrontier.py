@@ -33,7 +33,9 @@ Differences from the reference, all deliberate:
   reference's ``lax.fori_loop`` and ``lax.scan``), over each relation's
   real entries only (its padding joins the dummy row to itself).
 - Results stay on the device as tensors; edge counts are int64.
-- The sharded variant (``varying_axis``) waits for the sharded slice.
+- The sharded variant lives in ``parallel/sharded``: each shard runs
+  :func:`_scatter_relation` over its own edge slice, with no
+  ``varying_axis`` (that argument serves JAX's replication checker).
 """
 
 from __future__ import annotations

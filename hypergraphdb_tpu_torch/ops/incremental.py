@@ -20,7 +20,9 @@ the dummy row ``N``, and a tombstone mask over the id space.
 - :class:`SnapshotManager` wraps one memtable per base epoch around a
   graph (``core/graph.py``): it listens to the graph's events, compacts
   (extract under the commit lock, assemble without it, swap), and hands
-  out (base, delta) device pairs and :class:`PinnedView` read units.
+  out (base, delta) device pairs and :class:`PinnedView` read units; with
+  a mesh attached (``attach_mesh``) a view may carry the row-sharded twins
+  of ``parallel/sharded`` instead, re-sharded once an epoch.
 
 The dense sweep keeps the reference's results, not its layout. The
 reference holds a (K, N+1) bool frontier and gathers a (K, E) bool array
@@ -43,6 +45,8 @@ import torch
 
 from hypergraphdb_tpu_torch.core import events as ev
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from hypergraphdb_tpu_torch.obs.flight import global_flight
+from hypergraphdb_tpu_torch.obs.trace import global_tracer
 from hypergraphdb_tpu_torch.ops.frontier import scatter_relation
 from hypergraphdb_tpu_torch.ops.setops import _bucket
 from hypergraphdb_tpu_torch.ops.snapshot import (
@@ -418,6 +422,10 @@ class PinnedView(NamedTuple):
     new_atoms: list     # handles added since the base pack, commit order
     revalued: set       # atoms whose value was replaced since the pack
     host_delta: Optional[dict] = None
+    #: the row-sharded twins of a ``sharded=True`` view (``attach_mesh``):
+    #: ``parallel.sharded.ShardedSnapshot`` and ``ShardedDelta``
+    sharded_base: object = None
+    sharded_delta: object = None
 
     def factorized_join_rels(self):
         """The join engine's prefix-grouped (trie) relation encodings for
@@ -489,6 +497,16 @@ class SnapshotManager:
         self.compactions = 0
         #: kind -> the cached delta value column (see value_delta)
         self._value_delta: dict = {}
+        # the mesh twins (attach_mesh): the sharded base is rebuilt once an
+        # epoch outside the lock, the sharded delta re-split from the
+        # memtable under the device delta's drift rule
+        self._mesh = None
+        self._shard_edge_chunk = 1 << 16
+        self._shard_delta_chunk = 4096
+        self._sharded_base = None
+        self._sharded_epoch = -1
+        self._sharded_delta = None
+        self._sharded_marker = (-1, -1, -1)
         self._events = ((ev.HGAtomAddedEvent, self._on_added),
                         (ev.HGAtomRemovedEvent, self._on_removed),
                         (ev.HGAtomReplacedEvent, self._on_replaced))
@@ -601,17 +619,35 @@ class SnapshotManager:
             self.compactions = epoch
 
     def _compact_sync(self) -> None:
-        t0 = time.perf_counter()
+        tracer = global_tracer()
+        tr = tracer.start_trace("compact") if tracer.enabled else None
+        root = None if tr is None else tr.start_span("compact")
         try:
+            t0 = time.perf_counter()
+            drain = (None if tr is None
+                     else tr.start_span("buffer_drain", parent=root))
             with self.graph.txman._commit_lock:
                 with self._lock:
                     ext = self._extract_locked()
+            if drain is not None:
+                drain.end()
             t1 = time.perf_counter()
+            swap = (None if tr is None
+                    else tr.start_span("device_swap", parent=root))
             self._assemble_and_swap(ext)
+            if swap is not None:
+                swap.set(highwater=int(ext["highwater"])).end()
             t2 = time.perf_counter()
-        except BaseException:
+        except BaseException as e:
+            # a failed pass is the trace worth keeping: it is exported
+            # with an error terminal
+            if tr is not None:
+                tr.finish_error(e, parent=root)
             self.graph.metrics.incr("compact.failures")
             raise
+        finally:
+            if tr is not None:
+                tr.finish()
         self.compaction_stats.append({
             "extract_s": t1 - t0,
             "assemble_swap_s": t2 - t1,
@@ -621,6 +657,12 @@ class SnapshotManager:
         m.incr("compact.passes")
         m.observe("compact.extract_seconds", t1 - t0)
         m.observe("compact.assemble_swap_seconds", t2 - t1)
+        fl = global_flight()
+        if fl.enabled:
+            # the swap is what serving consistency pivots on: an incident
+            # dump shows every recent epoch
+            fl.record("compact.swap", highwater=int(ext["highwater"]),
+                      total_s=t2 - t0)
 
     def _request_compact(self) -> None:
         if not self.background:
@@ -708,26 +750,111 @@ class SnapshotManager:
             delta = self._sync_device_delta_locked(max_lag_edges)
             return self.base.device(self.torch_device), delta
 
+    # -- the mesh twins ------------------------------------------------------
+    def attach_mesh(self, mesh, edge_chunk: int = 1 << 16,
+                    delta_edge_chunk: int = 4096) -> None:
+        """Give this manager a mesh (``parallel.sharded.Mesh``):
+        ``pinned_view(sharded=True)`` then hands out the row-sharded (base,
+        delta) twins beside the host correction sets. Attaching another
+        mesh drops the sharded state (the next pin re-shards)."""
+        with self._lock:
+            if self._mesh != mesh:
+                self._sharded_base = None
+                self._sharded_epoch = -1
+                self._sharded_delta = None
+                self._sharded_marker = (-1, -1, -1)
+            self._mesh = mesh
+            self._shard_edge_chunk = edge_chunk
+            self._shard_delta_chunk = delta_edge_chunk
+
+    def _sync_sharded_delta_locked(self, max_lag_edges: int):
+        """The sharded delta, re-split from the memtable when it drifted
+        past ``max_lag_edges`` (the caller holds the manager lock and the
+        sharded base is this epoch's): the mesh twin of
+        :meth:`_sync_device_delta_locked`. A refresh re-splits the whole
+        memtable: the shards' partitions interleave, so no tail splices."""
+        from hypergraphdb_tpu_torch.parallel.sharded import shard_host_delta
+
+        mt = self._mt
+        marker = (self.compactions, mt.delta_edges, mt.n_dead)
+        stale = (self._sharded_delta is None
+                 or marker[0] != self._sharded_marker[0])
+        if not stale:
+            drift = (marker[1] - self._sharded_marker[1]
+                     + marker[2] - self._sharded_marker[2])
+            stale = drift > max_lag_edges
+        if stale:
+            self._sharded_delta = shard_host_delta(
+                self._sharded_base, mt.host_delta(),
+                edge_chunk=self._shard_delta_chunk)
+            self._sharded_marker = marker
+        return self._sharded_delta
+
+    def _ensure_sharded_base(self) -> None:
+        """Make the cached sharded base this epoch's, without the lock:
+        sharding is an O(E) split and upload that would stall every
+        committing writer. Shard, then swap in only if no compaction moved
+        the epoch meanwhile."""
+        from hypergraphdb_tpu_torch.parallel.sharded import ShardedSnapshot
+
+        while True:
+            with self._lock:
+                if self._mesh is None:
+                    raise ValueError(
+                        "pinned_view(sharded=True) needs attach_mesh first")
+                if self._sharded_epoch == self.compactions:
+                    return
+                base, epoch, mesh = self.base, self.compactions, self._mesh
+                chunk = self._shard_edge_chunk
+            sbase = ShardedSnapshot.from_host(base, mesh, edge_chunk=chunk,
+                                              epoch=epoch)
+            with self._lock:
+                if self.compactions == epoch and self._mesh == mesh:
+                    self._sharded_base = sbase
+                    self._sharded_epoch = epoch
+                    self._sharded_delta = None
+                    self._sharded_marker = (-1, -1, -1)
+                    return
+
     def pinned_view(self, max_lag_edges: int = 0, sync_delta: bool = True,
-                    host_delta: bool = False) -> PinnedView:
+                    host_delta: bool = False,
+                    sharded: bool = False) -> PinnedView:
         """The serving read unit (:class:`PinnedView`). ``sync_delta=False``
         skips the delta refresh (``delta=None``) for readers of the base and
         the host corrections alone; ``host_delta=True`` adds the memtable's
-        host arrays."""
+        host arrays.
+
+        ``sharded=True`` (after :meth:`attach_mesh`) fills
+        ``sharded_base`` and ``sharded_delta`` with this epoch's row-sharded
+        twins, re-sharding the base when a compaction moved the epoch. Such
+        a view syncs no single-device delta and leaves ``device`` None; the
+        host correction sets are the same."""
         self._maybe_compact()
-        with self._lock:
-            delta = (self._sync_device_delta_locked(max_lag_edges)
-                     if sync_delta else None)
-            return PinnedView(
-                base=self.base,
-                device=self.base.device(self.torch_device),
-                delta=delta,
-                epoch=self.compactions,
-                dead=self._mt.dead(),
-                new_atoms=list(self._new_atoms),
-                revalued=set(self._revalued),
-                host_delta=self._mt.host_delta() if host_delta else None,
-            )
+        while True:
+            if sharded:
+                self._ensure_sharded_base()
+            with self._lock:
+                if sharded and self._sharded_epoch != self.compactions:
+                    continue  # a compaction swapped mid-shard: re-shard
+                sbase = sdelta = delta = None
+                if sharded:
+                    sbase = self._sharded_base
+                    sdelta = self._sync_sharded_delta_locked(max_lag_edges)
+                elif sync_delta:
+                    delta = self._sync_device_delta_locked(max_lag_edges)
+                return PinnedView(
+                    base=self.base,
+                    device=(None if sharded
+                            else self.base.device(self.torch_device)),
+                    delta=delta,
+                    epoch=self.compactions,
+                    dead=self._mt.dead(),
+                    new_atoms=list(self._new_atoms),
+                    revalued=set(self._revalued),
+                    host_delta=self._mt.host_delta() if host_delta else None,
+                    sharded_base=sbase,
+                    sharded_delta=sdelta,
+                )
 
     def value_delta(self, view: PinnedView, kind: int,
                     max_lag_edges: int = 0):

@@ -1,7 +1,7 @@
 """Query-serving runtime: async micro-batching with admission control.
 
-The port of ``hypergraphdb_tpu/serve`` (its single-card executor; the
-reference's ``ShardedExecutor`` waits for ROADMAP queue 1, item 8). The
+The port of ``hypergraphdb_tpu/serve``: the single-device executor and
+the sharded one (``sharded.py``: serve buckets over a mesh). The
 kernels under ``ops/`` are batch-native (K seeds / K queries per dispatch);
 this package turns them into a service using the continuous-batching shape
 of inference stacks:
@@ -55,6 +55,7 @@ from hypergraphdb_tpu_torch.serve.runtime import (
     ServeConfig,
     ServeRuntime,
 )
+from hypergraphdb_tpu_torch.serve.sharded import ShardedExecutor
 
 __all__ = [
     "AdmissionGated",
@@ -75,6 +76,7 @@ __all__ = [
     "ServeResult",
     "ServeRuntime",
     "ServeStats",
+    "ShardedExecutor",
     "Unservable",
     "bucket_for",
 ]

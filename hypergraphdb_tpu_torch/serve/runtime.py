@@ -75,9 +75,11 @@ record that fails to assemble is counted (``serve.explain_errors``) and
 planner's guard is counted (``serve.perf_observe_errors``) and vetoes
 nothing. Neither fault reaches the request.
 
-Out of this slice, raising :class:`~.types.Unservable` that names its
-ROADMAP queue 1 item: sharding (``sharded=True``, ``hbm_budget_bytes``;
-item 8).
+Sharded serving: ``sharded=True`` (or AUTO: ``hbm_budget_bytes`` set and
+more than one device visible) serves through ``serve/sharded``'s
+``ShardedExecutor`` over a mesh of the visible devices, capped by
+``mesh_devices``; an executor passed to ``ServeRuntime`` may mesh one
+device several times.
 
 Deterministic testing: ``ServeConfig(manual=True)`` starts no thread —
 tests drive ``step()`` / ``pump()`` with an injected clock and a fake
@@ -141,11 +143,6 @@ _WORD = 32
 #: the correction's reduced pattern was not servable
 JOIN_ROUTES = ("device", "dirty", "declined", "beyond_base", "truncated",
                "prefix", "correction")
-
-
-def _later(item: int, what: str) -> Unservable:
-    """The error of an entry point this port does not have yet."""
-    return Unservable(f"{what} waits for ROADMAP queue 1, item {item}")
 
 
 @dataclass
@@ -222,9 +219,18 @@ class ServeConfig:
     #: past it (or on any tombstone/revalue) the whole batch takes the
     #: exact host path. 0 disables the partial path.
     join_dirty_max: int = 16
-    # -- multi-chip serving: item 8 ------------------------------------------
+    # -- sharded serving (serve/sharded + ops/sharded_serving) ---------------
+    #: True routes serve buckets through the sharded executor; False pins
+    #: one device; None = AUTO: sharded exactly when more than one device
+    #: is visible and the base's estimated device bytes exceed
+    #: ``hbm_budget_bytes`` (a snapshot one device holds serves faster
+    #: without the exchange)
     sharded: Optional[bool] = None
+    #: the per-device budget AUTO compares the base against; None disables
+    #: the upgrade (only ``sharded=True`` shards then)
     hbm_budget_bytes: Optional[int] = None
+    #: cap on the mesh's devices (None = every visible device)
+    mesh_devices: Optional[int] = None
     #: where the executor's batches run: the card unless the caller asks
     #: for the CPU; it must be the graph's snapshot manager's device
     device: str = DEFAULT_DEVICE
@@ -1406,13 +1412,32 @@ def _by_target(cand_records: dict) -> dict:
 
 
 def _make_executor(graph, config: ServeConfig, stats):
-    """The executor of one runtime: the single-card
-    :class:`DeviceExecutor`. The reference's mesh-sharded executor
-    (``sharded=True``, or AUTO with ``hbm_budget_bytes``) waits for
-    ROADMAP item 8."""
-    if config.sharded is True or config.hbm_budget_bytes is not None:
-        raise _later(8, "sharded serving (sharded / hbm_budget_bytes)")
-    return DeviceExecutor(graph, config, stats)
+    """The executor of one runtime: the sharded executor when
+    ``ServeConfig(sharded=True)``, or in AUTO mode (``sharded=None``) when
+    more than one device is visible and the base snapshot's estimated
+    device bytes exceed ``hbm_budget_bytes``. Everything else stays on the
+    single-device :class:`DeviceExecutor`: on one card AUTO never
+    shards."""
+    if config.sharded is False or graph is None:
+        return DeviceExecutor(graph, config, stats)
+    use = config.sharded is True
+    if not use and config.hbm_budget_bytes is not None:
+        from hypergraphdb_tpu_torch.serve.sharded import (
+            snapshot_device_bytes,
+            visible_devices,
+        )
+
+        if len(visible_devices(config)) > 1:
+            from hypergraphdb_tpu_torch.device import resolve_device
+
+            mgr = graph.incremental or graph.enable_incremental(
+                device=resolve_device(config.device))
+            use = snapshot_device_bytes(mgr.base) > config.hbm_budget_bytes
+    if not use:
+        return DeviceExecutor(graph, config, stats)
+    from hypergraphdb_tpu_torch.serve.sharded import ShardedExecutor
+
+    return ShardedExecutor(graph, config, stats)
 
 
 class ServeRuntime:
@@ -1453,6 +1478,15 @@ class ServeRuntime:
             else _make_executor(graph, self.config, self.stats)
         )
         self.graph = graph
+        if isinstance(getattr(self.executor, "stats", None), ServeStats):
+            # an executor built outside the runtime records into the
+            # runtime's stats, as one the runtime builds does
+            self.executor.stats = self.stats
+        mesh_report = getattr(self.executor, "mesh_report", None)
+        if (self.perf is not None and callable(mesh_report)
+                and getattr(self.perf, "mesh_source", False) is None):
+            # the sentinel's shard-skew gauges read the executor's mesh
+            self.perf.mesh_source = mesh_report
         # deploy-time set-up: the plans and kernels of every bucket are
         # built before the dispatch thread takes traffic; a failure raises
         # from here (injected executors without a prewarm hook skip it)
@@ -2091,10 +2125,26 @@ class ServeRuntime:
         }
 
     def _shard_owner(self, request):
-        """The mesh partition owning this request's primary id, for the
-        EXPLAIN record: None until the port serves sharded (ROADMAP
-        queue 1, item 8)."""
-        return None
+        """The mesh partition owning this request's primary id (the seed,
+        else the largest anchor), for the EXPLAIN record; None off the
+        sharded executor, before its base is sharded, or for shapes with
+        no raw ids."""
+        ex = self.executor
+        if getattr(ex, "mesh", None) is None:
+            return None
+        sbase = getattr(getattr(ex, "mgr", None), "_sharded_base", None)
+        pmap = getattr(sbase, "partition_map", None)
+        if pmap is None:
+            return None
+        rid = getattr(request, "seed", None)
+        if rid is None:
+            anchors = getattr(request, "anchors", None)
+            if not anchors:
+                return None
+            rid = max(anchors)
+        if int(rid) < 0:
+            return None  # no gid: unowned
+        return int(pmap.owner_of(int(rid)))
 
     def _recover_collect(self, tickets, token, key, device,
                          exc: BaseException):

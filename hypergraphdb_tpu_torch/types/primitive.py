@@ -174,6 +174,12 @@ class DictType(HGAtomType):
     def handles_value(self, value: Any) -> bool:
         return isinstance(value, dict)
 
+    def dimensions(self) -> list[str]:
+        return []  # the keys vary by value: project() takes any of them
+
+    def project(self, value: Any, dimension: str) -> Any:
+        return value.get(dimension)
+
 
 #: (type, bound runtime classes), in the order their type atoms are made
 PREDEFINED: list[tuple[HGAtomType, tuple]] = [

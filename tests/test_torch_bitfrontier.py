@@ -7,8 +7,9 @@ pull BFS, with an odd K (block padding) and small edge chunks (many
 chunks a relation); the isolated seed; ``bfs_memory_bytes`` equal to the
 reference's across scales and device counts. The port's words are int32
 and compare through ``.numpy().view(np.uint32)``; everything runs on
-``device="cpu"`` (plain PyTorch). The reference's sharded case
-(``bfs_packed_sharded``) waits for the sharded slice.
+``device="cpu"`` (plain PyTorch). The sharded variant
+(``bfs_packed_sharded``) is held against the reference's in
+``tests/test_torch_parallel.py``.
 
 Tolerance: exact equality."""
 

@@ -118,3 +118,51 @@ def test_guard_covers_the_persistence_and_subscription_modules(module):
     planner modules are among the modules the guard imports with the
     reference blocked."""
     assert module in _module_names()
+
+
+@pytest.mark.parametrize("module", [
+    "hypergraphdb_tpu_torch.parallel",
+    "hypergraphdb_tpu_torch.parallel.sharded",
+    "hypergraphdb_tpu_torch.parallel.multihost",
+    "hypergraphdb_tpu_torch.ops.sharded_serving",
+    "hypergraphdb_tpu_torch.serve.sharded",
+    "hypergraphdb_tpu_torch.storage.partitioned",
+])
+def test_guard_covers_the_sharding_modules(module):
+    """The sharding slice's modules are among the modules the guard
+    imports with the reference blocked."""
+    assert module in _module_names()
+
+
+def test_sharded_serving_runs_with_jax_and_reference_blocked():
+    """A sharded runtime over a 4-shard CPU mesh serves a BFS and a
+    pattern where neither ``jax`` nor the reference imports."""
+    script = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from hypergraphdb_tpu_torch.core.graph import HyperGraph\n"
+        "from hypergraphdb_tpu_torch.parallel import make_mesh\n"
+        "from hypergraphdb_tpu_torch.serve import (ServeConfig, "
+        "ServeRuntime, ShardedExecutor)\n"
+        "g = HyperGraph()\n"
+        "a, b, c = g.add('a'), g.add('b'), g.add('c')\n"
+        "g.add_link((a, b)); g.add_link((b, c))\n"
+        "cfg = ServeConfig(device='cpu', manual=True, buckets=(16,), "
+        "sharded=True)\n"
+        "ex = ShardedExecutor(g, cfg, mesh=make_mesh(['cpu'] * 4))\n"
+        "rt = ServeRuntime(g, cfg, executor=ex)\n"
+        "fb, fp = rt.submit_bfs(int(a), max_hops=2), "
+        "rt.submit_pattern([int(a), int(b)])\n"
+        "while rt.step(drain=True):\n"
+        "    pass\n"
+        "assert fb.result(timeout=0).count == 3\n"
+        "assert fp.result(timeout=0).count == 1\n"
+        "assert rt.stats.sharded_dispatches == 2\n"
+        "rt.close(); g.close()\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

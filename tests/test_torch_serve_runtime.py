@@ -7,8 +7,8 @@ and a fake executor whose results are each package's own
 — the executor's launch/collect order, each future's outcome, the stats
 snapshot, the queue — and the two records must be equal. Then the port's
 own surface: the join entry points reach the executor, the planner and
-EXPLAIN entry points refuse what the reference refuses, the options
-outside the port's slice raise naming their ROADMAP item, and
+EXPLAIN entry points refuse what the reference refuses, the sharding
+options pick the executor the reference's pick, and
 ``ServeRuntime(graph)`` asks for the card.
 
 Every future is read with ``timeout=0`` (or a bounded wait in the
@@ -437,21 +437,41 @@ def test_planner_and_explain_refuse_as_the_reference(case):
                        else "Unservable")
 
 
-@pytest.mark.parametrize("field,value,item", [
+@pytest.mark.parametrize("field,value,n_dev", [
     ("sharded", True, 8), ("hbm_budget_bytes", 1 << 30, 8)])
-def test_out_of_slice_options_raise_naming_their_item(field, value, item):
-    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+def test_out_of_slice_options_raise_naming_their_item(field, value, n_dev,
+                                                      monkeypatch):
+    """Once refused, the sharding options now pick the executor as the
+    reference's do: with ``n_dev`` visible devices (the reference's forced
+    CPU devices; the port's visible devices patched to the CPU ``n_dev``
+    times) ``sharded=True`` takes the sharded executor over all of them,
+    and AUTO with a budget the small base fits stays on one device."""
+    import torch
 
-    P = port()
-    g = HyperGraph()
-    try:
-        cfg = P.serve.ServeConfig(manual=True, device="cpu",
-                                  **{field: value})
-        with pytest.raises(P.types.Unservable, match=f"item {item}"):
-            P.serve.ServeRuntime(g, cfg)
-        assert g.incremental is None
-    finally:
-        g.close()
+    from hypergraphdb_tpu_torch.serve import sharded as port_sharded
+
+    monkeypatch.setattr(port_sharded, "visible_devices",
+                        lambda config: [torch.device("cpu")] * n_dev)
+    picks = []
+    for pkg in PKGS:
+        P = package(pkg)
+        g = importlib.import_module(f"{pkg}.core.graph").HyperGraph()
+        try:
+            g.add_link([g.add("a"), g.add("b")])
+            kw = {"device": "cpu"} if pkg == PKGS[1] else {}
+            rt = P.serve.ServeRuntime(g, P.serve.ServeConfig(
+                manual=True, **kw, **{field: value}))
+            ex = rt.executor
+            mesh = getattr(ex, "mesh", None)
+            picks.append((type(ex).__name__, None if mesh is None else (
+                mesh.n_dev if pkg == PKGS[1] else int(mesh.devices.size))))
+            assert g.incremental is not None
+            rt.close()
+        finally:
+            g.close()
+    assert picks[1] == picks[0]
+    assert picks[0] == (("ShardedExecutor", n_dev) if field == "sharded"
+                        else ("DeviceExecutor", None))
 
 
 class FakeManager:
@@ -606,7 +626,10 @@ def test_runtime_without_a_device_asks_for_the_card():
 
 
 def test_serve_exports_match_reference_but_the_sharded_executor():
+    """The sharded executor, once left out, is exported now: the two
+    packages' ``serve`` exports are equal."""
     ref, prt = (importlib.import_module(f"{p}.serve") for p in PKGS)
-    assert set(prt.__all__) == set(ref.__all__) - {"ShardedExecutor"}
+    assert set(prt.__all__) == set(ref.__all__)
+    assert "ShardedExecutor" in prt.__all__
     for name in prt.__all__:
         assert getattr(prt, name).__name__ == getattr(ref, name).__name__
