@@ -36,7 +36,7 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
    (two in each 128-byte line of a bitmap row) must equal a numpy host
    BFS, and both kernels must have launched.
 5. Served path: 5 requests padded to the 64-seed bucket, checked against
-   the main path's result and the host BFS, timed over 10 warm calls.
+   the main path's result and the host BFS, timed over 3 warm calls.
 6. The main path once more under a mask audit (the mask entering every hop,
    fused and staged, equal to ``line_mask`` of its bitmap), keeping the
    bitmap and mask entering each hop: K2 timed at each hop's input and K1
@@ -86,7 +86,7 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     held-back partner with the overlay and none without. Overlay BFSs at
     64 and 1024 lanes run under the mask audit; K1 is held against its
     plain version at every overlay level and K2 at the 64-lane hop. Each
-    served route is timed over 10 warm calls, the overlay's share by CUDA
+    served route is timed over 3 warm calls, the overlay's share by CUDA
     events, K1's launches per served batch counted, and the dense route's
     peak device memory at 1024 lanes read.
 12. bench.py c7's joins (run before 11): the co-incidence CSR refused at
@@ -287,8 +287,35 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     of phase 17; the packed BFS of c2 and of one 10M block. It fails if a
     path queued as device work records no device operation, or if the
     device is busy longer than the profiled runs' own wall.
+22. Durable storage (after 11; ``native/``, ``storage/native``,
+    ``storage/partitioned``, ``core/environment``, ``maintenance/``), its
+    stores under ``chiprun_out/chip_smoke_durable/``, removed at its end:
+    the engine's ``g++`` build; (a) BASELINE config 1, ``wordnet_like`` at
+    its defaults, on the native backend beside an in-memory build,
+    closed and reopened through ``environment.get``: 64 traversals of 3
+    hops (phase 15's seeds) and the packed snapshot equal the in-memory
+    graph's, and K2's BFS over the reopened store equals
+    ``HGBreadthFirstTraversal``; (b) bench c5 on native: its base
+    through ``bulk_import``, 40 x 10,000 links streamed under
+    ``enable_incremental(**C5_MANAGER)`` with a checkpoint after batch
+    20 and the last batch left in the memtable, one served batch of c5's
+    256 seeds (K2 on the base, K1 over the delta) against the host BFS
+    and the dense route; closed, reopened (every record back), and K2's
+    BFS from the reopened store's snapshot equal to the pre-close view's
+    on all 256 lanes; ingest atoms/s against phase 14's, WAL and
+    checkpoint bytes, checkpoint, reopen, export, pack, upload and first
+    BFS seconds; (c) c5's base on a 4-partition native grid, in a child
+    beside (a) and (b), reopened asking for 2 (the marker decides 4): its
+    snapshot equals (b)'s base array for array; (d) two children that
+    import only the port open copies of c5's base, commit 2,000 ops one
+    atom at a time and die at op 1,000 by an ``InjectedCrash`` at
+    ``tx.commit.pre`` and at ``tx.commit.apply``; each store is reopened,
+    the missing ops replayed, its content (by value), snapshot and K2
+    BFS equal to an uncrashed run's. K1 and K2 launches of the phase.
 
-Every log line carries the card's name and power limit. The last lines are
+Every log line carries the card's name and power limit. Before the
+summary, ``phase seconds {...}`` gives each phase's wall seconds: the
+whole script must stay well inside the driver's 1,200 s. The last lines are
 the card line, one JSON line of kernel records and the result
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script prints no result and exits non-zero.
@@ -322,8 +349,10 @@ HOST_LANES = (0, 1, 2, 3, 4, 1100, 1500, 2200, 2600, 3300, 4095)
 #: timed runs of each path (fused and staged alternate)
 TIMED_RUNS = 5
 SERVE_SEEDS, SERVE_TOP_R = 5, 16
-#: warm calls of each served route timed host to host (median and spread)
-SERVE_RUNS = 10
+#: warm calls of each served route timed host to host (median and spread):
+#: 3, as the other served timings; ten calls of a route spread under 1 %
+#: on the card, and phase 10's five routes took 47 s at ten
+SERVE_RUNS = 3
 
 #: K3 check cases (Lb, M, Lo, values up to INT32_MAX - 1, an all-SENTINEL
 #: other row): ragged real lengths under SENTINEL padding
@@ -364,6 +393,8 @@ class Smoke:
         self.query_graph = None
         #: c11's graph (phase 17), for phase 20
         self.c11 = None
+        #: phase 14's record, for phase 22's ingest comparison
+        self.c5_memory = None
 
     def log(self, msg: str) -> None:
         print(f"[{self.card}] {msg}", flush=True)
@@ -7409,6 +7440,586 @@ def phase_profiles(s: Smoke) -> None:
     s.expect(not faults, "profiles: " + "; ".join(faults))
 
 
+# ------------------------------------------------------ 22. durable storage
+
+#: where phase 22 keeps its stores (removed at its end)
+DURABLE_DIR = ROOT / "chiprun_out" / "chip_smoke_durable"
+#: (d): per-atom ops after the base, the op the children die at, their
+#: stream's ``default_rng`` seed, the partition count of (c)
+D_OPS, D_CRASH_AT, D_SEED, D_PARTS = 2_000, 1_000, 41, 4
+D_POINTS = ("tx.commit.pre", "tx.commit.apply")
+D_CHILD_TIMEOUT_S = 300
+#: the stream's batch after which (b) checkpoints
+D_CHECKPOINT_AFTER = C5_BATCHES // 2
+D_CHILD = """
+import json, os, sys, time
+sys.modules["jax"] = None
+sys.modules["hypergraphdb_tpu"] = None
+sys.path.insert(0, {root!r})
+import chip_smoke
+from hypergraphdb_tpu_torch.core.config import HGConfiguration
+from hypergraphdb_tpu_torch.core.graph import HyperGraph
+from hypergraphdb_tpu_torch.fault import InjectedCrash, global_faults
+
+t0 = time.perf_counter()
+g = HyperGraph(HGConfiguration(store_backend="native", location={loc!r}))
+print("D_OPENED " + json.dumps({{"s": time.perf_counter() - t0}}),
+      flush=True)
+f = global_faults()
+handles = {{}}
+try:
+    for i, op in enumerate(chip_smoke.durable_ops({e0}, {n}, {ents})):
+        if i == {k}:
+            f.enable(seed=0)
+            f.arm({point!r}, at={{1}}, error=InjectedCrash)
+        chip_smoke.durable_apply(g, handles, op)
+    os._exit(7)
+except InjectedCrash:
+    os._exit(9)
+"""
+
+#: (c) in a child of its own, beside (a) and (b): c5's base on the grid,
+#: closed, reopened asking for 2, its snapshot saved for the parent
+D_GRID_CHILD = """
+import json, sys, time
+sys.modules["jax"] = None
+sys.modules["hypergraphdb_tpu"] = None
+sys.path.insert(0, {root!r})
+import numpy as np
+import chip_smoke
+from hypergraphdb_tpu_torch.core.config import HGConfiguration
+from hypergraphdb_tpu_torch.core.graph import HyperGraph
+from hypergraphdb_tpu_torch.ops.checkpoint import save_snapshot
+
+chip_smoke.C5_ENTITIES, chip_smoke.C5_LINKS = {ents}, {links}
+chip_smoke.C5_LOAD_CHUNK = {chunk}
+
+
+def grid(n):
+    return HyperGraph(HGConfiguration(store_backend="partitioned",
+                                      location={loc!r}, n_partitions=n))
+
+
+g = grid({parts})
+t0 = time.perf_counter()
+chip_smoke.c5_base(g, np.random.default_rng({seed}))
+build_s = time.perf_counter() - t0
+g.close()
+t0 = time.perf_counter()
+g = grid(2)
+reopen_s = time.perf_counter() - t0
+parts = len(g.backend._parts)
+t0 = time.perf_counter()
+snap = g.snapshot()
+pack_s = time.perf_counter() - t0
+save_snapshot(snap, {out!r})
+g.close()
+print("D_GRID " + json.dumps({{"build_s": build_s, "reopen_s": reopen_s,
+                               "pack_s": pack_s, "parts": parts}}),
+      flush=True)
+"""
+
+
+def durable_ops(e0: int, n: int, n_entities: int) -> list:
+    """(d)'s op stream over c5's base: nodes ``d{i}``, and every third op
+    a link from a base entity to the op node before it. A target is a
+    handle (a base entity) or the marker of an earlier op."""
+    import numpy as np
+
+    r = np.random.default_rng(D_SEED)
+    ents = r.integers(0, n_entities, size=n)
+    ops, last = [], None
+    for i in range(n):
+        if i % 3 == 2 and last is not None:
+            ops.append(("link", f"d{i}", (e0 + int(ents[i]), last)))
+        else:
+            ops.append(("node", f"d{i}", ()))
+            last = f"d{i}"
+    return ops
+
+
+def durable_apply(g, handles: dict, op) -> None:
+    kind, marker, targets = op
+    if kind == "node":
+        handles[marker] = int(g.add(marker))
+    else:
+        ts = [t if isinstance(t, int) else handles[t] for t in targets]
+        handles[marker] = int(g.add_link(ts, value=marker))
+
+
+def durable_lookup(g, marker: str):
+    from hypergraphdb_tpu_torch.query import dsl as hg
+
+    found = g.find_all(hg.value(marker))
+    return int(found[0]) if found else None
+
+
+def durable_canonical(g, ops) -> set:
+    """The ops' content by value, free of handles: nodes by marker, links
+    by marker and their targets' values."""
+    out = set()
+    for kind, marker, _ in ops:
+        h = durable_lookup(g, marker)
+        if h is None:
+            raise AssertionError(f"durable: marker {marker} missing")
+        if kind == "node":
+            out.add(("node", marker))
+        else:
+            out.add(("link", marker,
+                     tuple(g.get(t) for t in g.get(h).targets)))
+    return out
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def c5_base(g, r) -> int:
+    """c5's base through ``bulk_import``, from ``r``; returns e0."""
+    import numpy as np
+
+    e0 = int(g.bulk_import(values=np.arange(C5_ENTITIES).tolist())[0])
+    for st in range(0, C5_LINKS, C5_LOAD_CHUNK):
+        m = min(C5_LOAD_CHUNK, C5_LINKS - st)
+        g.bulk_import(values=list(range(st, st + m)),
+                      target_lists=c5_links(r, e0, m))
+    return e0
+
+
+def lane_sets(torch, bitmap, n_atoms: int) -> list:
+    """Per-lane sorted ids of a (K, N+1) bool bitmap, ids below
+    ``n_atoms``."""
+    return [torch.nonzero(bitmap[k, :n_atoms]).flatten().cpu().numpy()
+            for k in range(bitmap.shape[0])]
+
+
+def durable_wordnet(s: Smoke, rec: dict) -> None:
+    """22 (a): BASELINE config 1, ``wordnet_like`` at its defaults, on the
+    native backend: built, closed, reopened through ``environment.get``;
+    the traversals and the packed snapshot equal an in-memory build's, and
+    K2's BFS over the reopened store equals the host traversal."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.algorithms.traversals import (
+        HGBreadthFirstTraversal,
+    )
+    from hypergraphdb_tpu_torch.core import environment
+    from hypergraphdb_tpu_torch.core.config import (
+        HGConfiguration,
+        QueryConfig,
+    )
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.models import wordnet_like
+    from hypergraphdb_tpu_torch.ops.ellbfs import bfs_pull, visited_rows
+
+    torch = s.torch
+    query = QueryConfig(device=str(s.dev))
+    g_mem = HyperGraph(HGConfiguration(query=query))
+    t0 = time.perf_counter()
+    syn, _ = wordnet_like(g_mem)
+    mem_s = time.perf_counter() - t0
+    n_atoms = g_mem.handles.peek
+    loc = str(DURABLE_DIR / "wordnet")
+    cfg = HGConfiguration(store_backend="native", location=loc, query=query)
+    g = environment.get(loc, cfg)
+    t0 = time.perf_counter()
+    wordnet_like(g)
+    native_s = time.perf_counter() - t0
+    environment.close(loc)
+    wal = dir_bytes(Path(loc))
+    t0 = time.perf_counter()
+    g = environment.get(loc, cfg)
+    reopen_s = time.perf_counter() - t0
+    s.expect(g.handles.peek == n_atoms,
+             f"durable (a): reopened handles {g.handles.peek} != {n_atoms}")
+    seeds = np.asarray(syn, dtype=np.int64)[np.random.default_rng(
+        WN_SEED).integers(0, len(syn), size=WN_SEEDS)].astype(np.int32)
+    hops = 3
+    want = [sorted(a for _, a in HGBreadthFirstTraversal(
+        g_mem, int(x), max_distance=hops)) for x in seeds.tolist()]
+    got = [sorted(a for _, a in HGBreadthFirstTraversal(
+        g, int(x), max_distance=hops)) for x in seeds.tolist()]
+    s.expect(got == want, "durable (a): HGBreadthFirstTraversal over the "
+             "reopened store != the in-memory graph's")
+    t0 = time.perf_counter()
+    snap = g.snapshot()
+    pack_s = time.perf_counter() - t0
+    diff = [f for f in snapshot_equal(snap, g_mem.snapshot())
+            if f != "version"]
+    s.expect(not diff, f"durable (a): the reopened store's snapshot differs "
+             f"from the in-memory one in {diff}")
+    reset_launches()
+    res = bfs_pull(snap, seeds, hops, device=s.dev)
+    torch.cuda.synchronize()
+    n = launches()
+    s.expect(n["fused_hop"] > 0, f"durable (a): K2 did not launch: {n}")
+    rows = visited_rows(res, snap.num_atoms)[:WN_SEEDS]
+    for x, row, w in zip(seeds.tolist(), rows, want):
+        s.expect(row[row != x].tolist() == w,
+                 f"durable (a): K2 BFS from {x} over the reopened store != "
+                 f"HGBreadthFirstTraversal")
+    environment.close(loc)
+    g_mem.close()
+    rec["a"] = {"atoms": n_atoms, "native_build_s": native_s,
+                "memory_build_s": mem_s, "wal_bytes": wal,
+                "reopen_s": reopen_s, "pack_s": pack_s, "launches": n}
+    s.log(f"durable (a): wordnet_like ({n_atoms} ids) on native "
+          f"{native_s:.3f} s ({n_atoms / native_s:.0f} atoms/s) against "
+          f"memory {mem_s:.3f} s ({n_atoms / mem_s:.0f} atoms/s); WAL "
+          f"{wal} bytes; reopen through environment.get {reopen_s:.3f} s; "
+          f"{WN_SEEDS} traversals of {hops} hops and the packed snapshot "
+          f"equal the in-memory graph's; K2 BFS over the reopened store == "
+          f"HGBreadthFirstTraversal (launches {n})")
+
+
+def durable_c5(s: Smoke, rec: dict, children: list) -> dict:
+    """22 (b): bench c5 on the native backend: the base through
+    ``bulk_import``, 40 batches streamed under ``enable_incremental`` with
+    a checkpoint halfway, one served batch (K2 on the base, K1 over the
+    delta) against the host BFS; closed, reopened, every record back, and
+    K2's BFS from the reopened store's snapshot equal to the pre-close
+    view's."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core import environment
+    from hypergraphdb_tpu_torch.core.config import (
+        HGConfiguration,
+        QueryConfig,
+    )
+    from hypergraphdb_tpu_torch.ops.ellbfs import bfs_pull, visited_rows
+    from hypergraphdb_tpu_torch.ops.incremental import bfs_levels_delta
+    from hypergraphdb_tpu_torch.ops.serving import bfs_serve_batch, serve_bfs
+
+    torch = s.torch
+    loc = DURABLE_DIR / "c5"
+    cfg = HGConfiguration(store_backend="native", location=str(loc),
+                          query=QueryConfig(device=str(s.dev)))
+    g = environment.get(str(loc), cfg)
+    r = np.random.default_rng(C5_SEED)
+    t0 = time.perf_counter()
+    e0 = c5_base(g, r)
+    build_s = time.perf_counter() - t0
+    base_atoms = C5_ENTITIES + C5_LINKS
+    base_snap = g.snapshot()
+    # (d)'s children start from a copy of this base, beside the stream
+    shutil.copytree(loc, DURABLE_DIR / "c5_base")
+    kills = start_kill_children(e0)
+    children.extend(p for _, p in kills.values())
+    seeds = (e0 + r.integers(0, C5_ENTITIES, size=C5_K)).astype(np.int32)
+    mgr = g.enable_incremental(device=s.dev, **C5_MANAGER)
+    t0 = time.perf_counter()
+    ckpt = {}
+    for b in range(C5_BATCHES):
+        if b == C5_BATCHES - 1:
+            # the last batch stays in the memtable: the served batch's
+            # overlay reads it (K1)
+            s.expect(mgr.wait_compacted(timeout=C5_COMPACT_WAIT_S),
+                     "durable (b): compaction still running")
+        g.bulk_import(values=list(range(C5_BATCH_LINKS)),
+                      target_lists=c5_links(r, e0, C5_BATCH_LINKS))
+        if b + 1 == D_CHECKPOINT_AFTER:
+            ckpt["wal_bytes"] = (loc / "wal.log").stat().st_size
+            tc = time.perf_counter()
+            with g.txman._commit_lock:
+                g.backend.checkpoint()
+            ckpt["s"] = time.perf_counter() - tc
+            ckpt["bytes"] = (loc / "checkpoint.bin").stat().st_size
+    stream_s = time.perf_counter() - t0
+    streamed = C5_BATCHES * C5_BATCH_LINKS
+    view = mgr.pinned_view()
+    N = view.base.num_atoms
+    seeds_t = torch.from_numpy(seeds).to(s.dev)
+    reset_launches()
+    serve_bfs.routes.update(fused=0, dense=0)
+    counts, first_r = serve_bfs(view.base, seeds, C5_HOPS, SERVE_TOP_R,
+                                delta=view.delta, device=s.dev)
+    torch.cuda.synchronize()
+    n_served, routes = launches(), dict(serve_bfs.routes)
+    s.expect(routes == {"fused": 1, "dense": 0}
+             and n_served["fused_hop"] > 0 and n_served["gather_or"] > 0,
+             f"durable (b): the served batch took {routes}, launches "
+             f"{n_served}: want the fused route with K2 and K1")
+    for k in range(C5_HOST_SEEDS):
+        want = graph_bfs(g, int(seeds[k]), C5_HOPS)
+        s.expect(int(counts[k]) == len(want)
+                 and first_r[k][:min(len(want), SERVE_TOP_R)].tolist()
+                 == want[:SERVE_TOP_R],
+                 f"durable (b): served lane {k} != the host BFS")
+    dc, df = bfs_serve_batch(view.device, view.delta, seeds_t, C5_HOPS,
+                             SERVE_TOP_R)
+    s.expect(np.array_equal(counts, dc.cpu().numpy())
+             and np.array_equal(first_r, df.cpu().numpy()),
+             "durable (b): served fused route != served dense route")
+    _, dense = bfs_levels_delta(view.device, view.delta, seeds_t, C5_HOPS,
+                                with_levels=False)
+    n_ids = g.handles.peek
+    pre = lane_sets(torch, dense, min(N, n_ids))
+    del view, dense, dc, df
+    wal_close = (loc / "wal.log").stat().st_size
+    t0 = time.perf_counter()
+    before = g.backend.bulk_links()
+    export_s = time.perf_counter() - t0
+    sample = np.random.default_rng(D_SEED).integers(0, n_ids, size=1000)
+    values = [repr(g.get(int(h))) if g.contains(int(h)) else None
+              for h in sample]
+    environment.close(str(loc))
+    t0 = time.perf_counter()
+    g = environment.get(str(loc), cfg)
+    reopen_s = time.perf_counter() - t0
+    after = g.backend.bulk_links()
+    s.expect(g.handles.peek == n_ids
+             and all(np.array_equal(x, y) for x, y in zip(before, after))
+             and [repr(g.get(int(h))) if g.contains(int(h)) else None
+                  for h in sample] == values,
+             f"durable (b): the reopened store lost records: {len(after[0])}"
+             f" of {len(before[0])}, next id {g.handles.peek} of {n_ids}")
+    t0 = time.perf_counter()
+    snap = g.snapshot()
+    pack_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap.device(s.dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    res = bfs_pull(snap, seeds, C5_HOPS, device=s.dev)
+    torch.cuda.synchronize()
+    first_bfs_s = time.perf_counter() - t0
+    n_reopen = launches()
+    s.expect(n_reopen["fused_hop"] > 0,
+             f"durable (b): K2 did not launch over the reopened store")
+    post = visited_rows(res, min(snap.num_atoms, n_ids))[:C5_K]
+    s.expect(all(np.array_equal(a, b) for a, b in zip(pre, post)),
+             "durable (b): K2 BFS over the reopened store != the pre-close "
+             "view's BFS")
+    environment.close(str(loc))
+    out = {"e0": e0, "seeds": seeds, "base_snap": base_snap,
+           "kills": kills}
+    rec["b"] = {
+        "base_atoms": base_atoms, "build_s": build_s,
+        "build_atoms_per_s": base_atoms / build_s,
+        "memory_build_atoms_per_s": (s.c5_memory or {}).get(
+            "build_atoms_per_s"),
+        "streamed": streamed, "stream_s": stream_s,
+        "stream_atoms_per_s": streamed / stream_s,
+        "checkpoint": ckpt, "wal_bytes_at_close": wal_close,
+        "compactions": mgr.compactions, "served_launches": n_served,
+        "export_s": export_s, "reopen_s": reopen_s, "pack_s": pack_s,
+        "upload_s": upload_s, "first_bfs_s": first_bfs_s,
+        "reopen_launches": n_reopen}
+    s.log(f"durable (b): c5 base ({base_atoms} atoms) through bulk_import "
+          f"on native {build_s:.3f} s ({base_atoms / build_s:.0f} atoms/s; "
+          f"memory in phase 14 {rec['b']['memory_build_atoms_per_s']} "
+          f"atoms/s); {streamed} links streamed under enable_incremental "
+          f"in {stream_s:.3f} s ({streamed / stream_s:.0f} atoms/s, "
+          f"{mgr.compactions} compactions), checkpoint after batch "
+          f"{D_CHECKPOINT_AFTER}: {ckpt['s']:.3f} s, {ckpt['bytes']} bytes "
+          f"(the WAL was {ckpt['wal_bytes']} bytes), WAL at close "
+          f"{wal_close} bytes; served batch (routes {routes}, launches "
+          f"{n_served}) == host BFS at lanes 0..{C5_HOST_SEEDS - 1} and == "
+          f"the dense route; bulk_links export {export_s:.3f} s; reopen "
+          f"(checkpoint load and WAL replay) {reopen_s:.3f} s, every record "
+          f"back ({len(after[0])} records, next id {n_ids}); pack "
+          f"{pack_s:.3f} s, upload {upload_s:.3f} s, first BFS "
+          f"{first_bfs_s:.3f} s (launches {n_reopen}) == the pre-close "
+          f"view's BFS on all {C5_K} lanes")
+    return out
+
+
+def start_grid_child():
+    """Start (c)'s child; :func:`durable_partitioned` collects it."""
+    code = D_GRID_CHILD.format(
+        root=str(ROOT), ents=C5_ENTITIES, links=C5_LINKS,
+        chunk=C5_LOAD_CHUNK, loc=str(DURABLE_DIR / "grid"), parts=D_PARTS,
+        seed=C5_SEED, out=str(DURABLE_DIR / "grid_snapshot.npz"))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def durable_partitioned(s: Smoke, proc, c5: dict, rec: dict) -> None:
+    """22 (c): c5's base on a 4-partition native grid, built in a child
+    beside (a) and (b), reopened there asking for 2 partitions (the
+    marker decides 4): its packed snapshot equals (b)'s base."""
+    from hypergraphdb_tpu_torch.ops.checkpoint import load_snapshot
+
+    try:
+        stdout, stderr = proc.communicate(timeout=D_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("durable (c): the grid child hung")
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("D_GRID ")]
+    s.expect(proc.returncode == 0 and len(lines) == 1,
+             f"durable (c): the grid child failed, rc {proc.returncode}:\n"
+             f"{stderr[-3000:]}")
+    out = json.loads(lines[0][len("D_GRID "):])
+    s.expect(out["parts"] == D_PARTS, f"durable (c): reopened with "
+             f"{out['parts']} partitions, the marker says {D_PARTS}")
+    snap = load_snapshot(str(DURABLE_DIR / "grid_snapshot.npz"))
+    diff = [f for f in snapshot_equal(snap, c5["base_snap"])
+            if f != "version"]
+    s.expect(not diff, f"durable (c): the grid's snapshot differs from "
+             f"(b)'s base in {diff}")
+    out["bytes"] = dir_bytes(DURABLE_DIR / "grid")
+    rec["c"] = out
+    s.log(f"durable (c): c5's base on a {D_PARTS}-partition native grid "
+          f"(a child beside (a) and (b)) in {out['build_s']:.3f} s "
+          f"({(C5_ENTITIES + C5_LINKS) / out['build_s']:.0f} atoms/s), "
+          f"{out['bytes']} bytes; reopened asking for 2 in "
+          f"{out['reopen_s']:.3f} s with the marker's {out['parts']}; pack "
+          f"{out['pack_s']:.3f} s; snapshot == (b)'s base, array for array")
+
+
+def start_kill_children(e0: int) -> dict:
+    """Start (d)'s two children, each on its own copy of c5's base."""
+    procs = {}
+    for point in D_POINTS:
+        loc = DURABLE_DIR / f"kill_{point}"
+        shutil.copytree(DURABLE_DIR / "c5_base", loc)
+        code = D_CHILD.format(root=str(ROOT), loc=str(loc), e0=e0,
+                              n=D_OPS, ents=C5_ENTITIES, k=D_CRASH_AT,
+                              point=point)
+        procs[point] = (loc, subprocess.Popen(
+            [sys.executable, "-c", code], cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def durable_kill(s: Smoke, c5: dict, rec: dict) -> None:
+    """22 (d): two children that import only the port (started by
+    :func:`durable_c5` beside its stream) open copies of c5's base, commit
+    (d)'s ops one atom at a time and die at op :data:`D_CRASH_AT`, one at
+    each commit crash point; each store is reopened, the missing ops
+    replayed, and its content and K2's BFS compared with an uncrashed run
+    of the same ops."""
+    from hypergraphdb_tpu_torch.core.config import HGConfiguration
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.ops.ellbfs import bfs_pull
+
+    torch = s.torch
+    e0 = c5["e0"]
+    ops = durable_ops(e0, D_OPS, C5_ENTITIES)
+    loc0 = DURABLE_DIR / "uncrashed"
+    shutil.copytree(DURABLE_DIR / "c5_base", loc0)
+
+    def open_native(loc):
+        return HyperGraph(HGConfiguration(store_backend="native",
+                                          location=str(loc)))
+
+    g0 = open_native(loc0)
+    handles = {}
+    t0 = time.perf_counter()
+    for op in ops:
+        durable_apply(g0, handles, op)
+    ops_s = time.perf_counter() - t0
+    want = durable_canonical(g0, ops)
+    snap0 = g0.snapshot()
+    reset_launches()
+    res0 = bfs_pull(snap0, c5["seeds"], C5_HOPS, device=s.dev)
+    words0 = res0.visited_t.clone()
+    g0.close()
+    out = {"ops_s": ops_s}
+    for point, (loc, proc) in c5["kills"].items():
+        try:
+            stdout, stderr = proc.communicate(timeout=D_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"durable (d): the {point} child hung")
+        s.expect(proc.returncode == 9,
+                 f"durable (d): the {point} child exited {proc.returncode}, "
+                 f"not at its crash point:\n{stderr[-3000:]}")
+        opened = json.loads(next(
+            ln for ln in stdout.splitlines()
+            if ln.startswith("D_OPENED "))[len("D_OPENED "):])
+        t0 = time.perf_counter()
+        g = open_native(loc)
+        reopen_s = time.perf_counter() - t0
+        s.expect(durable_lookup(g, ops[D_CRASH_AT][1]) is None,
+                 f"durable (d): {point}: the killed op landed")
+        s.expect(all(durable_lookup(g, op[1]) is not None
+                     for op in ops[:D_CRASH_AT]),
+                 f"durable (d): {point}: an op before the kill was lost")
+        handles = {}
+        replayed = 0
+        t0 = time.perf_counter()
+        for op in ops:
+            h = durable_lookup(g, op[1])
+            if h is None:
+                durable_apply(g, handles, op)
+                replayed += 1
+            else:
+                handles[op[1]] = h
+        replay_s = time.perf_counter() - t0
+        s.expect(replayed == D_OPS - D_CRASH_AT,
+                 f"durable (d): {point}: replayed {replayed} ops")
+        s.expect(durable_canonical(g, ops) == want,
+                 f"durable (d): {point}: the recovered content != the "
+                 f"uncrashed run's")
+        snap = g.snapshot()
+        diff = [f for f in snapshot_equal(snap, snap0) if f != "version"]
+        s.expect(not diff, f"durable (d): {point}: the recovered snapshot "
+                 f"differs from the uncrashed one in {diff}")
+        res = bfs_pull(snap, c5["seeds"], C5_HOPS, device=s.dev)
+        s.expect(torch.equal(res.visited_t, words0),
+                 f"durable (d): {point}: K2 BFS over the recovered store != "
+                 f"the uncrashed one")
+        g.close()
+        out[point] = {"child_open_s": opened["s"], "reopen_s": reopen_s,
+                      "replayed": replayed, "replay_s": replay_s}
+    torch.cuda.synchronize()
+    out["launches"] = launches()
+    s.expect(out["launches"]["fused_hop"] > 0,
+             f"durable (d): K2 did not launch: {out['launches']}")
+    rec["d"] = out
+    s.log(f"durable (d): {D_OPS} per-atom ops over c5's base ({ops_s:.3f} s "
+          f"uncrashed); children killed at op {D_CRASH_AT} at "
+          f"{', '.join(D_POINTS)}: each reopened, {D_OPS - D_CRASH_AT} ops "
+          f"replayed, content and snapshot == the uncrashed run, K2 BFS == "
+          f"the uncrashed one ({json.dumps(out)})")
+
+
+def phase_durable(s: Smoke) -> None:
+    """Phase 22: durable storage on the native engine (a)–(d)."""
+    from hypergraphdb_tpu_torch import native
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    DURABLE_DIR.mkdir(parents=True)
+    rec: dict = {}
+    children = []
+    try:
+        path = native.build()
+        native.lib()
+        rec["gxx_build_s"] = native.last_build_seconds
+        s.log(f"durable: g++ built {path.name} in "
+              f"{native.last_build_seconds:.3f} s (0.000: already built)")
+        grid = start_grid_child()
+        children.append(grid)
+        reset_launches()
+        durable_wordnet(s, rec)
+        c5 = durable_c5(s, rec, children)
+        durable_partitioned(s, grid, c5, rec)
+        durable_kill(s, c5, rec)
+        rec["launches"] = {k: rec["a"]["launches"][k]
+                           + rec["b"]["served_launches"][k]
+                           + rec["b"]["reopen_launches"][k]
+                           + rec["d"]["launches"][k]
+                           for k in rec["a"]["launches"]}
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    s.torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    s.log(f"durable: phase 22 in {rec['phase_s']:.1f} s, launches "
+          f"{rec['launches']}; record " + json.dumps(rec, default=str))
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -7428,30 +8039,42 @@ def main(argv: list[str]) -> int:
     card = _card()
     s = Smoke(torch, card)
     t_all = time.perf_counter()
-    phase_build(s)
-    phase_k1(s)
-    phase_k2(s)
-    phase_k3(s)
+    seconds: dict = {}
+
+    def timed(name: str, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 1)
+
+    timed("build", phase_build, s)
+    timed("k1", phase_k1, s)
+    timed("k2", phase_k2, s)
+    timed("k3", phase_k3, s)
     records: dict = {"kernels": []}
     if "--quick" not in argv:
-        snap, info = build_snapshot(s)
-        truth = phase_main(s, snap, info, records)
-        n_k3 = phase_intersect(s, snap, info)
-        phase_pattern(s, snap, info)
-        phase_k3_timing(s, snap, n_k3, records)
-        phase_delta(s, snap, info, truth, records)
-        join_rec = phase_join(s, snap, info)
-        phase_values(s, snap, info, join_rec)
-        phase_packed(s, snap, truth)
-        phase_persist(s, snap, truth)
-        phase_ingest(s)
-        phase_query(s, records)
+        snap, info = timed("snapshot", build_snapshot, s)
+        truth = timed("main", phase_main, s, snap, info, records)
+        n_k3 = timed("intersect", phase_intersect, s, snap, info)
+        timed("pattern", phase_pattern, s, snap, info)
+        timed("k3_timing", phase_k3_timing, s, snap, n_k3, records)
+        timed("delta", phase_delta, s, snap, info, truth, records)
+        join_rec = timed("join", phase_join, s, snap, info)
+        timed("values", phase_values, s, snap, info, join_rec)
+        timed("packed", phase_packed, s, snap, truth)
+        timed("persist", phase_persist, s, snap, truth)
+        s.c5_memory = timed("ingest", phase_ingest, s)
+        timed("query", phase_query, s, records)
         shutil.rmtree(BENCH_RECORDS, ignore_errors=True)
-        phase_serve(s)
-        phase_join_serve(s)
-        phase_planned(s)
-        phase_sharded(s, snap, truth)
-        phase_profiles(s)
+        timed("serve", phase_serve, s)
+        timed("join_serve", phase_join_serve, s)
+        timed("planned", phase_planned, s)
+        timed("sharded", phase_sharded, s, snap, truth)
+        timed("profiles", phase_profiles, s)
+        timed("durable", phase_durable, s)
+    s.log("phase seconds " + json.dumps(seconds))
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)
     if records["kernels"]:

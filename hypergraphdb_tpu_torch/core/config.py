@@ -1,14 +1,21 @@
-"""Configuration: the memory-backend subset of ``HGConfiguration`` and
-the query compiler's knobs.
+"""Configuration: one dataclass tree, loadable from JSON.
 
-The port runs the in-memory store only. A ``store_backend`` other than
-``"memory"`` raises :class:`HGException` when a graph opens, as the JAX
-package does for a backend its build lacks.
+``store_backend`` picks the storage: ``"memory"``, ``"native"`` (the
+durable C++ engine of ``native/``, at ``location``) or ``"partitioned"``
+(``n_partitions`` children; native stores under ``location`` when one is
+given). A JSON file of the JAX package's configuration loads here; its
+``snapshot`` and ``peer`` sections, which nothing in the port reads, are
+dropped (:data:`DROPPED_SECTIONS`). The port has one field the JAX package
+lacks, :data:`PORT_ONLY`: a file written with ``to_json(portable=True)``
+leaves it out and loads there too. Any other unknown field raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
+from typing import Any, Optional
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE
 
@@ -38,18 +45,71 @@ class QueryConfig:
 
 @dataclass
 class CacheConfig:
-    """Host cache sizing in entries."""
+    """Host cache sizing in entries, and the memory watcher."""
 
     atom_cache_size: int = 1 << 20
     incidence_cache_entries: int = 1 << 16
     max_cached_incidence_set_size: int = 1 << 20
+    #: resident set size (bytes) above which the watcher clears the atom
+    #: and incidence caches; 0 starts no watcher
+    memory_warning_bytes: int = 0
+    memory_warning_interval_s: float = 5.0
+
+
+_SECTIONS = {"query": QueryConfig, "cache": CacheConfig}
+
+#: sections of the JAX package's configuration that the port does not
+#: carry: ``from_dict`` accepts and drops them
+DROPPED_SECTIONS = ("snapshot", "peer")
+
+#: fields of the port's configuration that the JAX package's lacks (its
+#: ``from_dict`` rejects a file that carries one), by section
+PORT_ONLY = {"query": ("device",)}
 
 
 @dataclass
 class HGConfiguration:
     transactional: bool = True
     keep_incident_links_on_removal: bool = False
-    store_backend: str = "memory"
+    store_backend: str = "memory"      # "memory" | "native" | "partitioned"
+    location: Optional[str] = None     # directory of a persistent backend
+    n_partitions: int = 4              # partitioned backend: child count
     handle_factory: str = "sequential"  # "sequential" | "uuid"
     query: QueryConfig = field(default_factory=QueryConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
+
+    @staticmethod
+    def from_json(text: str) -> "HGConfiguration":
+        return HGConfiguration.from_dict(json.loads(text))
+
+    @staticmethod
+    def from_dict(raw: dict) -> "HGConfiguration":
+        """The configuration of ``raw``; absent fields keep their defaults,
+        :data:`DROPPED_SECTIONS` are dropped, and any other unknown field,
+        at the top or in a section, raises ``TypeError``: a misspelled
+        ``store_backend`` must not open a durable location in memory."""
+        names = [f.name for f in dataclasses.fields(HGConfiguration)]
+        unknown = sorted(set(raw) - set(names) - set(DROPPED_SECTIONS))
+        if unknown:
+            raise TypeError(f"unknown configuration fields {unknown}")
+        kwargs: dict[str, Any] = {}
+        for name in names:
+            if name not in raw:
+                continue
+            v = raw[name]
+            if name in _SECTIONS:
+                v = _SECTIONS[name](**v)
+            kwargs[name] = v
+        return HGConfiguration(**kwargs)
+
+    def to_dict(self, portable: bool = False) -> dict:
+        """Plain data; ``portable`` leaves out :data:`PORT_ONLY`."""
+        raw = dataclasses.asdict(self)
+        if portable:
+            for section, names in PORT_ONLY.items():
+                for name in names:
+                    raw[section].pop(name, None)
+        return raw
+
+    def to_json(self, portable: bool = False) -> str:
+        return json.dumps(self.to_dict(portable), indent=2)

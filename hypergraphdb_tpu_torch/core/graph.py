@@ -17,7 +17,13 @@ The port of the store path of ``hypergraphdb_tpu/core/graph.py``:
   through ``query/compiler.py``; its device plans run on
   ``config.query.device``.
 
-Not ported: persistent backends, migrations and the memory watcher.
+- The storage is the in-memory backend, the durable native engine
+  (``store_backend="native"`` at ``location``) or a partitioned grid of
+  either; a reopened store goes on numbering from its ``max_handle``.
+- Open runs the format check and migration chain
+  (``maintenance/migration.py``) before the indexers and the declared type
+  hierarchy are restored; a store that refuses to open shuts its backend
+  and the memory watcher down again.
 """
 
 from __future__ import annotations
@@ -57,6 +63,9 @@ from hypergraphdb_tpu_torch.utils.ordered_bytes import encode_int
 
 _FLAG_LINK = 1
 
+#: layout version of ``partitions.json``; a marker without one is version 1
+_PARTITION_MARKER_VERSION = 1
+
 #: the system indexes
 IDX_BY_TYPE = "hg.bytype"
 IDX_BY_VALUE = "hg.byvalue"
@@ -91,8 +100,32 @@ def _type_key(type_handle: HGHandle) -> bytes:
     return encode_int(int(type_handle))
 
 
+def _partition_count(loc: str, n_config: int) -> int:
+    """The partition count of the grid at ``loc``: handles route by
+    ``h % n``, so ``n`` is part of the layout. The first open records it in
+    ``partitions.json``; every later open uses the recorded count, and a
+    marker of an unknown layout version refuses to open."""
+    import json
+    import os
+
+    os.makedirs(loc, exist_ok=True)
+    marker = os.path.join(loc, "partitions.json")
+    if os.path.exists(marker):
+        with open(marker, encoding="utf-8") as f:
+            rec = json.load(f)
+        if rec.get("schema_version", 1) != _PARTITION_MARKER_VERSION:
+            raise HGException(
+                f"unsupported partition-marker schema in {marker}; this "
+                f"build reads version {_PARTITION_MARKER_VERSION}")
+        return int(rec["n_partitions"])
+    with open(marker, "w", encoding="utf-8") as f:
+        json.dump({"schema_version": _PARTITION_MARKER_VERSION,
+                   "n_partitions": n_config}, f)
+    return n_config
+
+
 class HyperGraph:
-    """An open hypergraph database over the in-memory store."""
+    """An open hypergraph database."""
 
     def __init__(self, config: Optional[HGConfiguration] = None,
                  backend: Optional[StorageBackend] = None):
@@ -101,6 +134,9 @@ class HyperGraph:
             backend = self._make_backend(self.config)
         self.backend = backend
         backend.startup()
+        # taken before the bootstrap writes type atoms: a store that held
+        # nothing is stamped with the current format, never migrated
+        self._fresh_store = backend.max_handle() == 0
         self.txman = HGTransactionManager(
             backend, enabled=self.config.transactional)
         self.store = HGStore(
@@ -127,19 +163,71 @@ class HyperGraph:
         self._snapshot_mgr = None
         self._mutations = 0  # bumped on every committed structural change
         self._type_column = None
+        self._memwatch = None
+        if self.config.cache.memory_warning_bytes > 0:
+            from hypergraphdb_tpu_torch.utils.cache import MemoryWarningSystem
+
+            self._memwatch = MemoryWarningSystem(
+                self.config.cache.memory_warning_bytes,
+                self.config.cache.memory_warning_interval_s,
+                metrics=self.metrics)
+            self._memwatch.add_listener(self._atom_cache.clear)
+            if self.store._inc_cache is not None:
+                self._memwatch.add_listener(self.store._inc_cache.clear)
+            self._memwatch.start()
         self._open = True
-        # restore registered indexers and the declared type hierarchy from
-        # the store, as a persistent backend needs at open
-        load_indexers(self)
-        load_subsumptions(self)
+        try:
+            # the format check and migrations first: a migration may
+            # rewrite what the loaders below read
+            from hypergraphdb_tpu_torch.maintenance.migration import migrate
+
+            migrate(self)
+            # restore registered indexers and the declared type hierarchy
+            # from the store
+            load_indexers(self)
+            load_subsumptions(self)
+        except BaseException:
+            # a store that refuses to open (a newer format) must not keep
+            # its backend's files or the watcher's thread
+            if self._memwatch is not None:
+                self._memwatch.stop()
+                self._memwatch = None
+            self._open = False
+            self.backend.shutdown()
+            raise
         self.events.dispatch(self, ev.HGOpenedEvent(graph=self))
 
     @staticmethod
     def _make_backend(config: HGConfiguration) -> StorageBackend:
-        if config.store_backend != "memory":
+        kind = config.store_backend
+        if kind == "native":
+            from hypergraphdb_tpu_torch.storage.native import NativeStorage
+
+            if not config.location:
+                # no directory of the caller's choosing: nothing is written
+                # into the working directory (the reference uses ./.hgdb)
+                raise HGException("store_backend='native' needs a location")
+            return NativeStorage(config.location)
+        if kind == "partitioned":
+            from hypergraphdb_tpu_torch.storage.partitioned import (
+                PartitionedStorage,
+            )
+
+            if not config.location:
+                return PartitionedStorage(n_partitions=config.n_partitions)
+            import os
+
+            from hypergraphdb_tpu_torch.storage.native import NativeStorage
+
+            loc = config.location
+            n = _partition_count(loc, int(config.n_partitions))
+            return PartitionedStorage(
+                n_partitions=n,
+                factory=lambda i: NativeStorage(os.path.join(loc, f"part{i}")))
+        if kind != "memory":
             raise HGException(
-                f"the {config.store_backend!r} storage backend is not "
-                f"available in this package; use store_backend='memory'")
+                f"unknown storage backend {kind!r}: use 'memory', 'native' "
+                f"or 'partitioned'")
         from hypergraphdb_tpu_torch.storage.memstore import MemStorage
 
         return MemStorage()
@@ -149,6 +237,9 @@ class HyperGraph:
         if not getattr(self, "_open", False):
             return
         self.events.dispatch(self, ev.HGClosingEvent(graph=self))
+        if self._memwatch is not None:
+            self._memwatch.stop()
+            self._memwatch = None
         if self._snapshot_mgr is not None:
             self._snapshot_mgr.close()
             self._snapshot_mgr = None

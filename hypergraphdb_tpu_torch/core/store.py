@@ -14,6 +14,7 @@ import numpy as np
 
 from hypergraphdb_tpu_torch.core.handles import HGHandle
 from hypergraphdb_tpu_torch.storage.api import (
+    HGBidirectionalIndex,
     HGIndex,
     HGSortedResultSet,
     StorageBackend,
@@ -201,7 +202,7 @@ class HGStore:
         return self.backend.index_names()
 
 
-class TxIndexView(HGIndex):
+class TxIndexView(HGBidirectionalIndex):
     """A transaction-aware view over a backend index."""
 
     def __init__(self, store: HGStore, name: str, backing: HGIndex):

@@ -39,6 +39,14 @@ class HGSortedResultSet:
         i = np.searchsorted(self._a, h)
         return i < len(self._a) and self._a[i] == h
 
+    def go_to(self, h: int, exact: bool = True) -> int:
+        """The position of the first element >= ``h``, or -1 past the end;
+        with ``exact``, -1 unless that element is ``h``."""
+        i = int(np.searchsorted(self._a, h))
+        if exact:
+            return i if i < len(self._a) and self._a[i] == h else -1
+        return i if i < len(self._a) else -1
+
     EMPTY: "HGSortedResultSet"
 
 
@@ -124,6 +132,10 @@ class HGIndex:
     def find_gte(self, key: bytes) -> HGSortedResultSet:
         return self.find_range(lo=key, lo_inclusive=True)
 
+
+class HGBidirectionalIndex(HGIndex):
+    """An index that also answers value → keys."""
+
     def find_by_value(self, value: HGHandle) -> list[bytes]:
         """The keys that hold ``value``, sorted."""
         raise NotImplementedError
@@ -138,6 +150,9 @@ class StorageBackend:
 
     def startup(self) -> None: ...
     def shutdown(self) -> None: ...
+
+    def checkpoint(self) -> None:
+        """Flush to durable media (no-op in memory)."""
 
     def commit_batch_begin(self) -> None:
         """Start of one transaction's mutations (a durability marker;
@@ -170,6 +185,9 @@ class StorageBackend:
     def remove_data(self, h: HGHandle) -> None:
         raise NotImplementedError
 
+    def contains_data(self, h: HGHandle) -> bool:
+        return self.get_data(h) is not None
+
     def add_incidence_link(self, atom: HGHandle, link: HGHandle) -> None:
         raise NotImplementedError
 
@@ -186,7 +204,7 @@ class StorageBackend:
         return len(self.get_incidence_set(atom))
 
     def get_index(self, name: str, create: bool = True
-                  ) -> Optional[HGIndex]:
+                  ) -> Optional[HGBidirectionalIndex]:
         raise NotImplementedError
 
     def remove_index(self, name: str) -> None:

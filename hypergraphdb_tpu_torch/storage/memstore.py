@@ -16,7 +16,7 @@ import numpy as np
 
 from hypergraphdb_tpu_torch.core.handles import HGHandle
 from hypergraphdb_tpu_torch.storage.api import (
-    HGIndex,
+    HGBidirectionalIndex,
     HGSortedResultSet,
     StorageBackend,
 )
@@ -67,7 +67,7 @@ def _sorted_union(parts: list) -> np.ndarray:
     return a
 
 
-class MemIndex(HGIndex):
+class MemIndex(HGBidirectionalIndex):
     """bytes key → sorted handle set. The inverse map (handle → keys) that
     :meth:`find_by_value` reads is built on its first call and kept from
     then on, so an index nobody asks by value pays nothing for it."""
@@ -164,6 +164,12 @@ class MemStorage(StorageBackend):
         self._data: dict[int, bytes] = {}
         self._incidence: dict[int, _SortedHandleSet] = {}
         self._indices: dict[str, MemIndex] = {}
+
+    def startup(self) -> None:
+        pass
+
+    def shutdown(self) -> None:
+        pass
 
     def store_link(self, h: HGHandle, targets: Sequence[HGHandle]) -> None:
         self._links[h] = tuple(int(t) for t in targets)

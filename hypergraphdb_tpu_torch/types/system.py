@@ -148,8 +148,35 @@ class HGTypeSystem:
             return t
         name = self._name_by_handle.get(int(name_or_handle))
         if name is None:
+            name = self._recover_type_name(int(name_or_handle))
+        if name is None:
             raise TypeError_(f"handle {name_or_handle} is not a type atom")
         return self._by_name[name]
+
+    def _type_atom_name(self, handle: int) -> Optional[str]:
+        """The stored name of ``handle`` if it is a type atom (typed by
+        ``top``), registered in this session or not; else None."""
+        rec = self.graph.store.get_link(handle)
+        if rec is None or len(rec) < 3:
+            return None
+        top_h = self._handle_by_name.get("top")
+        if top_h is not None and rec[0] != int(top_h) and handle != int(top_h):
+            return None
+        data = self.graph.store.get_data(rec[1]) if rec[1] >= 0 else None
+        if data is None:
+            return None
+        return self.top.make(data)
+
+    def _recover_type_name(self, handle: int) -> Optional[str]:
+        """A reopened store's type atom that this session has not bound:
+        its stored name, bound to ``handle`` where a type of that name is
+        registered; else None."""
+        name = self._type_atom_name(handle)
+        if name is not None and name in self._by_name:
+            self._handle_by_name.setdefault(name, handle)
+            self._name_by_handle[handle] = name
+            return name
+        return None
 
     def handle_of(self, name: str) -> HGHandle:
         h = self._handle_by_name.get(name)
@@ -165,22 +192,18 @@ class HGTypeSystem:
         bound to it even where its type is not registered here, or None:
         enough for by-type and ``TypePlus`` queries to resolve."""
         h = int(handle)
-        rec = self.graph.store.get_link(h)
-        if rec is None or len(rec) < 3:
+        name = self._type_atom_name(h)
+        if name is None:
             return None
-        top_h = self._handle_by_name.get("top")
-        if top_h is not None and rec[0] != int(top_h) and h != int(top_h):
-            return None
-        data = self.graph.store.get_data(rec[1]) if rec[1] >= 0 else None
-        if data is None:
-            return None
-        name = self.top.make(data)
         self._handle_by_name.setdefault(name, h)
         self._name_by_handle.setdefault(h, name)
         return name
 
     def is_type_handle(self, handle: HGHandle) -> bool:
-        return int(handle) in self._name_by_handle
+        h = int(handle)
+        # a stored type atom of an earlier session counts too, registered
+        # here or not: the remove guard protects it across sessions
+        return h in self._name_by_handle or self._type_atom_name(h) is not None
 
     def get_type_handle(self, value: Any) -> HGHandle:
         """The type of a runtime value."""

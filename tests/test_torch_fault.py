@@ -306,8 +306,8 @@ def test_wired_points_are_the_ports_sites():
 def test_tx_commit_fault_points_match_reference(point):
     """An armed commit point fails the k-th write commit in both graphs
     alike: the failing add leaves nothing behind, the next one commits.
-    (The reference's graph also commits a format stamp at open, so the
-    commit counters are compared from after the open.)"""
+    (Each graph also commits its format stamp at open, so the commit
+    counters are compared from after the open.)"""
     from tests.test_torch_graph import mod, new_graph
 
     got = {}

@@ -51,6 +51,21 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_guard_covers_the_durable_modules():
+    """The modules of the durable storage slice are among those imported
+    above, the engine's binding included (importing it builds nothing)."""
+    names = set(_module_names())
+    assert {"hypergraphdb_tpu_torch.native",
+            "hypergraphdb_tpu_torch.storage.native",
+            "hypergraphdb_tpu_torch.storage.partitioned",
+            "hypergraphdb_tpu_torch.maintenance",
+            "hypergraphdb_tpu_torch.maintenance.migration",
+            "hypergraphdb_tpu_torch.maintenance.operations",
+            "hypergraphdb_tpu_torch.core.environment",
+            "hypergraphdb_tpu_torch.atom.utilities",
+            "hypergraphdb_tpu_torch.utils.cache"} <= names
+
+
 def test_port_sources_name_no_jax_or_reference_import():
     bad = []
     for path in _port_sources():

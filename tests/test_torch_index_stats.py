@@ -3,7 +3,7 @@ reference's (``tests/test_index_stats.py``): cost-capped real counts,
 narrow ranges ordered before wide type sets, the capped fallback, the
 id high-water estimate, and a user index's persisted statistics (reused,
 recounted after drift or on request). The two cases over the native
-backend's reopen have no counterpart: the port keeps no store on disk.
+backend's reopen are in ``test_torch_reopen_persistence.py``.
 Tolerance: exact equality."""
 
 from test_torch_graph import dump

@@ -162,7 +162,7 @@ def readonly_records_no_reads(g, pkg):
 
 
 def stats_counters(g, pkg):
-    # counted from here: the reference's open also commits its format stamp
+    # counted from here: each graph's open also commits its format stamp
     before = g.txman.committed
     g.txman.transact(lambda: g.add("x"))
     return g.txman.committed - before, g.txman.aborted
