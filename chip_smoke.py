@@ -132,7 +132,7 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     ``device_min_batch`` sweeps on the port (a 2-way intersection through
     K3 against the host's, and one ``And(incident(hub), value > 500)``
     through ``DeviceValueConjPlan`` against its host plan), logged beside
-    the port's default; the reference's ``dbpedia_like`` at 4x its
+    the port's default; the reference's ``dbpedia_like`` at 2x its
     default scale (:data:`Q_ENTITIES` entities, :data:`Q_TRIPLES` links,
     seed 13) through ``bulk_import``, packed, its three longest incidence
     rows the hubs; bench.py c3's 1024 anchor pairs (``default_rng(42)``,
@@ -296,9 +296,9 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     hops (phase 15's seeds) and the packed snapshot equal the in-memory
     graph's, and K2's BFS over the reopened store equals
     ``HGBreadthFirstTraversal``; (b) bench c5 on native: its base
-    through ``bulk_import``, 40 x 10,000 links streamed under
+    through ``bulk_import``, 20 x 10,000 links streamed under
     ``enable_incremental(**C5_MANAGER)`` with a checkpoint after batch
-    20 and the last batch left in the memtable, one served batch of c5's
+    10 and the last batch left in the memtable, one served batch of c5's
     256 seeds (K2 on the base, K1 over the delta) against the host BFS
     and the dense route; closed, reopened (every record back), and K2's
     BFS from the reopened store's snapshot equal to the pre-close view's
@@ -312,6 +312,28 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     ``tx.commit.pre`` and at ``tx.commit.apply``; each store is reopened,
     the missing ops replayed, its content (by value), snapshot and K2
     BFS equal to an uncrashed run's. K1 and K2 launches of the phase.
+23. The peer plane (``peer/``), in a child process started beside 22:
+    two ``HyperGraphPeer``s of this process, BASELINE config 5's stream
+    arriving from another peer. (a) the origin A holds c5's draw cut to
+    120,000 atoms (40,000 entities, 80,000 links); (b) the serving peer B
+    bootstraps by ``transfer_graph_from`` (content digests equal), packs
+    and uploads under ``enable_incremental(**C5_MANAGER)``, and K2's BFS
+    from c5's 256 seeds equals A's host BFS on every lane through gids;
+    (c) B publishes an interest in everything and A streams 4 of c5's
+    10,000-link batches while B's reader runs phase 14's dense batches
+    (freshness probes, swap checks), and after each batch has reached
+    B's pinned view one served batch on the overlay route (K2 on the
+    base, K1 over the replicated delta) against the host BFS and the
+    dense route; at least one compaction in the window; (d) the memtable
+    folded, a tail of 256 links replicated into it, A flushed and B
+    caught up (seen map at A's head, no gaps, lag 0, digests equal): B's
+    final view (K2, K1) equals A's host BFS on all 256 lanes through
+    gids; (e) both peers restarted over ``TCPPeerInterface`` on
+    127.0.0.1: a remote query paging a typed condition equal to A's
+    ``find_all``, one c5 batch replicated, digests equal. Transfer and
+    per-batch atoms/s, the lag from A's commit to B's pinned view, B's
+    served batch while streaming against quiet, compaction seconds, the
+    TCP leg's atoms/s, K1 and K2 launches of the phase.
 
 Every log line carries the card's name and power limit. Before the
 summary, ``phase seconds {...}`` gives each phase's wall seconds: the
@@ -3966,11 +3988,11 @@ C5_SWAP_CHECKS, C5_HOST_SEEDS = 2, 8
 C5_RANGE_LANES, C5_RANGE_SEED, C5_NARROW = 256, 31, 8
 
 
-def c5_links(r, e0: int, m: int):
-    """One of c5's link batches: ``m`` random entity pairs as target
-    lists."""
-    subj = r.integers(0, C5_ENTITIES, size=m)
-    obj = r.integers(0, C5_ENTITIES, size=m)
+def c5_links(r, e0: int, m: int, n_entities: int = C5_ENTITIES):
+    """One of c5's link batches: ``m`` random entity pairs (of
+    ``n_entities``) as target lists."""
+    subj = r.integers(0, n_entities, size=m)
+    obj = r.integers(0, n_entities, size=m)
     return [[e0 + int(a), e0 + int(b)] for a, b in zip(subj, obj)]
 
 
@@ -4038,6 +4060,45 @@ def int_value_oracle(g):
     ranks, gids = np.concatenate(ranks), np.concatenate(gids)
     order = np.lexsort((gids, ranks))
     return ranks[order], gids[order]
+
+
+def c5_reader_batch(s: Smoke, g, mgr, seeds, state: dict):
+    """One of c5's dense reader batches over ``mgr``: the seeds on
+    ``mgr.device(max_lag_edges)``, or, for the first C5_SWAP_CHECKS
+    batches after a compaction (``state["held"]`` counts them,
+    ``state["epoch"]`` is the last epoch read), a pinned lag-0 view held
+    for a host check after the window. c5's freshness probe: one end of a
+    link added after the base pack, whose edges the device delta holds,
+    seeds lane 0 (``seeds`` changes in place); the other end must come
+    back visited. Returns ``(probe, hit, held)``: ``probe`` is None when
+    the delta holds no such link; ``held`` is ``(view, batch, visited)``
+    for a pinned batch, else None."""
+    from hypergraphdb_tpu_torch.ops.incremental import bfs_levels_delta
+
+    view = None
+    if mgr.compactions != state["epoch"] and state["held"] < C5_SWAP_CHECKS:
+        view = mgr.pinned_view(max_lag_edges=0, host_delta=True)
+        dev, delta = view.device, view.delta
+    else:
+        dev, delta = mgr.device(max_lag_edges=C5_BATCH_LINKS)
+    state["epoch"] = mgr.compactions if view is None else view.epoch
+    probe = None
+    for h in mgr.device_visible_new_atoms():
+        rec = g.store.get_link(h)
+        if rec is not None and len(rec) >= 5:
+            a, b = int(rec[3]), int(rec[4])
+            if a != b and a < dev.num_atoms and b < dev.num_atoms:
+                seeds[0], probe = a, b
+                break
+    batch = seeds.copy()
+    _, visited = bfs_levels_delta(dev, delta,
+                                  s.torch.from_numpy(batch).to(s.dev),
+                                  C5_HOPS, with_levels=False)
+    hit = bool(visited[0, probe or 0])  # one scalar back per batch
+    if view is None:
+        return probe, hit, None
+    state["held"] += 1
+    return probe, hit, (view, batch, visited)
 
 
 def phase_ingest(s: Smoke) -> dict:
@@ -4114,48 +4175,26 @@ def phase_ingest(s: Smoke) -> dict:
     wt = threading.Thread(target=writer, name="c5-writer", daemon=True)
     t0 = time.perf_counter()
     wt.start()
-    last_epoch = mgr.compactions
+    state = {"epoch": mgr.compactions, "held": 0}
     trace = []  # per batch: seconds into the window, epoch, compacting
     while not done.is_set() and time.perf_counter() - t0 < C5_WINDOW_LIMIT_S:
         staleness.append(mgr.delta_edges)
         tq = time.perf_counter()
         trace.append((round(tq - t0, 3), mgr.compactions, mgr._compacting,
                       staleness[-1], ingested["atoms"]))
-        view = None
-        if mgr.compactions != last_epoch and len(swap_checks) < C5_SWAP_CHECKS:
-            view = mgr.pinned_view(max_lag_edges=0, host_delta=True)
-            dev, delta = view.device, view.delta
-        else:
-            dev, delta = mgr.device(max_lag_edges=C5_BATCH_LINKS)
-        last_epoch = mgr.compactions if view is None else view.epoch
-        # c5's freshness probe: one end of a link added after the base
-        # pack, whose edges the device delta holds, seeds lane 0; the
-        # other end must come back visited
-        probe = None
-        for h in mgr.device_visible_new_atoms():
-            rec = g.store.get_link(h)
-            if rec is not None and len(rec) >= 5:
-                a, b = int(rec[3]), int(rec[4])
-                if a != b and a < dev.num_atoms and b < dev.num_atoms:
-                    seeds[0], probe = a, b
-                    break
-        batch = seeds.copy()
-        _, visited = bfs_levels_delta(dev, delta,
-                                      torch.from_numpy(batch).to(s.dev),
-                                      C5_HOPS, with_levels=False)
-        hit = bool(visited[0, probe or 0])  # one scalar back per batch
+        probe, hit, held = c5_reader_batch(s, g, mgr, seeds, state)
         latencies.append(time.perf_counter() - tq)
         epochs.append(mgr.compactions)
         if probe is not None:
             fresh["probes"] += 1
             fresh["hits"] += hit
             if not hit:
-                fresh["missed"].append((int(batch[0]), probe))
-        if view is not None:
-            # held (the view's tensors with it) and checked after the
-            # window: a host BFS here would stall the reader
-            swap_checks.append((len(latencies) - 1, view, batch, visited))
-        del view, dev, delta, visited
+                fresh["missed"].append((int(seeds[0]), probe))
+        if held is not None:
+            # the view's tensors are held and checked after the window:
+            # a host BFS here would stall the reader
+            swap_checks.append((len(latencies) - 1, *held))
+        del held
     window_s = time.perf_counter() - t0
     live = mgr.compactions - at_start
     wt.join(timeout=C5_JOIN_S)
@@ -4363,9 +4402,11 @@ def phase_ingest(s: Smoke) -> dict:
 
 
 #: phase 15: bench.py c3's query shape through the front door, on the
-#: reference's ``dbpedia_like`` at 4x its default scale (2.4M atoms;
-#: BASELINE config 3's shape), ``default_rng(Q_SEED)``
-Q_ENTITIES, Q_TRIPLES, Q_PROPERTIES, Q_SEED = 400_000, 2_000_000, 64, 13
+#: reference's ``dbpedia_like`` at 2x its default scale (1.2M atoms;
+#: BASELINE config 3's shape), ``default_rng(Q_SEED)``; cut from 4x (2.4M
+#: atoms, a 40–51 s build) to pay for phase 23 on the smoke's clock: the
+#: hubs' rows stay past ``device_min_batch``, so every device branch runs
+Q_ENTITIES, Q_TRIPLES, Q_PROPERTIES, Q_SEED = 200_000, 1_000_000, 64, 13
 #: build seconds past which the next run halves Q_TRIPLES (logged)
 Q_BUILD_LIMIT_S = 120.0
 #: the hub value window of (d) and (e): link values (property ids) in
@@ -7449,8 +7490,11 @@ DURABLE_DIR = ROOT / "chiprun_out" / "chip_smoke_durable"
 D_OPS, D_CRASH_AT, D_SEED, D_PARTS = 2_000, 1_000, 41, 4
 D_POINTS = ("tx.commit.pre", "tx.commit.apply")
 D_CHILD_TIMEOUT_S = 300
-#: the stream's batch after which (b) checkpoints
-D_CHECKPOINT_AFTER = C5_BATCHES // 2
+#: (b)'s stream: c5's batches cut from 40 to 20, which pays for phase 23
+#: on the smoke's clock (phase 14 keeps c5's 40: its window must hold two
+#: compactions), and the batch after which (b) checkpoints
+D_BATCHES = 20
+D_CHECKPOINT_AFTER = D_BATCHES // 2
 D_CHILD = """
 import json, os, sys, time
 sys.modules["jax"] = None
@@ -7674,8 +7718,8 @@ def durable_wordnet(s: Smoke, rec: dict) -> None:
 
 def durable_c5(s: Smoke, rec: dict, children: list) -> dict:
     """22 (b): bench c5 on the native backend: the base through
-    ``bulk_import``, 40 batches streamed under ``enable_incremental`` with
-    a checkpoint halfway, one served batch (K2 on the base, K1 over the
+    ``bulk_import``, D_BATCHES batches streamed under
+    ``enable_incremental`` with a checkpoint halfway, one served batch (K2 on the base, K1 over the
     delta) against the host BFS; closed, reopened, every record back, and
     K2's BFS from the reopened store's snapshot equal to the pre-close
     view's."""
@@ -7709,8 +7753,8 @@ def durable_c5(s: Smoke, rec: dict, children: list) -> dict:
     mgr = g.enable_incremental(device=s.dev, **C5_MANAGER)
     t0 = time.perf_counter()
     ckpt = {}
-    for b in range(C5_BATCHES):
-        if b == C5_BATCHES - 1:
+    for b in range(D_BATCHES):
+        if b == D_BATCHES - 1:
             # the last batch stays in the memtable: the served batch's
             # overlay reads it (K1)
             s.expect(mgr.wait_compacted(timeout=C5_COMPACT_WAIT_S),
@@ -7725,7 +7769,7 @@ def durable_c5(s: Smoke, rec: dict, children: list) -> dict:
             ckpt["s"] = time.perf_counter() - tc
             ckpt["bytes"] = (loc / "checkpoint.bin").stat().st_size
     stream_s = time.perf_counter() - t0
-    streamed = C5_BATCHES * C5_BATCH_LINKS
+    streamed = D_BATCHES * C5_BATCH_LINKS
     view = mgr.pinned_view()
     N = view.base.num_atoms
     seeds_t = torch.from_numpy(seeds).to(s.dev)
@@ -8020,6 +8064,567 @@ def phase_durable(s: Smoke) -> None:
           f"{rec['launches']}; record " + json.dumps(rec, default=str))
 
 
+# -- phase 23: the peer plane -------------------------------------------------
+
+#: c5's constants over two peers: the origin's base cut from 600,000 atoms
+#: (200,000 entities, 400,000 links) to 120,000 (40,000 and 80,000, the
+#: same arity and the same draw) and the stream from 40 batches to
+#: P_BATCHES, for the host's replication rate
+P_ENTITIES, P_LINKS, P_BATCHES = 40_000, 80_000, 4
+#: links the origin writes after the stream, once the serving peer's
+#: memtable is folded: the final view's replicated delta (K1's rows)
+P_TAIL_LINKS = 256
+#: the TCP leg's remote query: ints below P_QUERY_BELOW, P_QUERY_PAGE rows
+#: a page
+P_QUERY_BELOW, P_QUERY_PAGE = 128, 64
+#: bound of every wait of the phase, seconds
+P_WAIT_S = 300.0
+
+
+def wait_until(cond, timeout: float = P_WAIT_S, poll: float = 0.01):
+    """Seconds until ``cond()`` held, or None after ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            return None
+        time.sleep(poll)
+    return time.perf_counter() - t0
+
+
+def gid_map(transfer, g) -> dict:
+    """handle → gid of every atom of ``g``'s atom map."""
+    out = {}
+    for key, hs in transfer._atom_map(g).bulk_items():
+        gid = key.decode("utf-8")
+        for h in hs.tolist():
+            out[int(h)] = gid
+    return out
+
+
+def launch_diff(now: dict, before: dict) -> dict:
+    return {k: now[k] - before[k] for k in now}
+
+
+def peer_view_has(view, h: int) -> bool:
+    """Whether the pinned view holds atom ``h``: in its memtable, or typed
+    in its base (a base packed after ``h`` committed)."""
+    tp = view.base.type_of
+    return h in set(view.new_atoms) or (h < len(tp) and int(tp[h]) >= 0)
+
+
+def peer_served_batch(s: Smoke, g, mgr, seeds, what: str, rec: dict):
+    """One served batch of the seeds on the overlay route over B's pinned
+    view (K2 on the base, K1 over the replicated delta), held against the
+    host BFS over B's graph at lanes 0..C5_HOST_SEEDS - 1 and against the
+    dense route. Returns (ms, launches)."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.ops.serving import bfs_serve_batch, serve_bfs
+
+    torch = s.torch
+    view = mgr.pinned_view()
+    # a replicated atom past the packed id space (the headroom) reaches
+    # the device only with the next compaction: none may be, for the host
+    # BFS below to be the view's truth
+    s.expect(not view.new_atoms or max(view.new_atoms) < view.base.num_atoms,
+             f"peer {what}: replicated atoms past the base's id space of "
+             f"{view.base.num_atoms}")
+    before = launches()
+    serve_bfs.routes.update(fused=0, dense=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts, first_r = serve_bfs(view.base, seeds, C5_HOPS, SERVE_TOP_R,
+                                delta=view.delta, device=s.dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = launch_diff(launches(), before)
+    routes = dict(serve_bfs.routes)
+    s.expect(routes == {"fused": 1, "dense": 0} and n["fused_hop"] > 0,
+             f"peer {what}: the served batch took {routes}, launches {n}")
+    for k in range(C5_HOST_SEEDS):
+        want = graph_bfs(g, int(seeds[k]), C5_HOPS)
+        s.expect(int(counts[k]) == len(want)
+                 and first_r[k][:min(len(want), SERVE_TOP_R)].tolist()
+                 == want[:SERVE_TOP_R],
+                 f"peer {what}: served lane {k} != the host BFS")
+    dc, df = bfs_serve_batch(view.device, view.delta,
+                             torch.from_numpy(seeds).to(s.dev), C5_HOPS,
+                             SERVE_TOP_R)
+    s.expect(np.array_equal(counts, dc.cpu().numpy())
+             and np.array_equal(first_r, df.cpu().numpy()),
+             f"peer {what}: served fused route != served dense route")
+    rec.setdefault("served", []).append(
+        {"what": what, "ms": ms, "launches": n,
+         "delta_atoms": len(view.new_atoms),
+         "epoch": view.epoch})
+    return ms, n
+
+
+def peer_reader(s: Smoke, g, mgr, seeds, stop, out: dict) -> None:
+    """Phase 14's c5 reader (:func:`c5_reader_batch`) over B's manager
+    until ``stop``. From the first batch whose device view held a
+    replicated link, every batch must see one: a probe that hit, or a
+    base packed since."""
+    seeds = seeds.copy()
+    at_start = mgr.compactions
+    state = {"epoch": mgr.compactions, "held": 0}
+    owed = False
+    try:
+        while not stop.is_set():
+            tq = time.perf_counter()
+            probe, hit, held = c5_reader_batch(s, g, mgr, seeds, state)
+            out["latency_s"].append(time.perf_counter() - tq)
+            owed = owed or probe is not None
+            if probe is not None:
+                out["probes"] += 1
+                out["hits"] += hit
+                if not hit:
+                    out["missed"].append((int(seeds[0]), probe))
+            elif owed and mgr.compactions == at_start:
+                out["unfresh"] += 1
+            if held is not None:
+                out["swap_checks"].append(held)
+            del held
+    except Exception as e:  # noqa: BLE001 - failed by the caller
+        out["errors"].append(repr(e))
+
+
+def peer_build(s: Smoke, rec: dict):
+    """23 (a): the origin's graph, c5's draw at the cut size, and the
+    seeds."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+
+    g = HyperGraph()
+    r = np.random.default_rng(C5_SEED)
+    t0 = time.perf_counter()
+    e0 = int(g.bulk_import(values=np.arange(P_ENTITIES).tolist())[0])
+    for st in range(0, P_LINKS, C5_LOAD_CHUNK):
+        m = min(C5_LOAD_CHUNK, P_LINKS - st)
+        g.bulk_import(values=list(range(st, st + m)),
+                      target_lists=c5_links(r, e0, m, P_ENTITIES))
+    rec["a"] = {"atoms": P_ENTITIES + P_LINKS,
+                "build_s": time.perf_counter() - t0}
+    seeds = (e0 + r.integers(0, P_ENTITIES, size=C5_K)).astype(np.int64)
+    return g, r, e0, seeds
+
+
+def peer_truth(s: Smoke, transfer, ga, gb, seeds_a, lanes_b, what: str):
+    """B's per-lane ids, through gids, against A's host BFS of the same
+    seeds."""
+    ma, mb = gid_map(transfer, ga), gid_map(transfer, gb)
+    bad = []
+    for k, seed in enumerate(seeds_a.tolist()):
+        want = {ma.get(h) for h in graph_bfs(ga, int(seed), C5_HOPS)}
+        got = {mb.get(int(h)) for h in lanes_b[k].tolist()}
+        if None in want or got != want:
+            bad.append(k)
+    s.expect(not bad, f"peer {what}: lanes {bad[:8]} of {len(seeds_a)} "
+             f"!= the origin's host BFS through gids")
+
+
+def peer_converge(s: Smoke, transfer, A, B, ga, gb, what: str) -> dict:
+    """The origin flushed, B caught up: B's seen map at A's op-log head
+    with no gaps, and equal content digests."""
+    s.expect(A.replication.flush(timeout=P_WAIT_S),
+             f"peer {what}: the origin's replication did not flush")
+    t0 = time.perf_counter()
+    s.expect(B.replication.catch_up(A.identity),
+             f"peer {what}: the catch-up request was not sent")
+    rep = B.replication
+    waited = wait_until(lambda: rep.last_seen.get(A.identity)
+                        >= A.replication.log.head
+                        and not rep.last_seen.has_gap(A.identity))
+    s.expect(waited is not None and rep.flush(timeout=P_WAIT_S),
+             f"peer {what}: B's seen map at "
+             f"{rep.last_seen.get(A.identity)} of the origin's head "
+             f"{A.replication.log.head}, gaps "
+             f"{rep.last_seen.gaps(A.identity)}")
+    catch_s = time.perf_counter() - t0
+    lag = rep.replication_lag(A.identity)
+    s.expect(lag == 0 and rep.last_seen.intervals(A.identity)
+             == [(0, A.replication.log.head)],
+             f"peer {what}: replication lag {lag}, intervals "
+             f"{rep.last_seen.intervals(A.identity)} against the origin's "
+             f"head {A.replication.log.head}")
+    t0 = time.perf_counter()
+    da, db = transfer.content_digest(ga), transfer.content_digest(gb)
+    digest_s = time.perf_counter() - t0
+    s.expect(da == db, f"peer {what}: content digests differ: {da} {db}")
+    return {"catch_up_s": catch_s, "digest_s": digest_s, "digest": da,
+            "head": A.replication.log.head}
+
+
+def peer_stream(s: Smoke, A, B, ga, gb, mgr, r, e0, seeds_b, rec) -> None:
+    """23 (c): B interested in everything; the origin streams c5 batches
+    while B's reader runs phase 14's dense batches, and after each batch
+    has arrived one served batch on the overlay route."""
+    import threading
+
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.peer import transfer
+
+    B.replication.publish_interest(None)
+    s.expect(wait_until(lambda: B.identity
+                        in A.replication.peer_interests) is not None,
+             "peer (c): the origin never saw B's interest")
+    out = {"latency_s": [], "probes": 0, "hits": 0, "missed": [],
+           "unfresh": 0, "swap_checks": [], "errors": []}
+    stop = threading.Event()
+    at_start = mgr.compactions
+    rt = threading.Thread(target=peer_reader,
+                          args=(s, gb, mgr, seeds_b, stop, out),
+                          name="peer-reader", daemon=True)
+    batches = []
+    t_window = time.perf_counter()
+    rt.start()
+    try:
+        for b in range(P_BATCHES):
+            t0 = time.perf_counter()
+            hs = ga.bulk_import(values=list(range(C5_BATCH_LINKS)),
+                                target_lists=c5_links(r, e0, C5_BATCH_LINKS,
+                                                      P_ENTITIES))
+            t_commit = time.perf_counter()
+            gid = transfer.global_id(A.identity, int(hs[-1]))
+            found = {}
+
+            def arrived():
+                h = found.get("h")
+                if h is None:
+                    h = transfer.lookup_local(gb, gid)
+                    if h is None:
+                        return False
+                    found["h"] = int(h)
+                return peer_view_has(mgr.pinned_view(sync_delta=False),
+                                     found["h"])
+
+            s.expect(wait_until(arrived) is not None,
+                     f"peer (c): batch {b}'s last link never reached B's "
+                     f"pinned view")
+            t_arr = time.perf_counter()
+            ms, n = peer_served_batch(s, gb, mgr, seeds_b, f"(c) batch {b}",
+                                      rec)
+            batches.append({"import_s": t_commit - t0,
+                            "arrived_s": t_arr - t0,
+                            "atoms_per_s": C5_BATCH_LINKS / (t_arr - t0),
+                            "lag_s": t_arr - t_commit, "served_ms": ms,
+                            "launches": n, "compactions": mgr.compactions})
+            if b == 1 and mgr.compactions == at_start:
+                mgr._request_compact()  # the ratio was not crossed
+    finally:
+        stop.set()
+        rt.join(timeout=C5_JOIN_S)
+    window_s = time.perf_counter() - t_window
+    s.expect(not rt.is_alive() and not out["errors"],
+             f"peer (c): the reader failed or hung: {out['errors']}")
+    s.expect(out["probes"] > 0 and not out["missed"]
+             and out["unfresh"] == 0,
+             f"peer (c): freshness {out['hits']}/{out['probes']}, missed "
+             f"{out['missed'][:5]}, {out['unfresh']} batches that saw no "
+             f"replicated link")
+    live = mgr.compactions - at_start
+    s.expect(live >= 1, "peer (c): no compaction inside the window")
+    checks = []
+    for view, batch, visited in out["swap_checks"]:
+        want = view_bitmap(s, view, batch, C5_HOPS)
+        checks.append({"epoch": view.epoch,
+                       "equal": bool(s.torch.equal(visited, want))})
+    out["swap_checks"] = []
+    s.expect(checks and all(c["equal"] for c in checks),
+             f"peer (c): swap-straddling batches against host BFS: {checks}")
+    lat = np.asarray(out["latency_s"]) * 1e3
+    lag = [b["lag_s"] for b in batches]
+    rec["c"] = {
+        "batches": batches, "window_s": window_s,
+        "lag_s_p50": float(np.median(lag)), "lag_s_max": float(max(lag)),
+        "reader_batches": len(lat),
+        "reader_ms_p50": float(np.median(lat)),
+        "reader_ms_max": float(lat.max()),
+        "probes": out["probes"], "hits": out["hits"],
+        "live_compactions": live, "swap_checks": checks,
+        "compaction_stats": mgr.compaction_stats[1:]}
+    s.log(f"peer (c): {P_BATCHES} c5 batches of {C5_BATCH_LINKS} links "
+          f"replicated to B in {window_s:.3f} s; per batch atoms/s "
+          f"{[round(b['atoms_per_s']) for b in batches]}, import s "
+          f"{[round(b['import_s'], 3) for b in batches]}; lag (the "
+          f"origin's commit returns -> the batch's last link in B's pinned "
+          f"view) p50 {rec['c']['lag_s_p50']:.3f} s, max "
+          f"{rec['c']['lag_s_max']:.3f} s {[round(x, 3) for x in lag]}; "
+          f"served batch while streaming ms "
+          f"{[round(b['served_ms'], 3) for b in batches]}, launches "
+          f"{[b['launches'] for b in batches]}; reader {len(lat)} dense "
+          f"batches, p50 {rec['c']['reader_ms_p50']:.2f} ms, max "
+          f"{rec['c']['reader_ms_max']:.2f} ms, freshness "
+          f"{out['hits']}/{out['probes']}; {live} compactions in the "
+          f"window, extract s "
+          f"{[round(c['extract_s'], 3) for c in rec['c']['compaction_stats']]}"
+          f", assemble+swap s "
+          f"{[round(c['assemble_swap_s'], 3) for c in rec['c']['compaction_stats']]}"
+          f"; swap checks {checks}")
+
+
+def peer_final(s: Smoke, A, B, ga, gb, mgr, r, e0, seeds_a, seeds_b,
+               rec) -> None:
+    """23 (d): the memtable folded, a tail of P_TAIL_LINKS links
+    replicated into it, converged; B's final view (K2 on the base, K1 over
+    the replicated delta) equal to the origin's host BFS on every lane
+    through gids; the served batch quiet against streaming."""
+    from hypergraphdb_tpu_torch.ops import fused_bfs
+    from hypergraphdb_tpu_torch.ops.ellbfs import visited_rows
+    from hypergraphdb_tpu_torch.ops.serving import serve_bfs
+    from hypergraphdb_tpu_torch.peer import transfer
+
+    torch = s.torch
+    s.expect(mgr.wait_compacted(timeout=P_WAIT_S),
+             "peer (d): compaction still running")
+    tc = time.perf_counter()
+    mgr._request_compact()
+    s.expect(mgr.wait_compacted(timeout=P_WAIT_S),
+             "peer (d): compaction still running")
+    fold_s = time.perf_counter() - tc
+    hs = ga.bulk_import(values=list(range(P_TAIL_LINKS)),
+                        target_lists=c5_links(r, e0, P_TAIL_LINKS,
+                                              P_ENTITIES))
+    conv = peer_converge(s, transfer, A, B, ga, gb, "(d)")
+    tail = transfer.lookup_local(gb, transfer.global_id(A.identity,
+                                                        int(hs[-1])))
+    view = mgr.pinned_view()
+    s.expect(tail is not None and int(tail) in set(view.new_atoms),
+             "peer (d): the tail is not in B's memtable")
+    fk = fused_bfs.serve_fused_kwargs(view.base, view.delta, C5_K, s.dev)
+    s.expect(not isinstance(fk, str) and fk["overlay"] is not None,
+             f"peer (d): the fused route declined or has no overlay: {fk}")
+    seeds_t = torch.from_numpy(seeds_b.astype("int32")).to(s.dev)
+    before = launches()
+    words, _, _ = fused_bfs.bfs_fused(fk["plan"], seeds_t, fk["geom"],
+                                      C5_HOPS, False, True,
+                                      overlay=fk["overlay"])
+    torch.cuda.synchronize()
+    n_final = launch_diff(launches(), before)
+    s.expect(n_final["fused_hop"] > 0 and n_final["gather_or"] > 0,
+             f"peer (d): the final view launched {n_final}")
+    # the fused route's (R, K/32) words are a pull BFS's visited_t
+    lanes = visited_rows(SimpleNamespace(visited_t=words),
+                         min(view.base.num_atoms + 1, gb.handles.peek),
+                         lanes=list(range(C5_K)))
+    peer_truth(s, transfer, ga, gb, seeds_a, lanes, "(d) final view")
+    before = launches()
+    quiet = served_ms(s, lambda: serve_bfs(view.base, seeds_b, C5_HOPS,
+                                           SERVE_TOP_R, delta=view.delta,
+                                           device=s.dev))
+    n_quiet = launch_diff(launches(), before)
+    rec["d"] = dict(conv, fold_s=fold_s, final_launches=n_final,
+                    quiet_ms=quiet, quiet_launches=n_quiet,
+                    delta_bucket=int(view.delta.inc_links.shape[0]),
+                    delta_atoms=len(view.new_atoms))
+    streaming = [b["served_ms"] for b in rec["c"]["batches"]]
+    s.log(f"peer (d): converged (B's seen map at the origin's head "
+          f"{conv['head']}, no gaps, lag 0; catch-up {conv['catch_up_s']:.3f}"
+          f" s), digests equal ({conv['digest'][:16]}..., both in "
+          f"{conv['digest_s']:.3f} s); folding compaction {fold_s:.3f} s; "
+          f"final view ({view.delta.inc_links.shape[0]}-entry delta "
+          f"bucket, {len(view.new_atoms)} replicated atoms in it, launches "
+          f"{n_final}) == the origin's host BFS on all "
+          f"{C5_K} lanes through gids; served batch quiet {spread(quiet)} "
+          f"against streaming {[round(x, 3) for x in streaming]} ms")
+
+
+def peer_tcp(s: Smoke, A, B, ga, gb, r, e0, rec) -> None:
+    """23 (e): both peers restarted over ``TCPPeerInterface`` on 127.0.0.1
+    (their logs and seen maps live on in the graphs): one remote query
+    paging a typed condition, one c5 batch replicated, digests equal."""
+    from hypergraphdb_tpu_torch.peer import HyperGraphPeer, transfer
+    from hypergraphdb_tpu_torch.query import dsl as q
+
+    A.stop()
+    B.stop()
+    ta = HyperGraphPeer.tcp(ga, identity=A.identity)
+    tb = HyperGraphPeer.tcp(gb, identity=B.identity)
+    ta.start()
+    tb.start()
+    try:
+        tb.interface.connect(ta.identity, ta.interface.addr)
+        s.expect(wait_until(lambda: tb.identity in ta.interface.peers())
+                 is not None, "peer (e): no TCP handshake")
+        cond = q.and_(q.type_("int"), q.lt(P_QUERY_BELOW))
+        t0 = time.perf_counter()
+        rows = tb.run_remote_query(ta.identity, cond, page=P_QUERY_PAGE,
+                                   timeout=P_WAIT_S)
+        query_s = time.perf_counter() - t0
+        want = sorted(int(h) for h in q.find_all(ga, cond))
+        s.expect(sorted(int(h) for h in rows) == want and len(want) > 0,
+                 f"peer (e): the remote query gave {len(rows)} rows, the "
+                 f"origin's own {len(want)}")
+        tb.replication.publish_interest(None)
+        s.expect(wait_until(lambda: tb.identity
+                            in ta.replication.peer_interests) is not None,
+                 "peer (e): the origin never saw B's interest over TCP")
+        t0 = time.perf_counter()
+        hs = ga.bulk_import(values=list(range(C5_BATCH_LINKS)),
+                            target_lists=c5_links(r, e0, C5_BATCH_LINKS,
+                                                  P_ENTITIES))
+        gid = transfer.global_id(ta.identity, int(hs[-1]))
+        s.expect(wait_until(lambda: transfer.lookup_local(gb, gid)
+                            is not None) is not None,
+                 "peer (e): the TCP batch never arrived")
+        tcp_s = time.perf_counter() - t0
+        conv = peer_converge(s, transfer, ta, tb, ga, gb, "(e)")
+    finally:
+        ta.stop()
+        tb.stop()
+    rec["e"] = dict(conv, query_rows=len(rows), query_pages=-(-len(rows)
+                    // P_QUERY_PAGE), query_s=query_s, tcp_s=tcp_s,
+                    tcp_atoms_per_s=C5_BATCH_LINKS / tcp_s)
+    s.log(f"peer (e): over TCP on 127.0.0.1: a remote query of "
+          f"{len(rows)} rows in {rec['e']['query_pages']} pages "
+          f"{query_s:.3f} s == the origin's find_all; one batch of "
+          f"{C5_BATCH_LINKS} links replicated in {tcp_s:.3f} s "
+          f"({rec['e']['tcp_atoms_per_s']:.0f} atoms/s); converged, digests "
+          f"equal ({conv['digest'][:16]}...)")
+
+
+def phase_peer(s: Smoke) -> dict:
+    """Phase 23: the peer plane, two peers in this process. (a) the origin
+    A holds c5's base at the cut size; (b) B bootstraps by
+    ``transfer_graph_from`` (digests equal), packs and uploads, and K2's
+    BFS from the 256 seeds equals A's host BFS through gids; (c) the
+    stream; (d) the final view; (e) the TCP leg."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.ops.ellbfs import bfs_pull, visited_rows
+    from hypergraphdb_tpu_torch.peer import (
+        HyperGraphPeer,
+        LoopbackNetwork,
+        transfer,
+    )
+
+    torch = s.torch
+    t_phase = time.perf_counter()
+    rec: dict = {}
+    at_start = launches()
+    ga, r, e0, seeds_a = peer_build(s, rec)
+    gb = HyperGraph()
+    net = LoopbackNetwork()
+    A = HyperGraphPeer.loopback(ga, net, identity="c5-origin")
+    B = HyperGraphPeer.loopback(gb, net, identity="c5-serving")
+    A.start()
+    B.start()
+    mgr = None
+    try:
+        t0 = time.perf_counter()
+        stored = B.transfer_graph_from(A.identity, timeout=P_WAIT_S)
+        transfer_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        da, db = transfer.content_digest(ga), transfer.content_digest(gb)
+        digest_s = time.perf_counter() - t0
+        s.expect(da == db, f"peer (b): digests after the transfer differ: "
+                 f"{da} {db}")
+        t0 = time.perf_counter()
+        mgr = gb.enable_incremental(device=s.dev, **C5_MANAGER)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        hb = {gid: h for h, gid in gid_map(transfer, gb).items()}
+        ma = gid_map(transfer, ga)
+        seeds_b = np.asarray([hb[ma[int(h)]] for h in seeds_a],
+                             dtype=np.int64)
+        before = launches()
+        res = bfs_pull(mgr.base, seeds_b, C5_HOPS, device=s.dev)
+        torch.cuda.synchronize()
+        n_bfs = launch_diff(launches(), before)
+        s.expect(n_bfs["fused_hop"] > 0,
+                 f"peer (b): K2 did not launch over B's base: {n_bfs}")
+        lanes = visited_rows(res, min(mgr.base.num_atoms, gb.handles.peek),
+                             lanes=list(range(C5_K)))
+        peer_truth(s, transfer, ga, gb, seeds_a, lanes, "(b) after the "
+                   "transfer")
+        rec["b"] = {"stored": stored, "transfer_s": transfer_s,
+                    "atoms_per_s": stored / transfer_s,
+                    "digest_s": digest_s, "pack_s": pack_s,
+                    "launches": n_bfs}
+        s.log(f"peer (b): B bootstrapped by transfer_graph_from: {stored} "
+              f"atoms in {transfer_s:.3f} s ({stored / transfer_s:.0f} "
+              f"atoms/s; the origin's base of {rec['a']['atoms']} atoms "
+              f"built in {rec['a']['build_s']:.3f} s); digests equal "
+              f"({da[:16]}..., both in {digest_s:.3f} s); pack and upload "
+              f"{pack_s:.3f} s; K2 BFS from {C5_K} seeds, {C5_HOPS} hops "
+              f"(launches {n_bfs}) == the origin's host BFS on every lane "
+              f"through gids")
+        peer_stream(s, A, B, ga, gb, mgr, r, e0, seeds_b, rec)
+        peer_final(s, A, B, ga, gb, mgr, r, e0, seeds_a, seeds_b, rec)
+        peer_tcp(s, A, B, ga, gb, r, e0, rec)
+    finally:
+        A.stop()
+        B.stop()
+        if mgr is not None:
+            mgr.close()
+        ga.close()
+        gb.close()
+    rec["launches"] = launch_diff(launches(), at_start)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    s.expect(rec["launches"]["fused_hop"] > 0
+             and rec["launches"]["gather_or"] > 0,
+             f"peer: K2 and K1 must both launch in the phase: "
+             f"{rec['launches']}")
+    s.log(f"peer: phase 23 in {rec['phase_s']:.1f} s, launches "
+          f"{rec['launches']}; record " + json.dumps(rec, default=str))
+    return rec
+
+
+#: phase 23 runs in a child process of its own, started beside phase 22
+#: (whose own children it joins: both are host-bound, and the card's
+#: machine has cores to spare); the child imports only the port and
+#: reports its record on a ``P_PEER`` line
+P_CHILD = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["hypergraphdb_tpu"] = None
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke
+s = chip_smoke.Smoke(torch, {card!r})
+rec = chip_smoke.phase_peer(s)
+print("P_PEER " + json.dumps({{"launches": rec["launches"],
+                              "phase_s": rec["phase_s"]}}), flush=True)
+"""
+P_CHILD_TIMEOUT_S = 600
+
+
+def start_peer_child(s: Smoke):
+    """Start phase 23's child; :func:`finish_peer_child` collects it."""
+    code = P_CHILD.format(root=str(ROOT), card=s.card)
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_peer_child(s: Smoke, proc) -> dict:
+    """Phase 23's child joined: its log lines printed here, every check of
+    it passed (its exit code), K1 and K2 launched in it."""
+    try:
+        stdout, stderr = proc.communicate(timeout=P_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        stderr += "\nthe peer child hung"
+    lines = stdout.splitlines()
+    for ln in lines:
+        if not ln.startswith("P_PEER "):
+            print(ln, flush=True)
+    out = [ln for ln in lines if ln.startswith("P_PEER ")]
+    s.expect(proc.returncode == 0 and len(out) == 1,
+             f"peer: phase 23's child failed, rc {proc.returncode}:\n"
+             f"{stderr[-4000:]}")
+    rec = json.loads(out[0][len("P_PEER "):])
+    n = rec["launches"]
+    s.expect(n["fused_hop"] > 0 and n["gather_or"] > 0,
+             f"peer: K2 and K1 must both launch in phase 23: {n}")
+    return rec
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -8073,7 +8678,17 @@ def main(argv: list[str]) -> int:
         timed("planned", phase_planned, s)
         timed("sharded", phase_sharded, s, snap, truth)
         timed("profiles", phase_profiles, s)
-        timed("durable", phase_durable, s)
+        peer = start_peer_child(s)
+        try:
+            timed("durable", phase_durable, s)
+        except BaseException:
+            peer.kill()
+            peer.communicate()
+            raise
+        # "peer": the child's wall time past phase 22's, beside which it
+        # ran; "peer_child": its own
+        rec = timed("peer", finish_peer_child, s, peer)
+        seconds["peer_child"] = round(rec["phase_s"], 1)
     s.log("phase seconds " + json.dumps(seconds))
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -3,9 +3,10 @@
 ``store_backend`` picks the storage: ``"memory"``, ``"native"`` (the
 durable C++ engine of ``native/``, at ``location``) or ``"partitioned"``
 (``n_partitions`` children; native stores under ``location`` when one is
-given). A JSON file of the JAX package's configuration loads here; its
-``snapshot`` and ``peer`` sections, which nothing in the port reads, are
-dropped (:data:`DROPPED_SECTIONS`). The port has one field the JAX package
+given). ``peer`` holds a peer's settings (:class:`PeerConfig`). A JSON
+file of the JAX package's configuration loads here; its ``snapshot``
+section, which nothing in the port reads, is dropped
+(:data:`DROPPED_SECTIONS`). The port has one field the JAX package
 lacks, :data:`PORT_ONLY`: a file written with ``to_json(portable=True)``
 leaves it out and loads there too. Any other unknown field raises.
 """
@@ -56,11 +57,27 @@ class CacheConfig:
     memory_warning_interval_s: float = 5.0
 
 
-_SECTIONS = {"query": QueryConfig, "cache": CacheConfig}
+@dataclass
+class PeerConfig:
+    """A peer's settings, the section a deployment's configuration file
+    gives ``peer/``: its name, its transport, the peers it dials at start,
+    whether it replicates, and the address it listens on.
+    ``peer.HyperGraphPeer.from_config(graph)`` starts the peer they
+    describe; a transport it does not know (the JAX package's ``"grpc"``)
+    raises there."""
+
+    name: str = ""
+    transport: str = "loopback"        # "loopback" | "tcp"
+    bootstrap: list = field(default_factory=list)
+    replicate: bool = False
+    listen_address: str = ""
+
+
+_SECTIONS = {"query": QueryConfig, "cache": CacheConfig, "peer": PeerConfig}
 
 #: sections of the JAX package's configuration that the port does not
 #: carry: ``from_dict`` accepts and drops them
-DROPPED_SECTIONS = ("snapshot", "peer")
+DROPPED_SECTIONS = ("snapshot",)
 
 #: fields of the port's configuration that the JAX package's lacks (its
 #: ``from_dict`` rejects a file that carries one), by section
@@ -77,6 +94,7 @@ class HGConfiguration:
     handle_factory: str = "sequential"  # "sequential" | "uuid"
     query: QueryConfig = field(default_factory=QueryConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
+    peer: PeerConfig = field(default_factory=PeerConfig)
 
     @staticmethod
     def from_json(text: str) -> "HGConfiguration":

@@ -213,31 +213,36 @@ class TxIndexView(HGBidirectionalIndex):
     def _tx(self):
         return self._store.tx.current()
 
+    def _delta(self, tx, key: bytes, value: Optional[int]) -> _IdxDelta:
+        key = bytes(key)
+        if value is not None:
+            tx.idx_by_value.setdefault((self.name, value), set()).add(key)
+        return tx.idx.setdefault((self.name, key), _IdxDelta())
+
     def add_entry(self, key: bytes, value: HGHandle) -> None:
         tx = self._tx()
         if tx is None:
             self._backing.add_entry(key, int(value))
         else:
-            tx.idx.setdefault((self.name, bytes(key)),
-                              _IdxDelta()).add(int(value))
+            self._delta(tx, key, int(value)).add(int(value))
 
     def remove_entry(self, key: bytes, value: HGHandle) -> None:
         tx = self._tx()
         if tx is None:
             self._backing.remove_entry(key, int(value))
         else:
-            tx.idx.setdefault((self.name, bytes(key)),
-                              _IdxDelta()).remove(int(value))
+            self._delta(tx, key, int(value)).remove(int(value))
 
     def remove_all_entries(self, key: bytes) -> None:
         tx = self._tx()
         if tx is None:
             self._backing.remove_all_entries(key)
         else:
-            d = tx.idx.setdefault((self.name, bytes(key)), _IdxDelta())
+            d = self._delta(tx, key, None)
             d.added.clear()
             d.removed.clear()
             d.removed_all = True
+            tx.idx_wiped.setdefault(self.name, set()).add(bytes(key))
 
     def _deltas_for(self, key: bytes) -> list[_IdxDelta]:
         out = []
@@ -356,15 +361,23 @@ class TxIndexView(HGBidirectionalIndex):
                                          cap)
 
     def find_by_value(self, value: HGHandle) -> list[bytes]:
-        keys = set(self._backing.find_by_value(int(value)))
+        """The keys holding ``value``: the backend's, then each level of
+        the transaction chain from the innermost out, through the levels'
+        (index, value) maps, so a lookup costs the keys that name the
+        value, not every key the transaction wrote."""
+        value = int(value)
+        keys = set(self._backing.find_by_value(value))
         t = self._tx()
         while t is not None:
-            for (nm, k), d in t.idx.items():
-                if nm != self.name:
+            cand = t.idx_by_value.get((self.name, value), set())
+            wiped = t.idx_wiped.get(self.name)
+            for k in (cand | wiped) if wiped else cand:
+                d = t.idx.get((self.name, k))
+                if d is None:
                     continue
-                if int(value) in d.added:
+                if value in d.added:
                     keys.add(k)
-                elif int(value) in d.removed or d.removed_all:
+                elif value in d.removed or d.removed_all:
                     keys.discard(k)
             t = t.parent
         return sorted(keys)

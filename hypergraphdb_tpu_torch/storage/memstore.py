@@ -10,6 +10,7 @@ are O(1) after the first.
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -70,27 +71,51 @@ def _sorted_union(parts: list) -> np.ndarray:
 class MemIndex(HGBidirectionalIndex):
     """bytes key → sorted handle set. The inverse map (handle → keys) that
     :meth:`find_by_value` reads is built on its first call and kept from
-    then on, so an index nobody asks by value pays nothing for it."""
+    then on, so an index nobody asks by value pays nothing for it.
+
+    The build may run beside a writer (a reader outside the commit lock):
+    it holds ``_vk_lock`` with ``_building`` set, and a writer that finds
+    no map yet but a build under way waits for it and patches the new map
+    (:meth:`_inverse_for_write`), so no entry written during a build is
+    lost from the map."""
 
     def __init__(self, name: str):
         self.name = name
         self._kv: SortedDict = SortedDict()      # bytes -> _SortedHandleSet
         self._vk: Optional[dict[int, set[bytes]]] = None  # handle -> keys
+        self._vk_lock = threading.Lock()
+        self._building = False
+
+    def _inverse_for_write(self) -> Optional[dict[int, set[bytes]]]:
+        """The inverse map a writer must patch after changing ``_kv``, or
+        None when there is none and no build is under way (a later build
+        reads the change from ``_kv``)."""
+        # ``_building`` first: a build sets ``_vk`` before it clears
+        # ``_building``, so a writer that saw neither changed ``_kv``
+        # before the build began, and the build reads the change
+        building = self._building
+        vk = self._vk
+        if vk is not None or not building:
+            return vk
+        with self._vk_lock:
+            return self._vk
 
     def add_entry(self, key: bytes, value: HGHandle) -> None:
         s = self._kv.get(key)
         if s is None:
             s = self._kv[key] = _SortedHandleSet()
         s.add(value)
-        if self._vk is not None:
-            self._vk.setdefault(value, set()).add(key)
+        vk = self._inverse_for_write()
+        if vk is not None:
+            vk.setdefault(value, set()).add(key)
 
-    def _drop_inverse(self, key: bytes, value: int) -> None:
-        ks = self._vk.get(value)
+    @staticmethod
+    def _drop_inverse(vk: dict, key: bytes, value: int) -> None:
+        ks = vk.get(value)
         if ks is not None:
             ks.discard(key)
             if not ks:
-                del self._vk[value]
+                del vk[value]
 
     def remove_entry(self, key: bytes, value: HGHandle) -> None:
         s = self._kv.get(key)
@@ -98,14 +123,16 @@ class MemIndex(HGBidirectionalIndex):
             s.discard(value)
             if not len(s):
                 del self._kv[key]
-        if self._vk is not None:
-            self._drop_inverse(key, value)
+        vk = self._inverse_for_write()
+        if vk is not None:
+            self._drop_inverse(vk, key, value)
 
     def remove_all_entries(self, key: bytes) -> None:
         s = self._kv.pop(key, None)
-        if s is not None and self._vk is not None:
+        vk = self._inverse_for_write() if s is not None else None
+        if vk is not None:
             for v in s.snapshot().tolist():
-                self._drop_inverse(key, v)
+                self._drop_inverse(vk, key, v)
 
     def find(self, key: bytes) -> HGSortedResultSet:
         s = self._kv.get(key)
@@ -144,13 +171,23 @@ class MemIndex(HGBidirectionalIndex):
         return n
 
     def find_by_value(self, value: HGHandle) -> list[bytes]:
-        if self._vk is None:
-            vk: dict[int, set[bytes]] = {}
-            for k in self._kv:
-                for v in self._kv[k].snapshot().tolist():
-                    vk.setdefault(v, set()).add(k)
-            self._vk = vk
-        return sorted(self._vk.get(int(value), ()))
+        vk = self._vk
+        if vk is None:
+            with self._vk_lock:
+                vk = self._vk
+                if vk is None:
+                    self._building = True
+                    try:
+                        vk = {}
+                        for k in self._kv:
+                            hs = self._kv.get(k)
+                            for v in (() if hs is None
+                                      else hs.snapshot().tolist()):
+                                vk.setdefault(v, set()).add(k)
+                        self._vk = vk
+                    finally:
+                        self._building = False
+        return sorted(vk.get(int(value), ()))
 
     def bulk_items(self, lo=None):
         keys = self._kv.irange(minimum=lo) if lo is not None else self._kv

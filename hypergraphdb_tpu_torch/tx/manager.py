@@ -94,6 +94,12 @@ class HGTransaction:
         self.data: dict[int, Any] = {}             # h -> bytes | _TOMBSTONE
         self.inc: dict[int, _IncDelta] = {}        # atom -> delta
         self.idx: dict[tuple[str, bytes], _IdxDelta] = {}
+        #: (index, value) -> keys whose delta here names the value, and
+        #: index -> keys wiped here: ``find_by_value`` reads these
+        #: instead of walking ``idx`` (a superset; each key is then
+        #: judged by its delta)
+        self.idx_by_value: dict[tuple[str, int], set[bytes]] = {}
+        self.idx_wiped: dict[str, set[bytes]] = {}
         #: run after (and dropped unless) the top-level commit: listeners
         #: never see atoms that do not commit
         self.on_commit: list[Callable[[], None]] = []
@@ -133,6 +139,10 @@ class HGTransaction:
                 pd.add(v)
             for v in d.removed:
                 pd.remove(v)
+        for key, ks in self.idx_by_value.items():
+            p.idx_by_value.setdefault(key, set()).update(ks)
+        for name, ks in self.idx_wiped.items():
+            p.idx_wiped.setdefault(name, set()).update(ks)
         p.on_commit.extend(self.on_commit)
 
 

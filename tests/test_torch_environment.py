@@ -8,8 +8,9 @@ reference's.
   reference opens the location in memory (a fault the port does not
   copy).
 - Configuration files written by either package load in the other: the
-  reference's in the port field for field, its ``snapshot`` and ``peer``
-  sections (which nothing in the port reads) dropped; the port's in the
+  reference's in the port field for field, its ``peer`` section among
+  them, its ``snapshot`` section (which nothing in the port reads)
+  dropped; the port's in the
   reference when written ``portable``, since ``query.device`` is the
   port's alone. An unknown top-level field, such as a misspelled
   ``store_backend``, raises in the port (the reference drops it and opens
@@ -172,7 +173,9 @@ def configured(pkg):
         n_partitions=6, handle_factory="uuid",
         query=C.QueryConfig(parallel_or=True, device_min_batch=1024),
         cache=C.CacheConfig(memory_warning_bytes=1 << 30,
-                            memory_warning_interval_s=2.5))
+                            memory_warning_interval_s=2.5),
+        peer=C.PeerConfig(name="p1", bootstrap=["a", "b"], replicate=True,
+                          listen_address="10.0.0.7:7001"))
 
 
 def shared_fields(raw: dict) -> dict:
@@ -185,12 +188,14 @@ def test_reference_config_file_loads_in_the_port():
     RC = mod(PKGS[0], "core.config")
     ref = configured(PKGS[0])
     ref.snapshot = RC.SnapshotConfig(auto_refresh=True, pad_multiple=256)
-    ref.peer = RC.PeerConfig(name="p1", bootstrap=["a", "b"], replicate=True)
     port = mod(PKGS[1], "core.config").HGConfiguration.from_json(ref.to_json())
     assert port.query.device == "cuda"          # the port's default
     assert port.to_dict(portable=True) == shared_fields(
         dataclasses.asdict(ref))
-    assert not hasattr(port, "snapshot") and not hasattr(port, "peer")
+    # the peer section, field for field
+    assert dataclasses.asdict(port.peer) == dataclasses.asdict(ref.peer)
+    assert port.peer.bootstrap == ["a", "b"] and port.peer.replicate
+    assert not hasattr(port, "snapshot")
 
 
 def test_port_config_file_loads_in_the_reference():
@@ -203,8 +208,11 @@ def test_port_config_file_loads_in_the_reference():
     ref = RefCfg.from_json(port.to_json(portable=True))
     want = port.to_dict(portable=True)
     assert shared_fields(dataclasses.asdict(ref)) == want
-    # the sections the port does not carry take the reference's defaults
-    assert ref.snapshot == RefCfg().snapshot and ref.peer == RefCfg().peer
+    # the peer section, field for field
+    assert dataclasses.asdict(ref.peer) == dataclasses.asdict(port.peer)
+    assert ref.peer.listen_address == "10.0.0.7:7001"
+    # the section the port does not carry takes the reference's default
+    assert ref.snapshot == RefCfg().snapshot
     # and the port reads its own full file back unchanged
     again = type(port).from_json(port.to_json())
     assert again == port

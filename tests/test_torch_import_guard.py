@@ -181,3 +181,60 @@ def test_sharded_serving_runs_with_jax_and_reference_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "hypergraphdb_tpu_torch.peer",
+    "hypergraphdb_tpu_torch.peer.messages",
+    "hypergraphdb_tpu_torch.peer.transport",
+    "hypergraphdb_tpu_torch.peer.activity",
+    "hypergraphdb_tpu_torch.peer.contractnet",
+    "hypergraphdb_tpu_torch.peer.transfer",
+    "hypergraphdb_tpu_torch.peer.cact",
+    "hypergraphdb_tpu_torch.peer.replication",
+    "hypergraphdb_tpu_torch.peer.remote_view",
+    "hypergraphdb_tpu_torch.peer.peer",
+])
+def test_guard_covers_the_peer_modules(module):
+    """Every module of the peer plane is among the modules the guard
+    imports with the reference blocked."""
+    assert module in _module_names()
+
+
+def test_peers_replicate_with_jax_and_reference_blocked():
+    """Two loopback peers of the port transfer, replicate and answer a
+    remote query where neither ``jax`` nor the reference imports."""
+    script = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from hypergraphdb_tpu_torch.core.graph import HyperGraph\n"
+        "from hypergraphdb_tpu_torch.peer import HyperGraphPeer, "
+        "LoopbackNetwork, transfer\n"
+        "from hypergraphdb_tpu_torch.query import dsl as q\n"
+        "net = LoopbackNetwork()\n"
+        "ga, gb = HyperGraph(), HyperGraph()\n"
+        "a = HyperGraphPeer.loopback(ga, net, 'a')\n"
+        "b = HyperGraphPeer.loopback(gb, net, 'b')\n"
+        "a.start(); b.start()\n"
+        "x, y = ga.add('x'), ga.add('y')\n"
+        "ga.add_link((x, y), value=1)\n"
+        "assert b.transfer_graph_from('a') >= 3\n"
+        "b.replication.publish_interest(None)\n"
+        "import time\n"
+        "t0 = time.monotonic()\n"
+        "while 'b' not in a.replication.peer_interests:\n"
+        "    assert time.monotonic() - t0 < 10; time.sleep(0.01)\n"
+        "ga.add('z')\n"
+        "assert a.replication.flush()\n"
+        "t0 = time.monotonic()\n"
+        "while transfer.content_digest(ga) != transfer.content_digest(gb):\n"
+        "    assert time.monotonic() - t0 < 10; time.sleep(0.05)\n"
+        "assert len(b.run_remote_query('a', q.type_('string'))) == 3\n"
+        "a.stop(); b.stop(); ga.close(); gb.close()\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

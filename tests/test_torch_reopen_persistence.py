@@ -2,9 +2,10 @@
 as in the reference.
 
 The reference's ``tests/test_reopen_persistence.py`` cases on both
-packages over the native backend (its op-log case waits for the port's
-``peer/``): an indexer's registration and its removal survive, and so does
-the declared type hierarchy. The two reopen cases of
+packages over the native backend: an indexer's registration and its
+removal survive, and so does the declared type hierarchy; a serving peer's
+op log and a client peer's seen map (its vector clock) survive a restart,
+so a catch-up from the restarted peer asks only past what was applied. The two reopen cases of
 ``tests/test_index_stats.py``: a user index's persisted statistics come
 back, and are recounted when the index changed across the reopen. Then
 what a reopen restores on the native and the partitioned backend: type
@@ -34,6 +35,68 @@ def open_graph(pkg, loc, backend="native"):
     cfg = mod(pkg, "core.config").HGConfiguration(store_backend=backend,
                                                   location=str(loc))
     return mod(pkg, "core.graph").HyperGraph(cfg)
+
+
+def test_oplog_and_vector_clock_survive_reopen(tmp_path):
+    """Catch-up works after the serving peer restarts: its op log, and the
+    client's seen map, come back from the store."""
+    import time
+
+    got = []
+    for pkg in PKGS:
+        peer = mod(pkg, "peer")
+        q = mod(pkg, "query.dsl")
+        loc1, loc2 = tmp_path / pkg / "p1", tmp_path / pkg / "p2"
+        net = peer.LoopbackNetwork()
+        g1 = open_graph(pkg, loc1)
+        p1 = peer.HyperGraphPeer.loopback(g1, net, identity="peer-1")
+        p1.start()
+        g1.add("replicated-1")
+        g1.add("replicated-2")
+        assert p1.replication.flush()
+        head_before = p1.replication.log.head
+        assert head_before >= 2
+        log_before = p1.replication.log.since(0)
+        p1.stop()
+        g1.close()
+
+        # restart peer-1 on the same store: the log is still there
+        net2 = peer.LoopbackNetwork()
+        g1b = open_graph(pkg, loc1)
+        p1b = peer.HyperGraphPeer.loopback(g1b, net2, identity="peer-1")
+        p1b.start()
+        assert p1b.replication.log.head == head_before
+        assert p1b.replication.log.since(0) == log_before
+
+        # a fresh peer-2 catches up from the restarted peer-1
+        g2 = open_graph(pkg, loc2)
+        p2 = peer.HyperGraphPeer.loopback(g2, net2, identity="peer-2")
+        p2.start()
+        p2.replication.catch_up("peer-1")
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 5.0:
+            if p2.replication.last_seen.get("peer-1") >= head_before:
+                break
+            time.sleep(0.01)
+        assert p2.replication.last_seen.get("peer-1") >= head_before
+        assert q.find_all(g2, q.value("replicated-1"))
+        assert p2.replication.flush()
+        digest = mod(pkg, "peer.transfer").content_digest(g2)
+        p2.stop()
+        g2.close()
+
+        # restart peer-2: its seen map survived
+        g2b = open_graph(pkg, loc2)
+        p2b = peer.HyperGraphPeer.loopback(g2b, net2, identity="peer-2b")
+        seen = p2b.replication.last_seen.get("peer-1")
+        assert seen >= head_before
+        got.append((head_before, log_before, seen,
+                    p2b.replication.last_seen.intervals("peer-1"), digest,
+                    mod(pkg, "peer.transfer").content_digest(g2b)))
+        g2b.close()
+        p1b.stop()
+        g1b.close()
+    assert got[1] == got[0]
 
 
 def test_indexer_registration_survives_reopen(tmp_path):

@@ -1,8 +1,10 @@
 """The reference's review regressions (``tests/test_review_regressions.py``)
 run on both packages, each scenario on a fresh graph of each, the records
 equal. The ``value_rank_hi`` case compares the port's one rank word
-through ``reference_words`` (the reference keeps two uint32 words); the
-peer case waits for the port's ``peer/`` (ROADMAP queue 1, item 3).
+through ``reference_words`` (the reference keeps two uint32 words). The
+peer case runs a loopback peer of each package: removing an atom that
+never crossed the replication boundary mints no gid and logs no
+retraction.
 
 Tolerance: exact equality."""
 
@@ -184,3 +186,31 @@ def test_bulk_import_invalidates_user_index_readers():
         return seen
 
     assert on_both(scenario) == []
+
+
+def test_removed_unreplicated_atom_mints_no_gid():
+    """Removing an atom that never crossed the replication boundary must
+    not mint a gid nor push a retraction."""
+    def scenario(pkg, g, q):
+        peer = import_module(f"{pkg}.peer")
+        transfer = import_module(f"{pkg}.peer.transfer")
+        # the atom predates the peer: it never crossed the boundary
+        a = g.add("local-only")
+        p1 = peer.HyperGraphPeer.loopback(g, peer.LoopbackNetwork(),
+                                          identity="p1")
+        p1.start()
+        try:
+            rep = p1.replication
+            assert transfer.existing_gid(g, int(a)) is None
+            n_log = rep.log.head
+            g.remove(a)
+            assert rep.flush()  # drain the push worker before reading
+            assert transfer.existing_gid(g, int(a)) is None  # no mint
+            return (n_log, rep.log.since(0),
+                    [e for e in rep.log.since(n_log) if e[1] == "remove"],
+                    transfer.content_digest(g))
+        finally:
+            p1.stop()
+
+    n_log, log, removes, _ = on_both(scenario)
+    assert removes == [] and log == []
