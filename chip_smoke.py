@@ -201,12 +201,14 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     blocks; each run's visited words and edge counts equal the fused pull
     BFS and 16 lanes the host BFS; one 256-seed block with levels against
     the hop at which the staged chain first sets each bit.
-19. Cold start and persistence (after 18): the 10M snapshot through
+19. Cold start and persistence (after 11, before 22; the children of
+    23 and 24 run beside it): the 10M snapshot through
     ``save_snapshot(with_plans=True)`` and ``load_snapshot`` (every array
     equal, the pull plans attached with no build, the fused and staged
-    BFS over it equal to phase 4's host truth, K2 and K1 launched); its
-    plans through an ``AOTCache`` and ``HG_PLAN_CACHE`` over a fresh copy
-    (disk hits, equal plans); the ``ckpt.save_plans`` crash point fired
+    BFS over it equal to phase 4's host truth, K2 and K1 launched); over
+    a 1M-atom ``dbpedia_snapshot`` (:data:`PERSIST_SMALL`), its plans
+    through an ``AOTCache`` and ``HG_PLAN_CACHE`` over a fresh copy (disk
+    hits, equal plans) and the ``ckpt.save_plans`` crash point fired
     during a second save (the checkpoint still loads and serves); bench
     c6's cold-start probe in two fresh processes, the plan cache empty
     then full (the second with no miss and a disk hit), both answers
@@ -287,7 +289,7 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     of phase 17; the packed BFS of c2 and of one 10M block. It fails if a
     path queued as device work records no device operation, or if the
     device is busy longer than the profiled runs' own wall.
-22. Durable storage (after 11; ``native/``, ``storage/native``,
+22. Durable storage (after 19; ``native/``, ``storage/native``,
     ``storage/partitioned``, ``core/environment``, ``maintenance/``), its
     stores under ``chiprun_out/chip_smoke_durable/``, removed at its end:
     the engine's ``g++`` build; (a) BASELINE config 1, ``wordnet_like`` at
@@ -312,7 +314,8 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     ``tx.commit.pre`` and at ``tx.commit.apply``; each store is reopened,
     the missing ops replayed, its content (by value), snapshot and K2
     BFS equal to an uncrashed run's. K1 and K2 launches of the phase.
-23. The peer plane (``peer/``), in a child process started beside 22:
+23. The peer plane (``peer/``), in a child process started beside 19
+    and 22:
     two ``HyperGraphPeer``s of this process, BASELINE config 5's stream
     arriving from another peer. (a) the origin A holds c5's draw cut to
     120,000 atoms (40,000 entities, 80,000 links); (b) the serving peer B
@@ -328,12 +331,30 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     folded, a tail of 256 links replicated into it, A flushed and B
     caught up (seen map at A's head, no gaps, lag 0, digests equal): B's
     final view (K2, K1) equals A's host BFS on all 256 lanes through
-    gids; (e) both peers restarted over ``TCPPeerInterface`` on
-    127.0.0.1: a remote query paging a typed condition equal to A's
-    ``find_all``, one c5 batch replicated, digests equal. Transfer and
-    per-batch atoms/s, the lag from A's commit to B's pinned view, B's
-    served batch while streaming against quiet, compaction seconds, the
-    TCP leg's atoms/s, K1 and K2 launches of the phase.
+    gids. Transfer and per-batch atoms/s, the lag from A's commit to B's
+    pinned view, B's served batch while streaming against quiet,
+    compaction seconds, K1 and K2 launches of the phase.
+24. The replicated serving tier (``replica/``), in a child process of its
+    own started beside 19 (then 22 and 23's child): BASELINE config 5's stream
+    served through a front door over two replica processes. (a) P holds
+    c5's draw cut to 30,000 atoms on a TCP peer and its own serve
+    runtime; (b) R1 and R2, fresh interpreters importing only the port,
+    each on a native store under ``chiprun_out/`` with c5's manager, a TCP
+    peer, a ``ReplicaNode`` and its ``node_server``, bootstrap by transfer
+    and converge (lag 0, P's content digest, no atom past the serving
+    base); (c) ``FrontDoor(LocalBackend(P), [HTTPBackend(R1),
+    HTTPBackend(R2)])`` behind ``frontdoor_server`` takes open-loop
+    gid-addressed BFS submits (c5's seeds and hops, a deadline each)
+    while P streams 2 c5 batches; R2 is SIGKILLed once the first reached
+    both, and no submit errs inside its deadline; (d) R2 restarted on its
+    store comes back by resume with no new transfer chunk on P and is
+    re-admitted by the door; a tail, both replicas converged; (e) the 256
+    seeds pinned to each replica and through the door: every count equal
+    to P's host BFS, every ``match_gids`` entry inside its reach; R1's
+    remote paged query against P equal to P's ``find_all``; K2 and K1
+    launched in the replica processes. Bootstraps, atoms/s a batch, the
+    lag read from ``/healthz``, served requests/s with p50/p99, kill →
+    breaker open, restart → re-admission, the resume, the exit codes.
 
 Every log line carries the card's name and power limit. Before the
 summary, ``phase seconds {...}`` gives each phase's wall seconds: the
@@ -369,7 +390,7 @@ N_SEEDS, HOPS = 4096, 3
 #: lies in line k // 1024)
 HOST_LANES = (0, 1, 2, 3, 4, 1100, 1500, 2200, 2600, 3300, 4095)
 #: timed runs of each path (fused and staged alternate)
-TIMED_RUNS = 5
+TIMED_RUNS = 3
 SERVE_SEEDS, SERVE_TOP_R = 5, 16
 #: warm calls of each served route timed host to host (median and spread):
 #: 3, as the other served timings; ten calls of a route spread under 1 %
@@ -3836,7 +3857,8 @@ def persist_plan_cache(s: Smoke, loaded, fp: str) -> None:
             os.environ[ellbfs.PLAN_CACHE_ENV] = env
     s.expect(not builds and plans_equal(side, loaded._pull_plans),
              "plan cache: HG_PLAN_CACHE rebuilt or differs")
-    s.log(f"plan cache 10M: the pull plans stored in {store_s:.2f} s; both "
+    s.log(f"plan cache ({loaded.num_atoms} atoms): the pull plans stored "
+          f"in {store_s:.2f} s; both "
           f"plans read back over a fresh copy in {read_s:.2f} s, stats "
           f"{st}, entries {entries} bytes; HG_PLAN_CACHE: built and stored "
           f"in {build_s:.2f} s, read in {side_s:.2f} s with no build; all "
@@ -3874,10 +3896,10 @@ def persist_crash(s: Smoke, snap, path: str, truth: dict) -> None:
              f"crash: the checkpoint after the crash: fields {bad}, plans "
              f"{getattr(back, '_pull_plans', None) is not None}")
     n = served_lanes(s, back, truth, "crash")
-    s.log(f"crash safety: ckpt.save_plans fired {crash_s:.2f} s into a "
-          f"second save (its tmp left behind, as a kill would); the "
-          f"checkpoint loads with its plans and serves phase 4's truth, "
-          f"launches {n}")
+    s.log(f"crash safety ({snap.num_atoms} atoms): ckpt.save_plans fired "
+          f"{crash_s:.2f} s into a second save (its tmp left behind, as a "
+          f"kill would); the checkpoint loads with its plans and serves its "
+          f"host truth, launches {n}")
 
 
 def cold_start(s: Smoke) -> None:
@@ -3940,9 +3962,60 @@ def cold_start(s: Smoke) -> None:
           f"{present['served_by']})")
 
 
+#: phase 19 (b) and (c) (the plan caches over a fresh copy, a crash during
+#: a save) run over a dbpedia_snapshot a tenth of the 10M one (the same
+#: mechanisms; the 10M checkpoint's figures are (a)'s): at 10M they took
+#: about 45 s of phase 19's 105.1 s (PERF.md §6)
+PERSIST_SMALL = dict(n_entities=200_000, n_links=800_000)
+
+
+def small_checkpoint(s: Smoke):
+    """(b) and (c)'s snapshot: :data:`PERSIST_SMALL`, its truth at
+    :data:`PERSIST_LANES` from the host BFS (phase 4's seeds drawn the same
+    way), saved with its plans; returns (snapshot, truth, path,
+    the reloaded checkpoint, its fingerprint)."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.models import dbpedia_snapshot
+    from hypergraphdb_tpu_torch.ops import (
+        aot_cache,
+        checkpoint,
+        ellbfs,
+        fused_bfs,
+    )
+    from hypergraphdb_tpu_torch.ops.host_bfs import host_bfs
+
+    t0 = time.perf_counter()
+    small, info = dbpedia_snapshot(**PERSIST_SMALL)
+    e0, e1 = info["entities"]
+    seeds = np.random.default_rng(7).integers(e0, e1, size=N_SEEDS).astype(
+        np.int32)
+    truth = {"seeds": seeds,
+             "host": {k: host_bfs(small, int(seeds[k]), HOPS)
+                      for k in PERSIST_LANES}}
+    ellbfs.plans_for(small)
+    fused_bfs.fused_plans_for(small)
+    path = str(PERSIST_DIR / "small.npz")
+    checkpoint.save_snapshot(small, path, with_plans=True)
+    fp = ellbfs.snapshot_fingerprint(small)
+    # its fused plan handed to the plan cache and read back onto the
+    # reloaded copy, as (a) does with the 10M one
+    root = str(PERSIST_DIR / "aot")
+    fused_bfs.fused_plans_for(small, aot=aot_cache.AOTCache(
+        root, content_key=fp, device=s.dev))
+    loaded = checkpoint.load_snapshot(path)
+    fused_bfs.fused_plans_for(loaded, aot=aot_cache.AOTCache(
+        root, content_key=fp, device=s.dev))
+    s.log(f"persist: (b) and (c) over a {small.num_atoms}-atom snapshot "
+          f"({PERSIST_SMALL}), built, planned, saved and reloaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return small, truth, path, loaded, fp
+
+
 def phase_persist(s: Smoke, snap, truth: dict) -> None:
     """Phase 19: cold start and persistence: the 10M checkpoint, the plan
-    caches, a crash during a save, bench c6's cold-start probe."""
+    caches and a crash during a save (over :data:`PERSIST_SMALL`), bench
+    c6's cold-start probe."""
     import shutil
 
     t0 = time.perf_counter()
@@ -3950,9 +4023,12 @@ def phase_persist(s: Smoke, snap, truth: dict) -> None:
     PERSIST_DIR.mkdir(parents=True)
     try:
         loaded, path, fp = persist_checkpoint(s, snap, truth)
+        del loaded
+        small, small_truth, small_path, loaded, fp = small_checkpoint(s)
         persist_plan_cache(s, loaded, fp)
         del loaded
-        persist_crash(s, snap, path, truth)
+        persist_crash(s, small, small_path, small_truth)
+        del small
         cold_start(s)
     finally:
         shutil.rmtree(PERSIST_DIR, ignore_errors=True)
@@ -8074,9 +8150,6 @@ P_ENTITIES, P_LINKS, P_BATCHES = 40_000, 80_000, 4
 #: links the origin writes after the stream, once the serving peer's
 #: memtable is folded: the final view's replicated delta (K1's rows)
 P_TAIL_LINKS = 256
-#: the TCP leg's remote query: ints below P_QUERY_BELOW, P_QUERY_PAGE rows
-#: a page
-P_QUERY_BELOW, P_QUERY_PAGE = 128, 64
 #: bound of every wait of the phase, seconds
 P_WAIT_S = 300.0
 
@@ -8431,66 +8504,12 @@ def peer_final(s: Smoke, A, B, ga, gb, mgr, r, e0, seeds_a, seeds_b,
           f"against streaming {[round(x, 3) for x in streaming]} ms")
 
 
-def peer_tcp(s: Smoke, A, B, ga, gb, r, e0, rec) -> None:
-    """23 (e): both peers restarted over ``TCPPeerInterface`` on 127.0.0.1
-    (their logs and seen maps live on in the graphs): one remote query
-    paging a typed condition, one c5 batch replicated, digests equal."""
-    from hypergraphdb_tpu_torch.peer import HyperGraphPeer, transfer
-    from hypergraphdb_tpu_torch.query import dsl as q
-
-    A.stop()
-    B.stop()
-    ta = HyperGraphPeer.tcp(ga, identity=A.identity)
-    tb = HyperGraphPeer.tcp(gb, identity=B.identity)
-    ta.start()
-    tb.start()
-    try:
-        tb.interface.connect(ta.identity, ta.interface.addr)
-        s.expect(wait_until(lambda: tb.identity in ta.interface.peers())
-                 is not None, "peer (e): no TCP handshake")
-        cond = q.and_(q.type_("int"), q.lt(P_QUERY_BELOW))
-        t0 = time.perf_counter()
-        rows = tb.run_remote_query(ta.identity, cond, page=P_QUERY_PAGE,
-                                   timeout=P_WAIT_S)
-        query_s = time.perf_counter() - t0
-        want = sorted(int(h) for h in q.find_all(ga, cond))
-        s.expect(sorted(int(h) for h in rows) == want and len(want) > 0,
-                 f"peer (e): the remote query gave {len(rows)} rows, the "
-                 f"origin's own {len(want)}")
-        tb.replication.publish_interest(None)
-        s.expect(wait_until(lambda: tb.identity
-                            in ta.replication.peer_interests) is not None,
-                 "peer (e): the origin never saw B's interest over TCP")
-        t0 = time.perf_counter()
-        hs = ga.bulk_import(values=list(range(C5_BATCH_LINKS)),
-                            target_lists=c5_links(r, e0, C5_BATCH_LINKS,
-                                                  P_ENTITIES))
-        gid = transfer.global_id(ta.identity, int(hs[-1]))
-        s.expect(wait_until(lambda: transfer.lookup_local(gb, gid)
-                            is not None) is not None,
-                 "peer (e): the TCP batch never arrived")
-        tcp_s = time.perf_counter() - t0
-        conv = peer_converge(s, transfer, ta, tb, ga, gb, "(e)")
-    finally:
-        ta.stop()
-        tb.stop()
-    rec["e"] = dict(conv, query_rows=len(rows), query_pages=-(-len(rows)
-                    // P_QUERY_PAGE), query_s=query_s, tcp_s=tcp_s,
-                    tcp_atoms_per_s=C5_BATCH_LINKS / tcp_s)
-    s.log(f"peer (e): over TCP on 127.0.0.1: a remote query of "
-          f"{len(rows)} rows in {rec['e']['query_pages']} pages "
-          f"{query_s:.3f} s == the origin's find_all; one batch of "
-          f"{C5_BATCH_LINKS} links replicated in {tcp_s:.3f} s "
-          f"({rec['e']['tcp_atoms_per_s']:.0f} atoms/s); converged, digests "
-          f"equal ({conv['digest'][:16]}...)")
-
-
 def phase_peer(s: Smoke) -> dict:
     """Phase 23: the peer plane, two peers in this process. (a) the origin
     A holds c5's base at the cut size; (b) B bootstraps by
     ``transfer_graph_from`` (digests equal), packs and uploads, and K2's
     BFS from the 256 seeds equals A's host BFS through gids; (c) the
-    stream; (d) the final view; (e) the TCP leg."""
+    stream; (d) the final view. The TCP leg is phase 24's."""
     import numpy as np
 
     from hypergraphdb_tpu_torch.core.graph import HyperGraph
@@ -8554,7 +8573,6 @@ def phase_peer(s: Smoke) -> dict:
               f"through gids")
         peer_stream(s, A, B, ga, gb, mgr, r, e0, seeds_b, rec)
         peer_final(s, A, B, ga, gb, mgr, r, e0, seeds_a, seeds_b, rec)
-        peer_tcp(s, A, B, ga, gb, r, e0, rec)
     finally:
         A.stop()
         B.stop()
@@ -8574,10 +8592,657 @@ def phase_peer(s: Smoke) -> dict:
     return rec
 
 
-#: phase 23 runs in a child process of its own, started beside phase 22
-#: (whose own children it joins: both are host-bound, and the card's
-#: machine has cores to spare); the child imports only the port and
-#: reports its record on a ``P_PEER`` line
+# -- phase 24: the replicated serving tier ------------------------------------
+
+#: c5's draw at the primary P of the replicated tier: R_ENTITIES entities
+#: and R_LINKS links (c5's arity, ``default_rng(C5_SEED)``), cut from
+#: 600,000 atoms so that two replica processes bootstrap by transfer from
+#: one primary within the clock
+R_ENTITIES, R_LINKS = 10_000, 20_000
+#: c5 batches P streams while the door serves; R2 is killed once the first
+#: has reached both replicas and restarted once the rest has reached R1
+R_BATCHES = 2
+#: links P writes after the stream: the replicas' final views carry them
+#: as a replicated delta (K1's rows in (e))
+R_TAIL_LINKS = 256
+#: the open-loop submits through the door: requests/s, each request's
+#: deadline (s, in the payload and the caller's wait), client threads;
+#: at 40/s beside phases 19 and 22 the tier saturated (PERF.md §6: each
+#: answer looks up 128 gids on a replica's cores)
+R_RATE, R_DEADLINE_S, R_CLIENTS = 20.0, 5.0, 32
+#: the door's health poll (s) and its per-replica breaker: R_BREAK
+#: consecutive failures open it; the cooldown is long, so that only the
+#: poll's rejoin edge closes it again
+R_POLL_S, R_BREAK, R_COOLDOWN_S = 1.0, 2, 3600.0
+#: the remote paged query against P (folded in from phase 23's TCP leg):
+#: ints below R_QUERY_BELOW, R_QUERY_PAGE rows a page
+R_QUERY_BELOW, R_QUERY_PAGE = 128, 64
+#: the replicas' native stores, one directory each, removed at the end
+REPLICA_DIR = ROOT / "chiprun_out" / "chip_smoke_replica"
+#: the primary's peer identity
+R_PRIMARY = "c5-primary"
+
+
+def replica_cell(**kw) -> SimpleNamespace:
+    """Phase 24's sizes and knobs; ``tests/test_torch_replica_live.py``
+    runs the phase on the CPU at a small size through these (and the
+    runtime's default manager: c5's pads every view to 2^19 ids, which
+    the CPU's plain versions pay for on every batch)."""
+    base = dict(entities=R_ENTITIES, links=R_LINKS,
+                batch_links=C5_BATCH_LINKS, tail=R_TAIL_LINKS, k=C5_K,
+                rate=R_RATE, store=REPLICA_DIR, wait_s=P_WAIT_S,
+                kernels=True, manager=C5_MANAGER)
+    base.update(kw)
+    return SimpleNamespace(**base)
+
+
+#: one replica process: the port alone, its graph on a native store, a TCP
+#: peer, a ReplicaNode following the primary and its submit server; it
+#: reads commands on stdin and answers on tagged stdout lines
+R_CHILD = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["hypergraphdb_tpu"] = None
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.replica_process(json.loads(sys.argv[1]))
+"""
+
+
+def replica_process(cfg: dict) -> None:
+    """The body of one replica process (:data:`R_CHILD`). ``cfg``: its
+    identity, the primary's identity and TCP address, the store's
+    directory, the device and the submit server's port (0: any). It
+    prints ``R_READY`` once its node serves (the bootstrap's mode and
+    seconds), then answers ``launches`` (its K1/K2/K3 counts), ``has
+    <gid>`` (whether the atom has arrived), ``digest``
+    (content digest and lag), ``query`` (the remote paged query against
+    the primary) and ``stop``."""
+    from hypergraphdb_tpu_torch.core.config import HGConfiguration, QueryConfig
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.peer import HyperGraphPeer, transfer
+    from hypergraphdb_tpu_torch.query import dsl as q
+    from hypergraphdb_tpu_torch.replica import (
+        ReplicaConfig,
+        ReplicaNode,
+        node_server,
+    )
+    from hypergraphdb_tpu_torch.serve import ServeConfig
+
+    def say(tag: str, obj: dict) -> None:
+        print(f"{tag} {json.dumps(obj)}", flush=True)
+
+    t0 = time.perf_counter()
+    g = HyperGraph(HGConfiguration(
+        store_backend="native", location=cfg["store"],
+        query=QueryConfig(device=cfg["device"])))
+    open_s = time.perf_counter() - t0
+    # the snapshot manager the node's runtime serves through (c5's on the
+    # card: its headroom and id padding keep the stream inside the base's
+    # id space, where a served view holds every atom without waiting for a
+    # compaction)
+    t0 = time.perf_counter()
+    g.enable_incremental(device=cfg["device"], **cfg["manager"])
+    pack_s = time.perf_counter() - t0
+    peer = HyperGraphPeer.tcp(g, identity=cfg["ident"])
+    peer.interface.connect(cfg["primary"], tuple(cfg["primary_addr"]))
+    node = ReplicaNode(g, peer, ReplicaConfig(
+        primary=cfg["primary"], bootstrap_timeout_s=cfg["wait_s"],
+        serve=ServeConfig(device=cfg["device"], prewarm_aot=False)))
+    t0 = time.perf_counter()
+    node.start()
+    start_s = time.perf_counter() - t0
+    srv = node_server(node, port=cfg["http_port"]).start()
+    say("R_READY", {"url": srv.url, "mode": node.bootstrap_mode,
+                    "open_s": open_s, "pack_s": pack_s,
+                    "start_s": start_s, "atoms": g.handles.peek})
+    for line in sys.stdin:
+        cmd = line.strip()
+        if cmd == "launches":
+            say("R_LAUNCHES", launches())
+        elif cmd.startswith("has "):
+            say("R_HAS", {"has": transfer.lookup_local(g, cmd[4:])
+                          is not None})
+        elif cmd == "digest":
+            t0 = time.perf_counter()
+            d = transfer.content_digest(g)
+            dt = time.perf_counter() - t0
+            # the serving view: an atom past the base's id space reaches
+            # it only with the next compaction (a view pinned now asks for
+            # it), so the view trails the store until that one lands
+            mgr = g.incremental
+            mgr.pinned_view(sync_delta=False)
+            mgr.wait_compacted(timeout=cfg["wait_s"])
+            view = mgr.pinned_view(sync_delta=False)
+            past = sum(1 for h in view.new_atoms
+                       if h >= view.base.num_atoms)
+            say("R_DIGEST", {"digest": d, "lag": node.replication_lag,
+                             "s": dt, "past_base": past,
+                             "compactions": mgr.compactions})
+        elif cmd == "query":
+            cond = q.and_(q.type_("int"), q.lt(R_QUERY_BELOW))
+            t0 = time.perf_counter()
+            rows = peer.run_remote_query(cfg["primary"], cond,
+                                         page=R_QUERY_PAGE,
+                                         timeout=cfg["wait_s"])
+            say("R_QUERY", {"rows": sorted(int(h) for h in rows),
+                            "s": time.perf_counter() - t0})
+        elif cmd == "stop":
+            break
+    srv.stop()
+    node.stop()
+    g.close()
+    say("R_DONE", {})
+
+
+class ReplicaProc:
+    """One replica process, started fresh (``subprocess``, never a fork:
+    the process that starts it has touched CUDA); its tagged stdout lines
+    read on a thread, the rest printed here."""
+
+    def __init__(self, s, c, ident: str, primary_addr, port: int = 0):
+        import queue
+        import threading
+
+        self.s, self.ident = s, ident
+        cfg = {"ident": ident, "primary": R_PRIMARY,
+               "primary_addr": list(primary_addr),
+               "store": str(Path(c.store) / ident), "device": s.dev.type,
+               "http_port": port, "wait_s": c.wait_s,
+               "manager": c.manager}
+        #: the process's stderr, one file an incarnation, its tail shown
+        #: when the process fails
+        self.err_path = Path(c.store) / f"{ident}.{time.time_ns()}.stderr"
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", R_CHILD.format(root=str(ROOT)),
+                 json.dumps(cfg)], cwd=str(ROOT), stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        self.lines: "queue.Queue" = queue.Queue()
+        threading.Thread(target=self._read, daemon=True,
+                         name=f"replica-{ident}-out").start()
+
+    def _read(self) -> None:
+        for ln in self.proc.stdout:
+            self.lines.put(ln.rstrip("\n"))
+        self.lines.put(None)
+
+    def expect(self, tag: str, timeout: float) -> dict:
+        import queue
+
+        t_end = time.perf_counter() + timeout
+        while True:
+            try:
+                ln = self.lines.get(
+                    timeout=max(0.01, t_end - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"replica {self.ident}: no {tag} line in {timeout} s")
+            if ln is None:
+                raise AssertionError(
+                    f"replica {self.ident} exited (rc {self.proc.wait()}) "
+                    f"before its {tag} line:\n"
+                    f"{self.err_path.read_text()[-4000:]}")
+            if ln.startswith(tag + " "):
+                return json.loads(ln[len(tag) + 1:])
+            print(f"[{self.ident}] {ln}", flush=True)
+
+    def ask(self, cmd: str, tag: str, timeout: float) -> dict:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return self.expect(tag, timeout)
+
+    def has(self, gid: str) -> bool:
+        return self.ask(f"has {gid}", "R_HAS", 60.0)["has"]
+
+    def kill(self) -> int:
+        """SIGKILL: no drain, no close; the store is left as it lies."""
+        self.proc.kill()
+        return self.proc.wait(timeout=60)
+
+    def stop(self, timeout: float) -> int:
+        self.ask("stop", "R_DONE", timeout)
+        self.proc.stdin.close()
+        return self.proc.wait(timeout=timeout)
+
+
+def replica_payload(gid: str, deadline: bool = True) -> dict:
+    p = {"kind": "bfs", "seed_gid": gid, "max_hops": C5_HOPS, "gids": True}
+    if deadline:
+        p["deadline_s"] = R_DEADLINE_S
+    return p
+
+
+def replica_converge(s, c, P, gp, procs: dict, what: str) -> dict:
+    """P flushed; each replica at lag 0 with P's content digest, and its
+    serving view holding every atom (none past its base's id space)."""
+    from hypergraphdb_tpu_torch.peer import transfer
+
+    s.expect(P.replication.flush(timeout=c.wait_s),
+             f"replica {what}: P's replication did not flush")
+    t0 = time.perf_counter()
+    want = transfer.content_digest(gp)
+    digest_s = time.perf_counter() - t0
+    out = {"digest": want, "primary_digest_s": digest_s}
+    for ident, rp in procs.items():
+        last = {}
+
+        def equal():
+            last.update(rp.ask("digest", "R_DIGEST", c.wait_s))
+            return (last["digest"] == want and last["lag"] == 0
+                    and last["past_base"] == 0)
+
+        waited = wait_until(equal, timeout=c.wait_s, poll=0.5)
+        s.expect(waited is not None,
+                 f"replica {what}: {ident} digest {last.get('digest')} lag "
+                 f"{last.get('lag')}, {last.get('past_base')} atoms past "
+                 f"its serving base; P's digest {want}")
+        out[ident] = {"wait_s": waited, "digest_s": last["s"],
+                      "compactions": last["compactions"]}
+    return out
+
+
+class OpenLoop:
+    """Open-loop submits through the door's URL: one every 1/rate s on a
+    schedule, each on a client thread, the latency from its scheduled
+    time to its answer (queueing in the client included)."""
+
+    def __init__(self, url: str, payloads: list, c):
+        import threading
+
+        self.url, self.payloads, self.c = url + "/submit", payloads, c
+        self.stop_ev = threading.Event()
+        self.results: list = []
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="replica-open-loop")
+
+    def _one(self, payload: dict, t_sched: float) -> None:
+        import urllib.request
+
+        err, routed = None, None
+        try:
+            req = urllib.request.Request(
+                self.url, data=json.dumps(payload).encode("utf-8"),
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            with urllib.request.urlopen(
+                    req, timeout=R_DEADLINE_S + 5.0) as r:
+                routed = json.loads(r.read().decode("utf-8"))["routed_to"]
+        except Exception as e:  # noqa: BLE001 - counted by the caller
+            err = repr(e)[:300]
+        self.results.append((t_sched, time.perf_counter() - t_sched,
+                             routed, err))
+
+    def _run(self) -> None:
+        with ThreadPoolExecutor(R_CLIENTS) as pool:
+            t0 = time.perf_counter()
+            i = 0
+            while not self.stop_ev.is_set():
+                t_sched = t0 + i / self.c.rate
+                delay = t_sched - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                pool.submit(self._one,
+                            self.payloads[i % len(self.payloads)], t_sched)
+                i += 1
+        self.wall_s = time.perf_counter() - t0
+
+    def start(self) -> "OpenLoop":
+        self.thread.start()
+        return self
+
+    def finish(self, timeout: float) -> dict:
+        import numpy as np
+
+        self.stop_ev.set()
+        self.thread.join(timeout=timeout)
+        lat = np.asarray([x[1] for x in self.results]) * 1e3
+        errs = [x for x in self.results if x[3] is not None]
+        late = [x for x in errs if x[1] >= R_DEADLINE_S]
+        routed: dict = {}
+        for x in self.results:
+            if x[2] is not None:
+                routed[x[2]] = routed.get(x[2], 0) + 1
+        return {"sent": len(self.results), "wall_s": self.wall_s,
+                "answered_per_s": (len(self.results) - len(errs))
+                / self.wall_s,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "max_ms": float(lat.max()), "routed": routed,
+                "errors_in_deadline": len(errs) - len(late),
+                "errors_late": len(late),
+                "error_samples": [x[3] for x in errs[:5]],
+                "alive": self.thread.is_alive()}
+
+
+class LagSampler:
+    """The replicas' advertised ``replication_lag`` read from their own
+    ``/healthz`` every ``period`` s, while they answer."""
+
+    def __init__(self, backends: dict, period: float = 0.25):
+        import threading
+
+        self.backends, self.period = backends, period
+        self.samples: dict = {k: [] for k in backends}
+        self.stop_ev = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="replica-lag")
+
+    def _run(self) -> None:
+        while not self.stop_ev.wait(self.period):
+            for ident, be in self.backends.items():
+                try:
+                    _, payload = be.health()
+                except OSError:
+                    continue            # down: no advertised lag
+                if "replication_lag" in payload:
+                    self.samples[ident].append(
+                        int(payload["replication_lag"]))
+
+    def start(self) -> "LagSampler":
+        self.thread.start()
+        return self
+
+    def finish(self) -> dict:
+        import numpy as np
+
+        self.stop_ev.set()
+        self.thread.join(timeout=30)
+        allv = [v for vs in self.samples.values() for v in vs]
+        return {"n": len(allv),
+                "p50": float(np.median(allv)) if allv else None,
+                "max": max(allv) if allv else None,
+                "by_replica_p50": {k: float(np.median(v)) if v else None
+                                   for k, v in self.samples.items()}}
+
+
+def replica_answers(s, c, gp, gids: list, seeds, be, what: str) -> set:
+    """Every seed through ``be`` (a pinned replica or the door): each
+    answer's ``count`` equal to P's host BFS reach and every
+    ``match_gids`` entry inside it. Returns the backends the door
+    routed them to (none when pinned)."""
+    from hypergraphdb_tpu_torch.peer import transfer
+
+    def one(k):
+        return be.submit(replica_payload(gids[k], deadline=False),
+                         c.wait_s)
+
+    with ThreadPoolExecutor(R_CLIENTS) as pool:
+        outs = list(pool.map(one, range(len(gids))))
+    bad = []
+    for k, out in enumerate(outs):
+        reach = graph_bfs(gp, int(seeds[k]), C5_HOPS)
+        rg = {transfer.existing_gid(gp, h) for h in reach}
+        mg = out.get("match_gids") or []
+        if (out["count"] != len(reach) or None in mg
+                or not set(mg) <= rg or len(mg) == 0):
+            bad.append((k, out["count"], len(reach)))
+    s.expect(not bad, f"replica (e) {what}: lanes {bad[:5]} of "
+             f"{len(gids)} differ from P's host BFS")
+    return {out["routed_to"] for out in outs if "routed_to" in out}
+
+
+def phase_replica(s, c=None) -> dict:
+    """Phase 24: the replicated serving tier, BASELINE config 5's stream
+    served through a front door over two replica processes. (a) P holds
+    c5's draw at the cut size on a TCP peer and its own serve runtime;
+    (b) R1 and R2, fresh processes on native stores, bootstrap by
+    transfer and converge (lag 0, P's digest); (c) open-loop gid-addressed
+    BFS submits through ``frontdoor_server`` while P streams c5 batches,
+    R2 SIGKILLed once the first batch reached both: zero caller-visible
+    errors inside the deadline; (d) R2 restarted on its store comes back
+    by resume (no new transfer chunk on P) and the door re-admits it; P's
+    tail, both replicas converged; (e) the 256 seeds through each replica
+    and through the door equal P's host BFS; R1's remote paged query
+    against P; K2 and K1 launched in the replica processes."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.config import HGConfiguration, QueryConfig
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.fault import OPEN
+    from hypergraphdb_tpu_torch.obs.http import runtime_health
+    from hypergraphdb_tpu_torch.peer import HyperGraphPeer, transfer
+    from hypergraphdb_tpu_torch.query import dsl as q
+    from hypergraphdb_tpu_torch.replica import (
+        FrontDoor,
+        HTTPBackend,
+        LocalBackend,
+        RouterConfig,
+        frontdoor_server,
+    )
+    from hypergraphdb_tpu_torch.serve import ServeConfig, ServeRuntime
+
+    c = c or replica_cell()
+    t_phase = time.perf_counter()
+    rec: dict = {"cell": {k: str(v) for k, v in vars(c).items()}}
+    shutil.rmtree(c.store, ignore_errors=True)
+    Path(c.store).mkdir(parents=True)
+    dev = s.dev.type
+    gp = HyperGraph(HGConfiguration(query=QueryConfig(device=dev)))
+    r = np.random.default_rng(C5_SEED)
+    t0 = time.perf_counter()
+    e0 = int(gp.bulk_import(values=np.arange(c.entities).tolist())[0])
+    for st in range(0, c.links, C5_LOAD_CHUNK):
+        m = min(C5_LOAD_CHUNK, c.links - st)
+        gp.bulk_import(values=list(range(st, st + m)),
+                       target_lists=c5_links(r, e0, m, c.entities))
+    seeds = (e0 + r.integers(0, c.entities, size=c.k)).astype(np.int64)
+    rec["a"] = {"atoms": c.entities + c.links,
+                "build_s": time.perf_counter() - t0}
+    P = HyperGraphPeer.tcp(gp, identity=R_PRIMARY)
+    P.start()
+    prt = ServeRuntime(gp, ServeConfig(device=dev, prewarm_aot=False))
+    procs: dict = {}
+    killed: dict = {}
+    down: set = set()
+    fd = door = load = lags = None
+    try:
+        # (b) two replica processes bootstrap by transfer
+        t0 = time.perf_counter()
+        for ident in ("r1", "r2"):
+            procs[ident] = ReplicaProc(s, c, ident, P.interface.addr)
+        ready = {k: rp.expect("R_READY", c.wait_s)
+                 for k, rp in procs.items()}
+        both_s = time.perf_counter() - t0
+        for ident, rd in ready.items():
+            s.expect(rd["mode"] == "transfer",
+                     f"replica (b): {ident} bootstrapped by {rd['mode']}")
+        conv_b = replica_converge(s, c, P, gp, procs, "(b)")
+        chunks = gp.metrics.counters.get("peer.transfer_chunks", 0)
+        # atoms/s over P's atoms (a receiver's handle count runs higher:
+        # it mints handles for the type atoms and values it writes)
+        n_p = rec["a"]["atoms"]
+        rec["b"] = {"ready": ready, "both_s": both_s, "converge": conv_b,
+                    "transfer_chunks": chunks,
+                    "atoms_per_s": {k: n_p / rd["start_s"]
+                                    for k, rd in ready.items()}}
+        s.log(f"replica (b): R1 and R2 bootstrapped by transfer from P "
+              f"({n_p} atoms built in {rec['a']['build_s']:.3f} s), "
+              f"bootstrap to serving in "
+              + ", ".join(f"{k} {rd['start_s']:.3f} s "
+                          f"({n_p / rd['start_s']:.0f} atoms/s, "
+                          f"{rd['atoms']} handles)"
+                          for k, rd in ready.items())
+              + f" (both ready {both_s:.3f} s after their start); "
+              f"digests equal to P's ({conv_b['digest'][:16]}...), lag 0; "
+              f"P's transfer chunks {chunks}")
+        backends = {k: HTTPBackend(k, ready[k]["url"]) for k in procs}
+        ports = {k: int(ready[k]["url"].rsplit(":", 1)[1]) for k in procs}
+
+        # (c) the door, open-loop submits, the stream, R2 killed
+        gids = [transfer.gid_of(gp, int(h), R_PRIMARY) for h in seeds]
+        fd = FrontDoor(
+            LocalBackend("primary", prt, runtime_health(prt),
+                         role="primary"),
+            [backends["r1"], backends["r2"]],
+            RouterConfig(breaker_threshold=R_BREAK,
+                         breaker_cooldown_s=R_COOLDOWN_S,
+                         poll_interval_s=R_POLL_S)).start()
+        door = frontdoor_server(fd).start()
+        load = OpenLoop(door.url, [replica_payload(g) for g in gids],
+                        c).start()
+        lags = LagSampler(backends).start()
+        batches = []
+        for b in range(R_BATCHES):
+            t0 = time.perf_counter()
+            hs = gp.bulk_import(values=list(range(c.batch_links)),
+                                target_lists=c5_links(r, e0, c.batch_links,
+                                                      c.entities))
+            gid = transfer.global_id(R_PRIMARY, int(hs[-1]))
+            live = [k for k in procs if k not in down]
+            waited = wait_until(lambda: all(procs[k].has(gid) for k in live),
+                                timeout=c.wait_s, poll=0.05)
+            s.expect(waited is not None,
+                     f"replica (c): batch {b} never reached {live}")
+            secs = time.perf_counter() - t0
+            batches.append({"s": secs, "atoms_per_s": c.batch_links / secs,
+                            "replicas": live})
+            if b == 0:
+                killed["launches"] = procs["r2"].ask("launches",
+                                                     "R_LAUNCHES", c.wait_s)
+                # killed just after a health sweep: the submits, not the
+                # poll, find the death (the breaker's path), and the
+                # poll's unhealthy mark comes after it
+                s.expect(wait_until(lambda: fd.clock() - fd._health["r2"][4]
+                                    < 0.1 * R_POLL_S, timeout=c.wait_s,
+                                    poll=0.002) is not None,
+                         "replica (c): the door's health poll stopped")
+                t_kill = time.perf_counter()
+                killed["rc"] = procs["r2"].kill()
+                down.add("r2")
+                opened = wait_until(lambda: fd.breaker.state_of("r2") == OPEN,
+                                    timeout=c.wait_s, poll=0.001)
+                s.expect(opened is not None,
+                         "replica (c): R2's breaker never opened")
+                killed["to_open_s"] = time.perf_counter() - t_kill
+        # (d) R2 back on its store, by resume
+        t_restart = time.perf_counter()
+        procs["r2"] = ReplicaProc(s, c, "r2", P.interface.addr,
+                                  port=ports["r2"])
+        back = procs["r2"].expect("R_READY", c.wait_s)
+        s.expect(back["mode"] == "resume",
+                 f"replica (d): R2 came back by {back['mode']}")
+        chunks_after = gp.metrics.counters.get("peer.transfer_chunks", 0)
+        s.expect(chunks_after == chunks,
+                 f"replica (d): P sent {chunks_after - chunks} transfer "
+                 f"chunks for R2's rejoin")
+        readmit = wait_until(
+            lambda: fd.metrics.counters.get("router.readmissions", 0) >= 1,
+            timeout=c.wait_s)
+        s.expect(readmit is not None, "replica (d): the door never "
+                 "re-admitted R2")
+        readmit_s = time.perf_counter() - t_restart
+        s.expect(wait_until(lambda: procs["r2"].has(gid),
+                            timeout=c.wait_s, poll=0.05) is not None,
+                 "replica (d): the last batch never reached R2")
+        served = load.finish(c.wait_s)
+        lag = lags.finish()
+        s.expect(not served["alive"] and served["errors_in_deadline"] == 0,
+                 f"replica (c): caller-visible errors through the door: "
+                 f"{served}")
+        counters = {k: v for k, v in fd.metrics.counters.items()
+                    if k.startswith("router.")}
+        rec["c"] = {"batches": batches, "served": served, "lag": lag,
+                    "kill": killed, "counters": counters}
+        tail = gp.bulk_import(values=list(range(c.tail)),
+                              target_lists=c5_links(r, e0, c.tail,
+                                                    c.entities))
+        conv_d = replica_converge(s, c, P, gp, procs, "(d)")
+        rec["d"] = {"resume_s": back["start_s"], "open_s": back["open_s"],
+                    "pack_s": back["pack_s"], "readmit_s": readmit_s,
+                    "converge": conv_d, "tail": len(tail)}
+        s.log(f"replica (c): {R_BATCHES} c5 batches of {c.batch_links} "
+              f"links, s {[round(x['s'], 3) for x in batches]} "
+              f"(replicated atoms/s a batch "
+              f"{[round(x['atoms_per_s']) for x in batches]}); R2 SIGKILLed "
+              f"after the first (rc {killed['rc']}), its breaker open "
+              f"{killed['to_open_s']:.3f} s later; {served['sent']} submits "
+              f"through the door at {c.rate} /s in {served['wall_s']:.1f} s "
+              f"({served['answered_per_s']:.1f} answered/s), p50 "
+              f"{served['p50_ms']:.1f} ms, p99 {served['p99_ms']:.1f} ms, max "
+              f"{served['max_ms']:.1f} ms, routed {served['routed']}, "
+              f"errors {served['errors_in_deadline']} inside the "
+              f"{R_DEADLINE_S} s deadline and {served['errors_late']} past "
+              f"it; advertised lag from /healthz p50 {lag['p50']}, max "
+              f"{lag['max']} ({lag['n']} samples); door counters "
+              f"{counters}")
+        s.log(f"replica (d): R2 back on its store by resume (reopen "
+              f"{back['open_s']:.3f} s, pack {back['pack_s']:.3f} s, resume "
+              f"and serve {back['start_s']:.3f} s), P's transfer chunks "
+              f"unchanged "
+              f"({chunks}); re-admitted by the door {readmit_s:.3f} s after "
+              f"its restart; a {c.tail}-link tail, both replicas at lag 0 "
+              f"with P's digest ({conv_d['digest'][:16]}...)")
+
+        # (e) answers, the remote query, the launches
+        t0 = time.perf_counter()
+        via = {}
+        for ident in ("r1", "r2"):
+            via[ident] = replica_answers(s, c, gp, gids, seeds,
+                                         backends[ident], f"on {ident}")
+        via["door"] = replica_answers(s, c, gp, gids, seeds,
+                                      HTTPBackend("door", door.url), "door")
+        answers_s = time.perf_counter() - t0
+        cond = q.and_(q.type_("int"), q.lt(R_QUERY_BELOW))
+        want = sorted(int(h) for h in q.find_all(gp, cond))
+        got = procs["r1"].ask("query", "R_QUERY", c.wait_s)
+        s.expect(got["rows"] == want and len(want) > 0,
+                 f"replica (e): the remote query gave {len(got['rows'])} "
+                 f"rows, P's own find_all {len(want)}")
+        n = {k: rp.ask("launches", "R_LAUNCHES", c.wait_s)
+             for k, rp in procs.items()}
+        n["r2 before the kill"] = killed["launches"]
+        total = {k: sum(v[k] for v in n.values()) for k in n["r1"]}
+        if c.kernels:
+            s.expect(total["fused_hop"] > 0 and total["gather_or"] > 0,
+                     f"replica (e): K2 and K1 must launch in the replica "
+                     f"processes: {n}")
+        rcs = {k: rp.stop(c.wait_s) for k, rp in procs.items()}
+        s.expect(all(v == 0 for v in rcs.values()),
+                 f"replica (e): replica exit codes {rcs}")
+        procs.clear()
+        rec["e"] = {"answers_s": answers_s, "routed": {
+            k: sorted(v) for k, v in via.items()},
+            "query_rows": len(want), "query_s": got["s"],
+            "launches": n, "total_launches": total,
+            "exit_codes": dict(rcs, r2_killed=killed["rc"])}
+        s.log(f"replica (e): {len(gids)} seeds pinned to R1, to R2 and "
+              f"through the door ({answers_s:.3f} s, the door's answers "
+              f"from {sorted(via['door'])}): every count equal to P's host "
+              f"BFS, every match gid inside its reach; R1's remote query "
+              f"against P {len(want)} rows in {-(-len(want) // R_QUERY_PAGE)}"
+              f" pages {got['s']:.3f} s == P's find_all; launches in the "
+              f"replica processes {n} (sum {total}); exit codes "
+              f"{rec['e']['exit_codes']}")
+    finally:
+        if load is not None and not load.stop_ev.is_set():
+            load.finish(c.wait_s)
+        if lags is not None:
+            lags.finish()
+        if door is not None:
+            door.stop()
+        if fd is not None:
+            fd.stop()
+        for rp in procs.values():
+            if rp.proc.poll() is None:
+                rp.proc.kill()
+                rp.proc.wait(timeout=60)
+        prt.close()
+        P.stop()
+        gp.close()
+        shutil.rmtree(c.store, ignore_errors=True)
+    rec["launches"] = rec["e"]["total_launches"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    s.log(f"replica: phase 24 in {rec['phase_s']:.1f} s; record "
+          + json.dumps(rec, default=str))
+    return rec
+
+
+#: phases 23 and 24 each run in a child process of their own, both started
+#: beside phase 19, then 22 (whose own children they join: all are host-
+#: and disk-bound); a child imports only the port and reports on one
+#: tagged line (phase 24 after phase 23 in one child ran the whole smoke
+#: to 1,271 s of the 1,200 allowed, PERF.md §6)
 P_CHILD = """
 import json, sys
 sys.modules["jax"] = None
@@ -8586,43 +9251,62 @@ sys.path.insert(0, {root!r})
 import torch
 import chip_smoke
 s = chip_smoke.Smoke(torch, {card!r})
-rec = chip_smoke.phase_peer(s)
-print("P_PEER " + json.dumps({{"launches": rec["launches"],
-                              "phase_s": rec["phase_s"]}}), flush=True)
+rec = chip_smoke.{phase}(s)
+print("P_CHILD " + json.dumps({{"launches": rec["launches"],
+                               "phase_s": rec["phase_s"]}}), flush=True)
 """
 P_CHILD_TIMEOUT_S = 600
+#: each child's phase function (phase 24's launches are its replica
+#: processes')
+P_PHASES = {"peer": "phase_peer", "replica": "phase_replica"}
 
 
-def start_peer_child(s: Smoke):
-    """Start phase 23's child; :func:`finish_peer_child` collects it."""
-    code = P_CHILD.format(root=str(ROOT), card=s.card)
+def start_peer_child(s: Smoke, which: str = "peer"):
+    """Start phase 23's (``"peer"``) or phase 24's (``"replica"``) child;
+    :func:`finish_peer_child` collects it."""
+    code = P_CHILD.format(root=str(ROOT), card=s.card,
+                          phase=P_PHASES[which])
     return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
 
-def finish_peer_child(s: Smoke, proc) -> dict:
-    """Phase 23's child joined: its log lines printed here, every check of
-    it passed (its exit code), K1 and K2 launched in it."""
+def finish_peer_child(s: Smoke, proc, which: str = "peer") -> dict:
+    """A phase child joined: its log lines printed here, every check of it
+    passed (its exit code), K1 and K2 launched in it (phase 24: in its
+    replica processes)."""
     try:
         stdout, stderr = proc.communicate(timeout=P_CHILD_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         stdout, stderr = proc.communicate()
-        stderr += "\nthe peer child hung"
+        stderr += f"\nthe {which} child hung"
     lines = stdout.splitlines()
     for ln in lines:
-        if not ln.startswith("P_PEER "):
+        if not ln.startswith("P_CHILD "):
             print(ln, flush=True)
-    out = [ln for ln in lines if ln.startswith("P_PEER ")]
+    out = [ln for ln in lines if ln.startswith("P_CHILD ")]
     s.expect(proc.returncode == 0 and len(out) == 1,
-             f"peer: phase 23's child failed, rc {proc.returncode}:\n"
+             f"{which}: the phase's child failed, rc {proc.returncode}:\n"
              f"{stderr[-4000:]}")
-    rec = json.loads(out[0][len("P_PEER "):])
+    rec = json.loads(out[0][len("P_CHILD "):])
     n = rec["launches"]
     s.expect(n["fused_hop"] > 0 and n["gather_or"] > 0,
-             f"peer: K2 and K1 must both launch in phase 23: {n}")
+             f"{which}: K2 and K1 must both launch in the phase: {n}")
     return rec
+
+
+def finish_children(s: Smoke, children: dict) -> dict:
+    """Every phase child joined (each bounded by P_CHILD_TIMEOUT_S), the
+    failures of all reported together."""
+    out, errors = {}, []
+    for which, proc in children.items():
+        try:
+            out[which] = finish_peer_child(s, proc, which)
+        except AssertionError as e:
+            errors.append(str(e))
+    s.expect(not errors, "\n".join(errors))
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -8669,7 +9353,6 @@ def main(argv: list[str]) -> int:
         join_rec = timed("join", phase_join, s, snap, info)
         timed("values", phase_values, s, snap, info, join_rec)
         timed("packed", phase_packed, s, snap, truth)
-        timed("persist", phase_persist, s, snap, truth)
         s.c5_memory = timed("ingest", phase_ingest, s)
         timed("query", phase_query, s, records)
         shutil.rmtree(BENCH_RECORDS, ignore_errors=True)
@@ -8678,17 +9361,23 @@ def main(argv: list[str]) -> int:
         timed("planned", phase_planned, s)
         timed("sharded", phase_sharded, s, snap, truth)
         timed("profiles", phase_profiles, s)
-        peer = start_peer_child(s)
+        # phases 23 and 24's children beside phases 19 and 22: all host-
+        # and disk-bound (their figures are taken beside each other),
+        # while the card's timed phases run alone before them
+        children = {w: start_peer_child(s, w) for w in P_PHASES}
         try:
+            timed("persist", phase_persist, s, snap, truth)
             timed("durable", phase_durable, s)
         except BaseException:
-            peer.kill()
-            peer.communicate()
+            for proc in children.values():
+                proc.kill()
+                proc.communicate()
             raise
-        # "peer": the child's wall time past phase 22's, beside which it
-        # ran; "peer_child": its own
-        rec = timed("peer", finish_peer_child, s, peer)
-        seconds["peer_child"] = round(rec["phase_s"], 1)
+        # "peer": the children's wall time past phase 22's; "peer_child"
+        # and "replica": phases 23 and 24's own
+        rec = timed("peer", finish_children, s, children)
+        seconds["peer_child"] = round(rec["peer"]["phase_s"], 1)
+        seconds["replica"] = round(rec["replica"]["phase_s"], 1)
     s.log("phase seconds " + json.dumps(seconds))
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

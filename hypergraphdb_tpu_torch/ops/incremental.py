@@ -536,10 +536,18 @@ class SnapshotManager:
         return self._mt.needs_recompact
 
     # -- event intake -----------------------------------------------------
+    def _packed_locked(self, h: int, base=None) -> bool:
+        """Whether ``base`` (the current one by default) holds atom ``h``.
+        A handle under the high-water mark need not be packed: its
+        transaction took the handle before the extraction and committed
+        after it."""
+        tp = (base or self.base).type_of
+        return h < len(tp) and int(tp[h]) >= 0
+
     def _on_added(self, g, event) -> None:
         with self._lock:
             h = int(event.handle)
-            if h < self._pack_highwater:
+            if h < self._pack_highwater and self._packed_locked(h):
                 # an echo of a batch the last compaction already packed
                 return
             self._new_atoms.append(h)
@@ -607,7 +615,13 @@ class SnapshotManager:
                 self._uploads_before[1] + old.tail_uploads)
             self.base = base
             self._pack_highwater = hw
-            self._new_atoms = [h for h in self._new_atoms if h >= hw]
+            # an atom under the high-water mark that the new base lacks
+            # and the store holds committed after the extraction: it stays
+            # in the memtable (one the store lacks was removed)
+            self._new_atoms = [
+                h for h in self._new_atoms if h >= hw
+                or (not self._packed_locked(h, base)
+                    and g.store.get_link(h) is not None)]
             for h in self._new_atoms:
                 self._buffer_edges_locked(g, h)
             for h in old.dead() - ext["dead_at_extract"]:

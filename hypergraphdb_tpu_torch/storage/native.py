@@ -14,6 +14,13 @@ single-writer: ``startup`` takes an exclusive ``flock`` on
 :data:`LOCK_FILE` in the directory, and a second open of the directory,
 in this process or another, raises until the first shuts down. The JAX
 package takes no such lock.
+
+Within the process, one engine call runs at a time on a store
+(:class:`_Serialized`): the engine takes no lock of its own, and ctypes
+releases the interpreter lock for each call, so a reader outside the
+commit lock (a replica's op-log writer asking the atom map for a gid)
+could otherwise run inside a writer's call and read a table mid-update.
+The JAX package's binding has no such lock.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -156,13 +164,33 @@ class NativeIndex(HGBidirectionalIndex):
         return _take_key_list(L, out, total.value, count.value)
 
 
+class _Serialized:
+    """The engine's entry points behind one lock: each call holds it for
+    its whole run in the engine."""
+
+    def __init__(self, L: ctypes.CDLL):
+        self._L = L
+        self._lock = threading.RLock()
+
+    def __getattr__(self, name: str):
+        fn = getattr(self._L, name)
+        lock = self._lock
+
+        def call(*args):
+            with lock:
+                return fn(*args)
+
+        self.__dict__[name] = call
+        return call
+
+
 class NativeStorage(StorageBackend):
     """Durable storage backend over the C++ engine. Single-writer, as the
     SPI requires; see ``storage/api.py``."""
 
     def __init__(self, location: str):
         self.location = location
-        self._L = lib()
+        self._L = _Serialized(lib())
         self._h = None
         self._lock_fd: Optional[int] = None
 

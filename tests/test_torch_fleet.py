@@ -2,15 +2,21 @@
 (``hypergraphdb_tpu_torch.obs.fleet``, ``submit(..., explain=True)``)
 against the reference's.
 
-The cases of ``tests/test_fleet.py`` that need no ``replica/`` or
-``peer/`` (which the port does not have yet; the rest are listed in
-ROADMAP queue 1, item 10) run in both packages: per-node metric merges,
-worst-of health, an unreachable node, span trees joined across two
-tracers, the trace store's dedupe and bound, last-good totals, real HTTP
-scrapes of a ``TelemetryServer`` on ``127.0.0.1``, a node's incident
-seen through the collector, and the EXPLAIN cases over the fake executor.
-The merged views and the EXPLAIN records are equal between the packages
-(trace ids aside, which are random). Then EXPLAIN on both packages' real
+The cases of ``tests/test_fleet.py`` run in both packages: per-node
+metric merges, worst-of health, an unreachable node, span trees joined
+across two tracers, the trace store's dedupe and bound, last-good
+totals, real HTTP scrapes of a ``TelemetryServer`` on ``127.0.0.1`` (and
+of a replica's submit server, which answers ``/metrics`` with 404), a
+node's incident seen through the collector, the EXPLAIN cases over the
+fake executor, the door's fleet routes (``/fleet/metrics``,
+``/fleet/healthz``, ``/fleet/traces``, ``/fleet/slo``, their 404 without
+a collector), EXPLAIN through ``submit_payload`` and over HTTP, and the
+replicated tier end to end (a primary and a replica with their own
+tracers behind a front door, a cross-process trace joined from both
+peers' halves, the router's counters and a replica-side incident through
+the door's port). The merged views, the door's views and the EXPLAIN
+records are equal between the packages (trace ids aside, which are
+random). Then EXPLAIN on both packages' real
 runtimes over one small graph — a record for each lane (bfs, pattern,
 range, join) and for the planned host shape — and the port's own rule:
 a record that fails to assemble is counted, never swallowed.
@@ -18,10 +24,10 @@ Tolerance: exact equality."""
 
 from __future__ import annotations
 
-import threading
+import json
+import time
 import urllib.error
 import urllib.request
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from types import SimpleNamespace
 from types import SimpleNamespace as NS
 
@@ -37,7 +43,7 @@ PORT = PKGS[1]
 def ns(pkg) -> SimpleNamespace:
     return SimpleNamespace(
         name=pkg, obs=mod(pkg, "obs"), fleet=mod(pkg, "obs.fleet"),
-        P=package(pkg))
+        P=package(pkg), replica=mod(pkg, "replica"))
 
 
 @pytest.fixture(params=PKGS)
@@ -120,6 +126,8 @@ def test_unreachable_node_counts_unhealthy_not_fatal(O):
 def joined_pair(O):
     src_a, reg_a, ta, _ = make_node(O, "a")
     src_b, reg_b, tb, _ = make_node(O, "b", role="replica")
+    reg_a.counter("serve.submitted").inc(1)
+    reg_b.counter("serve.submitted").inc(1)
     tr = ta.start_trace("peer.push")
     root = tr.start_span("push")
     tr.marks["root"] = root
@@ -182,32 +190,22 @@ def test_failed_scrape_keeps_last_good_metrics_totals(O):
     assert col.metric_total("serve_completed_total") == 40.0
 
 
-class _NotFound(BaseHTTPRequestHandler):
-    def do_GET(self):  # noqa: N802 - BaseHTTPRequestHandler API
-        body = b'{"error": "no such route"}'
-        self.send_response(404)
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+class _NullDoor:
+    """A submit function the fleet routes never call."""
 
-    def log_message(self, *a):
-        pass
+    def __call__(self, payload):  # pragma: no cover - not exercised
+        raise ValueError("no backends in this test")
 
 
 def test_http_source_rejects_non_200_telemetry_bodies(O):
-    """A node whose ``/metrics`` answers 404 fails the scrape (the
-    reference's case points at a replica's submit server; any server
-    answering 404 shows the same)."""
-    srv = ThreadingHTTPServer(("127.0.0.1", 0), _NotFound)
-    t = threading.Thread(target=srv.serve_forever, daemon=True)
-    t.start()
+    """A node whose ``/metrics`` errors fails the scrape: a replica's
+    submit server answers ``/metrics`` with a 404 JSON body, which kept as
+    metrics text would corrupt the merged page."""
+    srv = O.replica.SubmitServer(_NullDoor()).start()
     try:
-        scrape = O.fleet.HTTPNodeSource(
-            "bad", f"http://127.0.0.1:{srv.server_address[1]}").scrape()
+        scrape = O.fleet.HTTPNodeSource("bad", srv.url).scrape()
     finally:
-        srv.shutdown()
-        t.join(timeout=5)
-        srv.server_close()
+        srv.stop()
     assert scrape.ok is False and scrape.metrics_text == ""
     assert "404" in scrape.error
 
@@ -466,3 +464,289 @@ def test_explain_each_lane_and_the_host_shape_equal_the_reference():
                     "plan": host["plan"]}
     assert host["plan"]["shape"] == "host"
     assert got[-1] == 0
+
+
+# ----------------------------------------------------- the door's HTTP port
+
+
+def get(url):
+    """(status, body): urllib raises on >= 400, both are wanted."""
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+@pytest.fixture
+def door(O):
+    src_a, src_b, tr, _ = joined_pair(O)
+    col = O.fleet.FleetCollector([src_a, src_b], clock=FakeClock(),
+                                 flight=O.obs.FlightRecorder(),
+                                 poll_interval_s=0)
+    col.slo = O.obs.SLOMonitor(clock=col.clock, flight=col.flight)
+    col.slo.add(O.obs.Objective("availability", 0.999))
+    col.poll()
+    srv = O.replica.SubmitServer(_NullDoor(), fleet=col).start()
+    try:
+        yield srv, col, tr
+    finally:
+        srv.stop()
+
+
+def door_views(srv, tr) -> dict:
+    """What the door's fleet routes answer (trace ids, which are random,
+    replaced by their role)."""
+    out = {}
+    for route in ("/fleet/healthz", "/fleet/slo", "/fleet/traces/12345",
+                  "/fleet/traces/not-an-id", "/fleet/nope"):
+        status, body = get(srv.url + route)
+        out[route] = (status, json.loads(body))
+    status, body = get(srv.url + f"/fleet/traces/{tr.trace_id}")
+    joined = json.loads(body)
+    out["joined"] = (status, joined["n_processes"], joined["processes"],
+                     sorted((sp["node"], sp["name"])
+                            for sp in joined["spans"]))
+    status, body = get(srv.url + "/fleet/metrics")
+    out["metrics"] = (status, sorted(
+        ln for ln in body.splitlines() if not ln.startswith("#")))
+    return out
+
+
+def test_door_serves_fleet_metrics_and_healthz(O, door):
+    srv, col, tr = door
+    status, body = get(srv.url + "/fleet/metrics")
+    assert status == 200
+    assert 'node="a"' in body and 'node="b"' in body
+    status, body = get(srv.url + "/fleet/healthz")
+    assert status == 200
+    payload = json.loads(body)
+    assert payload["nodes_total"] == 2 and payload["role"] == "fleet"
+
+
+def test_door_serves_one_joined_fleet_trace(O, door):
+    srv, col, tr = door
+    status, body = get(srv.url + f"/fleet/traces/{tr.trace_id}")
+    assert status == 200
+    joined = json.loads(body)
+    assert joined["trace_id"] == tr.trace_id
+    assert joined["n_processes"] == 2
+    assert {sp["node"] for sp in joined["spans"]} == {"a", "b"}
+    status, body = get(srv.url + "/fleet/traces")
+    assert status == 200
+    assert any(t["trace_id"] == tr.trace_id
+               for t in json.loads(body)["traces"])
+    assert get(srv.url + "/fleet/traces/12345")[0] == 404
+    assert get(srv.url + "/fleet/traces/not-an-id")[0] == 400
+
+
+def test_door_serves_slo_snapshot(O, door):
+    srv, col, tr = door
+    status, body = get(srv.url + "/fleet/slo")
+    assert status == 200
+    snap = json.loads(body)
+    assert "availability" in snap
+    assert snap["availability"]["target"] == 0.999
+
+
+def test_door_without_fleet_404s_fleet_routes(O):
+    srv = O.replica.SubmitServer(_NullDoor()).start()
+    try:
+        assert get(srv.url + "/fleet/metrics")[0] == 404
+    finally:
+        srv.stop()
+
+
+def test_door_views_equal_the_reference():
+    views = []
+    for pkg in PKGS:
+        O = ns(pkg)
+        gen = door.__wrapped__(O)
+        srv, col, tr = next(gen)
+        try:
+            views.append(door_views(srv, tr))
+        finally:
+            gen.close()
+    assert views[1] == views[0]
+
+
+def plain_traced_runtime(O):
+    """A threaded runtime over the fake executor, tracing on."""
+    tracer = O.obs.Tracer(clock=FakeClock()).enable()
+    kw = {"device": "cpu"} if O.name == PORT else {}
+    cfg = O.P.serve.ServeConfig(buckets=(4,), max_linger_s=0.0,
+                                tracer=tracer, **kw)
+    return O.P.serve.ServeRuntime(graph=None, config=cfg,
+                                  executor=FakeExecutor(O.P))
+
+
+def explain_via_payload(O) -> tuple:
+    rt = plain_traced_runtime(O)
+    try:
+        out = O.replica.submit_payload(
+            rt, {"kind": "bfs", "seed": 1, "explain": True}, 10.0,
+            node_id="replica-1")
+        out2 = O.replica.submit_payload(rt, {"kind": "bfs", "seed": 1},
+                                        10.0)
+    finally:
+        rt.close()
+    return out, out2
+
+
+def test_explain_rides_the_submit_payload_schema(O):
+    out, out2 = explain_via_payload(O)
+    assert out["explain"]["lane"] == "bfs/device"
+    assert out["explain"]["node"] == "replica-1"
+    assert out["explain"]["trace_id"] > 0
+    assert "explain" not in out2
+
+
+def test_explain_over_http_submit(O):
+    rt = plain_traced_runtime(O)
+    srv = O.replica.SubmitServer(
+        lambda p: O.replica.submit_payload(rt, p, 10.0, node_id="n1")
+    ).start()
+    try:
+        body = json.dumps({"kind": "bfs", "seed": 2, "explain": True})
+        req = urllib.request.Request(
+            srv.url + "/submit", data=body.encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            out = json.loads(r.read().decode())
+        assert out["explain"]["node"] == "n1"
+        assert out["explain"]["lane"] == "bfs/device"
+        assert out["explain"]["occupancy"] is not None
+    finally:
+        srv.stop()
+        rt.close()
+
+
+def test_explain_payloads_equal_the_reference():
+    outs = []
+    for pkg in PKGS:
+        out, out2 = explain_via_payload(ns(pkg))
+        out["explain"].pop("trace_id")
+        outs.append((out, out2))
+    assert outs[1] == outs[0]
+
+
+# ------------------------------------- the replicated tier, end to end
+
+
+def wait_for(cond, timeout=15.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def tier_view(O) -> dict:
+    """The reference's end-to-end case on ``O``'s package, with its own
+    assertions: a primary and a replica with their own tracers, a front
+    door with the fleet collector, and through the door's HTTP port a
+    merged metrics page, a cross-process trace joined from both peers'
+    halves, and a replica-side flight incident in the fleet health view.
+    Returns what it read (trace ids aside)."""
+    hg = mod(O.name, "core.graph")
+    peer = mod(O.name, "peer")
+    R = O.replica
+    kw = {"device": "cpu"} if O.name == PORT else {}
+    serve = O.P.serve
+    net = peer.LoopbackNetwork()
+    gp = hg.HyperGraph()
+    pp = peer.HyperGraphPeer.loopback(gp, net, identity="primary")
+    pp.replication.debounce_s = 0.005
+    pp.tracer = O.obs.Tracer(max_finished=256).enable()
+    pp.start()
+    hs = [int(gp.add(f"n{i}")) for i in range(4)]
+    gr = hg.HyperGraph()
+    pr = peer.HyperGraphPeer.loopback(gr, net, identity="replica-1")
+    pr.replication.debounce_s = 0.005
+    pr.tracer = O.obs.Tracer(max_finished=256).enable()
+    node = R.ReplicaNode(gr, pr, R.ReplicaConfig(
+        primary="primary",
+        serve=serve.ServeConfig(max_linger_s=0.001, prewarm_aot=False,
+                                tracer=pr.tracer, **kw)))
+    prt = fd = fsrv = col = None
+    out = {}
+    try:
+        node.start()
+        assert node.wait_converged(timeout=30)
+        gp.add("traced")
+        assert pp.replication.flush()
+        prt = serve.ServeRuntime(gp, serve.ServeConfig(
+            max_linger_s=0.001, prewarm_aot=False, **kw))
+        health = O.obs.runtime_health(prt)
+        fd = R.FrontDoor(
+            R.LocalBackend("primary", prt, health, role="primary"),
+            [R.LocalBackend("replica-1", node.runtime,
+                            node.health_probe())],
+            R.RouterConfig(poll_interval_s=0))
+        replica_flight = O.obs.FlightRecorder()
+        replica_src = node.fleet_source()
+        replica_src.flight = replica_flight
+        col = O.fleet.FleetCollector(
+            [O.fleet.LocalNodeSource("primary",
+                                     registries=[prt.stats.registry],
+                                     tracer=pp.tracer, health=health,
+                                     role="primary"),
+             replica_src, fd.fleet_source()],
+            poll_interval_s=0, flight=O.obs.FlightRecorder())
+        fsrv = R.frontdoor_server(fd, fleet=col).start()
+
+        def joined():
+            col.poll()
+            return [t for t in col.fleet_traces() if t["n_processes"] >= 2]
+
+        assert wait_for(lambda: bool(joined())), col.fleet_traces()
+        tid = joined()[0]["trace_id"]
+        status, body = get(fsrv.url + f"/fleet/traces/{tid}")
+        assert status == 200
+        trace = json.loads(body)
+        assert trace["n_processes"] >= 2
+        assert {"primary", "replica-1"} <= set(trace["processes"])
+        out["trace"] = (trace["processes"], trace["name"] if "name"
+                        in trace else None)
+        res = fd.submit({"kind": "bfs", "seed": hs[0], "max_hops": 1,
+                         "deadline_s": 10.0})
+        assert res["routed_to"] in ("primary", "replica-1")
+        out["answer"] = (res["count"], res["routed_to"])
+        col.poll()
+        status, body = get(fsrv.url + "/fleet/metrics")
+        assert status == 200
+        assert 'node="primary"' in body
+        assert 'node="replica-1"' in body
+        assert 'router_submitted_total{node="router"} 1' in body
+        out["router_lines"] = sorted(
+            ln for ln in body.splitlines() if ln.startswith("router_"))
+        replica_flight.incident("breaker_trip", key="bfs_2")
+        col.poll()
+        status, body = get(fsrv.url + "/fleet/healthz")
+        payload = json.loads(body)
+        assert payload["incidents"]["replica-1"]["reason"] == \
+            "breaker_trip"
+        out["incident"] = payload["incidents"]["replica-1"]["reason"]
+        out["nodes"] = sorted(payload["nodes"])
+    finally:
+        if fsrv is not None:
+            fsrv.stop()
+        if col is not None:
+            col.stop()
+        if prt is not None:
+            prt.close()
+        node.stop()
+        pp.stop()
+        gp.close()
+        gr.close()
+    return out
+
+
+def test_replicated_tier_fleet_view_end_to_end(O):
+    tier_view(O)
+
+
+def test_replicated_tier_views_equal_the_reference():
+    views = [tier_view(ns(pkg)) for pkg in PKGS]
+    assert views[1] == views[0]

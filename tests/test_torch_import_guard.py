@@ -238,3 +238,64 @@ def test_peers_replicate_with_jax_and_reference_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "hypergraphdb_tpu_torch.replica",
+    "hypergraphdb_tpu_torch.replica.node",
+    "hypergraphdb_tpu_torch.replica.router",
+    "hypergraphdb_tpu_torch.replica.httpd",
+])
+def test_guard_covers_the_replica_modules(module):
+    """Every module of the replicated serving tier is among the modules
+    the guard imports with the reference blocked."""
+    assert module in _module_names()
+
+
+def test_replica_tier_serves_with_jax_and_reference_blocked():
+    """A replica node bootstraps from a primary, serves behind a front
+    door over HTTP, and answers a gid-addressed BFS where neither ``jax``
+    nor the reference imports."""
+    script = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from hypergraphdb_tpu_torch.core.graph import HyperGraph\n"
+        "from hypergraphdb_tpu_torch.obs.http import runtime_health\n"
+        "from hypergraphdb_tpu_torch.peer import HyperGraphPeer, "
+        "LoopbackNetwork, transfer\n"
+        "from hypergraphdb_tpu_torch.replica import (FrontDoor, "
+        "HTTPBackend, LocalBackend, ReplicaConfig, ReplicaNode, "
+        "RouterConfig, frontdoor_server, node_server)\n"
+        "from hypergraphdb_tpu_torch.serve import ServeConfig, "
+        "ServeRuntime\n"
+        "cfg = ServeConfig(device='cpu', max_linger_s=0.001, "
+        "prewarm_aot=False)\n"
+        "net = LoopbackNetwork()\n"
+        "gp, gr = HyperGraph(), HyperGraph()\n"
+        "pp = HyperGraphPeer.loopback(gp, net, 'primary')\n"
+        "pp.start()\n"
+        "x, y = gp.add('x'), gp.add('y')\n"
+        "gp.add_link((x, y), value=1)\n"
+        "node = ReplicaNode(gr, HyperGraphPeer.loopback(gr, net, 'r1'), "
+        "ReplicaConfig(primary='primary', serve=cfg)).start()\n"
+        "assert node.bootstrap_mode == 'transfer'\n"
+        "assert node.wait_converged(timeout=30)\n"
+        "srv = node_server(node).start()\n"
+        "prt = ServeRuntime(gp, cfg)\n"
+        "fd = FrontDoor(LocalBackend('primary', prt, runtime_health(prt), "
+        "role='primary'), [HTTPBackend('r1', srv.url)], "
+        "RouterConfig(poll_interval_s=0)).start()\n"
+        "door = frontdoor_server(fd).start()\n"
+        "out = HTTPBackend('door', door.url).submit({'kind': 'bfs', "
+        "'seed_gid': transfer.gid_of(gp, int(x), 'primary'), "
+        "'max_hops': 1, 'gids': True}, 30)\n"
+        "assert out['routed_to'] == 'r1' and out['count'] == 2, out\n"
+        "door.stop(); fd.stop(); srv.stop(); prt.close(); node.stop()\n"
+        "pp.stop(); gp.close(); gr.close()\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -6,8 +6,9 @@ graph and seeds, the port's single-device runtime and the host
 tombstones mid-ingest and truncated prefixes. Then the compaction case
 (against a host BFS), the executor pick (forced and AUTO), the prewarm,
 the health payload's mesh and partition map (the map against the
-reference's ``PartitionMap``), the EXPLAIN placement and the perf
-sentinel's shard skew.
+reference's ``PartitionMap``), the EXPLAIN placement, the perf
+sentinel's shard skew, and the front door's placement by the shard
+ownership a health payload advertises (both packages' doors, equal).
 
 The port meshes the CPU eight times (``make_mesh(["cpu"] * 8)``) and
 passes the executor to ``ServeRuntime``. Every runtime is manual (no
@@ -428,3 +429,57 @@ def test_sharded_view_refreshes_across_compaction():
     finally:
         rt.close()
         g.close()
+
+
+class _ShardPod:
+    """A backend advertising a partition map's capacity in its health
+    payload (a multi-chip pod's ``mesh`` section)."""
+
+    def __init__(self, bid, capacity, lag):
+        self.id = bid
+        self.capacity = capacity
+        self.lag = lag
+        self.served = 0
+
+    def submit(self, payload, timeout):
+        self.served += 1
+        return {"kind": payload["kind"], "count": 0, "matches": [],
+                "truncated": False, "epoch": 0, "served_by": "device"}
+
+    def health(self):
+        return True, {
+            "replication_lag": self.lag, "queue_depth": 0,
+            "breaker_worst": 0,
+            "mesh": {"partition_map": {"capacity": self.capacity}},
+        }
+
+
+def shard_placement(pkg) -> dict:
+    """The reference's case on ``pkg``'s front door, with its assertions:
+    a backend whose advertised partition map covers the request's ids
+    wins placement over a fresher one that does not."""
+    router = mod(pkg, "replica.router")
+    small = _ShardPod("small-pod", capacity=100, lag=0)
+    big = _ShardPod("big-pod", capacity=10_000, lag=5)
+    primary = _ShardPod("primary", capacity=None, lag=0)
+    door = router.FrontDoor(primary, [small, big],
+                            router.RouterConfig(poll_interval_s=0))
+    try:
+        beyond = door.submit({"kind": "bfs", "seed": 5000, "max_hops": 1})
+        assert beyond["routed_to"] == "big-pod"
+        inside = door.submit({"kind": "bfs", "seed": 7, "max_hops": 1})
+        assert inside["routed_to"] == "small-pod"
+        _, payload = door.health_probe()()
+        assert payload["backends"]["small-pod"]["gid_capacity"] == 100
+        assert payload["backends"]["big-pod"]["gid_capacity"] == 10_000
+    finally:
+        door.stop()
+    return {"routed": [beyond["routed_to"], inside["routed_to"]],
+            "health": payload,
+            "served": [small.served, big.served, primary.served]}
+
+
+def test_front_door_places_by_shard_ownership():
+    """The door reads shard ownership from the health payload's ``mesh``
+    exactly as the reference's does."""
+    assert shard_placement(PKGS[1]) == shard_placement(PKGS[0])

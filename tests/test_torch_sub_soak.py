@@ -18,7 +18,16 @@
 3. **Two pumping threads** over such a burst, beside the dispatch thread:
    the port never raises and counts no pump error.
 
-The replica failover case of the reference waits for the replica tier.
+4. **A standing query through the front door survives its replica's
+   death** (the reference's door-resume case, on both packages): a
+   pattern subscription placed by ``FrontDoor.subscribe`` on one of two
+   replicas, a live delta through it, the owner stopped without a drain
+   while the primary adds and removes, then the door's poll re-places
+   the original payload on the survivor and answers with one chained
+   note (no loss, no duplicate, audited digests), still live after, and
+   torn down by ``unsubscribe``. Each package's record (the owner, the
+   folded match sets, the door's counters) must be equal.
+
 Tolerance: exact equality; every wait is bounded."""
 
 from __future__ import annotations
@@ -37,9 +46,10 @@ PKGS = ("hypergraphdb_tpu", "hypergraphdb_tpu_torch")
 def package(pkg) -> SimpleNamespace:
     imp = importlib.import_module
     return SimpleNamespace(
-        port=pkg == PKGS[1], graph=imp(f"{pkg}.core.graph"),
+        name=pkg, port=pkg == PKGS[1], graph=imp(f"{pkg}.core.graph"),
         config=imp(f"{pkg}.core.config"), serve=imp(f"{pkg}.serve"),
-        sub=imp(f"{pkg}.sub"), registry=imp(f"{pkg}.sub.registry"))
+        sub=imp(f"{pkg}.sub"), registry=imp(f"{pkg}.sub.registry"),
+        replica=imp(f"{pkg}.replica"), wire=imp(f"{pkg}.sub.wire"))
 
 
 def new_graph(P):
@@ -291,3 +301,193 @@ def test_two_pumping_threads_over_a_burst_never_raise():
         b.mgr.close()
         b.rt.close(drain=False)
         b.g.close()
+
+
+# ------------------------------------------------------- 4. door resume
+
+
+class SubNodeBackend:
+    """A replaceable-node backend that also speaks the subscription verbs
+    (the shape ``LocalBackend`` exposes for a primary)."""
+
+    def __init__(self, P, backend_id, get_node):
+        self.P = P
+        self.id = backend_id
+        self._get = get_node
+
+    def _mgr(self):
+        m = getattr(self._get().runtime, "subscriptions", None)
+        if m is None:
+            raise self.P.serve.Unservable(
+                f"{self.id} has no subscription tier")
+        return m
+
+    def submit(self, payload, timeout):
+        return self.P.replica.submit_payload(self._get().runtime, payload,
+                                             timeout)
+
+    def subscribe(self, payload, timeout):
+        return self.P.wire.subscribe_payload(self._mgr(), payload)
+
+    def poll(self, params, timeout):
+        return self.P.wire.poll_payload(self._mgr(), params)
+
+    def health(self):
+        return self._get().health_probe()()
+
+
+def wait_for(cond, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def door_resume(P, tmp_path) -> dict:
+    """The reference's door-resume case on package ``P``, with its own
+    assertions; returns the owner, the folded match sets at each step (as
+    gids) and the door's counters."""
+    imp = importlib.import_module
+    peer = imp(f"{P.name}.peer")
+    transfer = imp(f"{P.name}.peer.transfer")
+    c = imp(f"{P.name}.query.conditions")
+    R = P.replica
+    runtime_health = imp(f"{P.name}.obs.http").runtime_health
+    rng = random.Random(17)
+    net = peer.LoopbackNetwork()
+    rec: dict = {}
+
+    def gids(graph, handles):
+        # a replica's local handles differ between the packages (their
+        # receivers mint handles apart); gids are the shared names
+        return sorted(transfer.existing_gid(graph, h) for h in handles)
+
+    gp = new_graph(P)
+    pp = peer.HyperGraphPeer.loopback(gp, net, identity="primary")
+    pp.replication.debounce_s = 0.005
+    pp.replication.send_backoff_s = 0.001
+    pp.replication.redelivery_interval_s = 0.01
+    pp.replication.max_redeliveries = 2
+    pp.replication.max_redelivery_backlog = 500
+    pp.replication.journal_path = str(tmp_path / "primary.jsonl")
+    pp.start()
+    hubs = [int(gp.add(f"hub{i}")) for i in range(4)]
+    pool = [int(gp.add(f"p{i}")) for i in range(16)]
+    for j in range(24):
+        gp.add_link((rng.choice(hubs), rng.choice(pool)), value=100 + j)
+    doomed = int(gp.add_link((hubs[0], pool[3]), value=999))
+
+    def new_replica(ident):
+        gr = new_graph(P)
+        pr = peer.HyperGraphPeer.loopback(gr, net, identity=ident)
+        pr.replication.debounce_s = 0.005
+        node = R.ReplicaNode(gr, pr, R.ReplicaConfig(
+            primary="primary", anti_entropy_interval_s=0.1,
+            serve=serve_cfg(P)))
+        node.start()
+        return node
+
+    n1, n2 = new_replica("r1"), new_replica("r2")
+    current = {"r1": n1, "r2": n2}
+    prt = fd = None
+    try:
+        assert pp.replication.flush()
+        assert n1.wait_converged(timeout=30) and n2.wait_converged(
+            timeout=30)
+        for n in (n1, n2):
+            assert wait_for(lambda n=n: transfer.content_digest(gp)
+                            == transfer.content_digest(n.graph))
+
+        def resolve(graph, value):
+            hs = [int(h) for h in graph.find_all(c.AtomValue(value))]
+            assert len(hs) == 1
+            return hs[0]
+
+        anchor = resolve(n1.graph, "hub0")
+        assert anchor == resolve(n2.graph, "hub0")
+
+        def truth(graph):
+            return {int(h) for h in
+                    graph.find_all(c.Incident(resolve(graph, "hub0")))}
+
+        prt = P.serve.ServeRuntime(gp, serve_cfg(P))
+        fd = R.FrontDoor(
+            R.LocalBackend("primary", prt, runtime_health(prt),
+                           role="primary"),
+            [SubNodeBackend(P, "r1", lambda: current["r1"]),
+             SubNodeBackend(P, "r2", lambda: current["r2"])],
+            R.RouterConfig(breaker_threshold=2, breaker_cooldown_s=3600.0,
+                           poll_interval_s=0, health_refresh_s=3600.0),
+        ).start()
+        fd.refresh_health()
+        resp = fd.subscribe({"what": "subscribe", "kind": "pattern",
+                             "anchors": [anchor], "window": 64})
+        assert resp["what"] == "subscribed"
+        dsid = resp["id"]
+        assert dsid.startswith("dsub-")
+        owner = resp["routed_to"]
+        assert owner in ("r1", "r2")
+        folder = Folder(P, resp)
+        assert folder.matches == truth(n1.graph)
+        rec.update(owner=owner, dsid=dsid,
+                   start=gids(current[owner].graph, folder.matches))
+
+        def drained_to(want_graph):
+            folder.drain(lambda: fd.poll(
+                {"id": dsid, "timeout_s": 0.2, "max": 32}))
+            return folder.matches == truth(want_graph)
+
+        gp.add_link((hubs[0], pool[0]), value=201)
+        assert pp.replication.flush()
+        assert wait_for(lambda: drained_to(current[owner].graph))
+        rec["live"] = gids(current[owner].graph, folder.matches)
+
+        survivor = "r2" if owner == "r1" else "r1"
+        current[owner].stop(drain=False)
+        gp.add_link((hubs[0], pool[1]), value=202)
+        gp.remove(doomed)
+        surv = current[survivor]
+        assert wait_for(lambda: transfer.content_digest(gp)
+                        == transfer.content_digest(surv.graph))
+        assert wait_for(lambda: drained_to(surv.graph), timeout=30)
+        assert fd.metrics.counters.get("router.sub_failovers", 0) == 1
+        assert fd.metrics.counters.get("router.sub_chain_gaps", 0) == 0
+        with fd._lock:
+            assert fd._subs[dsid]["backend"] == survivor
+        rec["failover"] = gids(surv.graph, folder.matches)
+
+        gp.add_link((hubs[0], pool[2]), value=203)
+        assert pp.replication.flush()
+        assert wait_for(lambda: drained_to(surv.graph))
+        assert fd.metrics.counters.get("router.sub_failovers", 0) == 1
+        rec["after"] = gids(surv.graph, folder.matches)
+
+        out = fd.subscribe({"what": "unsubscribe", "id": dsid})
+        assert out == {"what": "unsubscribed", "id": dsid}
+        with pytest.raises(P.serve.Unservable):
+            fd.poll({"id": dsid, "timeout_s": 0.0})
+        # router.sub_polls counts the polls a drain took: timing-bound
+        rec["counters"] = {k: v for k, v in fd.metrics.counters.items()
+                           if k.startswith("router.sub")
+                           and k != "router.sub_polls"}
+    finally:
+        if fd is not None:
+            fd.stop()
+        if prt is not None:
+            prt.close()
+        for node in set(current.values()):
+            node.stop(drain=False)
+        pp.stop()
+        gp.close()
+    return rec
+
+
+def test_replica_kill_resumes_subscription_through_door(tmp_path):
+    recs = []
+    for pkg in PKGS:
+        d = tmp_path / pkg
+        d.mkdir()
+        recs.append(door_resume(package(pkg), d))
+    assert recs[1] == recs[0]
