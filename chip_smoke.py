@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py            # every phase (a few minutes)
-    python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py --quick    # build, kernel checks and verify
 
 Phases, each of which raises (and the script exits non-zero) on a mismatch:
 
@@ -29,6 +29,12 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
    empty row, values near INT32_MAX, M = 1..5, a tile whose flags all clear
    at the first row, Lb not a multiple of the tile. Every ragged case also
    runs from a row buffer one int off 16-byte alignment.
+   Then ``verify``: every entry of the port's verification registry
+   (``hypergraphdb_tpu_torch/verify.py``) once at its exemplar under
+   ``torch.cuda.set_sync_debug_mode("warn")``; a sync made in a function
+   off ``verify.SYNC_ALLOWLIST`` fails, each card result must equal the
+   entry's CPU route (K1's and K2's plain versions among them), and K1
+   and K2 must launch (:func:`phase_verify`, about a second).
 4. The main path at full width: the DBpedia-shaped 10M-atom snapshot (built
    once, shared by every later phase), K = 4096 seeds, 3 hops, through
    ``bfs_pull`` on the fused path (K2) and on the staged chain (K1). The two
@@ -1456,6 +1462,100 @@ def phase_k3(s: Smoke) -> None:
         s.log(f"K3 ragged {name}: Lb {len(base)}, rows "
               f"{[len(r) for r in rows]}, {int(want.sum())} matches, "
               f"first-row routes {routes}; bit-exact against plain")
+
+
+#: the verify phase's time budget on the card, seconds
+VERIFY_BUDGET_S = 15.0
+
+
+def card_vs_cpu(torch, got, want) -> bool:
+    """Every tensor of an entry's card result equal to the CPU route's,
+    in order (shapes, dtypes and values)."""
+    from hypergraphdb_tpu_torch import verify
+
+    a, b = verify.tensors_of(got), verify.tensors_of(want)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+
+def phase_verify(s: Smoke) -> dict:
+    """Every entry of the port's verification registry once at its
+    exemplar on the card, under ``torch.cuda.set_sync_debug_mode("warn")``:
+    each synchronizing call named by the innermost frame of the port on
+    the stack, and any site off ``verify.SYNC_ALLOWLIST`` fails. Each
+    entry's card result equals its CPU route's (K1's and K2's plain
+    versions among them), bit for bit; K1 and K2 launched. Exemplars are
+    built before the timed window (their uploads are set-up); one line
+    per entry gives its milliseconds (the call and a synchronize) and its
+    syncs."""
+    import warnings
+
+    from hypergraphdb_tpu_torch import verify
+    from hypergraphdb_tpu_torch.ops.gather_or import gather_or_plain
+
+    torch = s.torch
+    t_phase = time.perf_counter()
+    reg = verify.load_entries()
+    s.expect(sorted(reg.names()) == sorted(verify.PORT_OF),
+             f"verify: the registry holds {len(reg)} entries, not the "
+             f"reference's {len(verify.PORT_OF)}")
+    built = {e.name: verify.exemplar(e, s.dev) for e in reg}
+    torch.cuda.synchronize()
+    failures, rows = [], []
+    caught: list = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            caught.append((verify.sync_site(), f"{Path(filename).name}:"
+                           f"{lineno}"))
+
+    reset_launches()
+    for e in reg:
+        args, kwargs = built[e.name]
+        caught.clear()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = e.fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        sites = sorted({c[0] for c in caught})
+        off = [c for c in caught
+               if verify.site_function(c[0]) not in verify.SYNC_ALLOWLIST]
+        if off:
+            failures.append(f"verify: {e.name} syncs off the allowlist: "
+                            f"{sorted(set(off))}")
+        if not card_vs_cpu(torch, out, verify.run(e, "cpu")):
+            failures.append(f"verify: {e.name} on the card != its CPU "
+                            f"route at the exemplar")
+        rows.append({"entry": e.name, "ms": round(ms, 3),
+                     "syncs": len(caught), "sites": sites})
+        s.log(f"verify {e.name}: {ms:.3f} ms, {len(caught)} syncs "
+              f"{sites}")
+    n = launches()
+    if not (n["gather_or"] > 0 and n["fused_hop"] > 0):
+        failures.append(f"verify: K1 and K2 must launch at their "
+                        f"exemplars: {n}")
+    k1 = reg.get("ops.pallas_gather.gather_or")
+    (values, idx), kw = built[k1.name]
+    if not torch.equal(k1.fn(values, idx, **kw),
+                       gather_or_plain(values, idx, kw["w"])):
+        failures.append("verify: K1 != gather_or_plain at its exemplar")
+    wall = time.perf_counter() - t_phase
+    if wall > VERIFY_BUDGET_S:
+        failures.append(f"verify: {wall:.1f} s, over the phase's "
+                        f"{VERIFY_BUDGET_S} s budget")
+    s.expect(not failures, "\n".join(failures))
+    s.log(f"verify: {len(rows)} entries at their exemplars in {wall:.2f} s, "
+          f"{sum(r['syncs'] for r in rows)} syncs, all on the allowlist; "
+          f"every card result equal to its CPU route; launches {n}")
+    return {"entries": rows, "launches": n, "phase_s": round(wall, 2)}
 
 
 def hub_rows(snap):
@@ -9342,6 +9442,7 @@ def main(argv: list[str]) -> int:
     timed("k1", phase_k1, s)
     timed("k2", phase_k2, s)
     timed("k3", phase_k3, s)
+    timed("verify", phase_verify, s)
     records: dict = {"kernels": []}
     if "--quick" not in argv:
         snap, info = timed("snapshot", build_snapshot, s)

@@ -18,6 +18,10 @@ class TransactionAborted(HGException):
     """The transaction was aborted, or ended out of order."""
 
 
+class StorageError(HGException):
+    """Low-level storage failure."""
+
+
 class TypeError_(HGException):
     """Type-system violation (a value no type takes, an unknown type)."""
 

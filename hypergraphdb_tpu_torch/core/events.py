@@ -51,6 +51,10 @@ class HGAtomLoadedEvent(HGAtomEvent):
     pass
 
 
+class HGAtomAccessedEvent(HGAtomEvent):
+    pass
+
+
 @dataclass
 class HGOpenedEvent(HGEvent):
     graph: Any = None
@@ -59,6 +63,17 @@ class HGOpenedEvent(HGEvent):
 @dataclass
 class HGClosingEvent(HGEvent):
     graph: Any = None
+
+
+@dataclass
+class HGTransactionStartedEvent(HGEvent):
+    tx: Any = None
+
+
+@dataclass
+class HGTransactionEndedEvent(HGEvent):
+    tx: Any = None
+    success: bool = True
 
 
 class HGListener:
@@ -82,6 +97,9 @@ class HGEventManager:
         ls = self._listeners.get(event_class)
         if ls and listener in ls:
             ls.remove(listener)
+
+    def clear(self) -> None:
+        self._listeners.clear()
 
     def dispatch(self, graph: Any, event: HGEvent) -> int:
         if not self._listeners:  # the bulk ingest fast path

@@ -19,6 +19,10 @@ HGHandle = int
 NULL_HANDLE: HGHandle = -1
 
 
+def is_null(h: HGHandle) -> bool:
+    return h is None or h < 0
+
+
 class HandleFactory:
     """Allocates fresh handles."""
 
@@ -99,3 +103,28 @@ class UUIDHandleFactory(HandleFactory):
 
     def uuid_of(self, h: HGHandle) -> uuid.UUID | None:
         return self._to_uuid.get(h)
+
+    def handle_of(self, u: uuid.UUID) -> HGHandle | None:
+        return self._from_uuid.get(u)
+
+    def bind(self, h: HGHandle, u: uuid.UUID) -> None:
+        """Register a foreign (replicated) atom's exchange identity."""
+        with self._lock:
+            self._to_uuid[h] = u
+            self._from_uuid[u] = h
+
+
+def pack_handles(handles) -> bytes:
+    """A handle tuple as little-endian int64s, 8 bytes a handle."""
+    import struct
+
+    hs = list(handles)
+    return struct.pack(f"<{len(hs)}q", *hs)
+
+
+def unpack_handles(data: bytes) -> tuple[HGHandle, ...]:
+    """The handles :func:`pack_handles` wrote."""
+    import struct
+
+    n = len(data) // 8
+    return struct.unpack(f"<{n}q", data)

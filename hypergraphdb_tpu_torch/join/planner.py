@@ -516,13 +516,23 @@ def hub_lane_mask(snap, steps, consts: np.ndarray, threshold: int,
 PROBE_BYTES = 15_392 / 64
 
 
+def probe_bytes() -> float:
+    """Bytes one candidate costs through one expand+filter round:
+    :data:`PROBE_BYTES`, so the port routes as the reference does. The
+    port's own cost record (``verify_costs.json``) does not feed it: that
+    record counts the aten ops of the CPU route's plain PyTorch, not the
+    compiled program the constant was read from, and a CUDA kernel's
+    launch is opaque to it."""
+    return PROBE_BYTES
+
+
 def device_cost_bytes(plan) -> float:
     """Expected device bytes for ONE request through ``plan`` — binding
     rows × expansion width × per-probe bytes × (1 + filters), summed
     over steps. Bushy plans charge each chain independently plus the
     product fold (one probe per joined row) — the bushy-vs-left-deep
     saving the shape choice banks on."""
-    per_probe = PROBE_BYTES
+    per_probe = probe_bytes()
 
     def chain(steps):
         rows = 1.0

@@ -1,9 +1,9 @@
 """Fleet observability: one collector over every process behind the door.
 
-The port of ``hypergraphdb_tpu/obs/fleet.py``. The port has no ``peer/``
-or ``replica/`` yet (ROADMAP queue 1, item 10), so nothing sends the
-cross-process trace halves this module folds; the fold code, the merged
-views and :func:`explain_record` are the reference's.
+The port of ``hypergraphdb_tpu/obs/fleet.py``: the fold code, the merged
+views and :func:`explain_record` are the reference's. Replica nodes join
+it through ``replica/node.ReplicaNode.fleet_source`` (or an
+:class:`HTTPNodeSource` over a node's endpoints).
 
 PRs 9–12 made the deployment a genuine fleet — primary + replicas +
 router + sharded mesh — while telemetry stayed strictly per-process:

@@ -30,8 +30,8 @@ check and in no availability SLO. This module closes that gap:
   from a sharded executor's ``mesh_report()`` rolled into max/mean skew
   ratios with the straggler shard named; a skew ratio sustained past
   ``skew_ratio_max`` raises its own edge-triggered ``perf_skew_<key>``
-  incident. Nothing in the port feeds it until it serves sharded
-  (ROADMAP queue 1, item 8).
+  incident. A runtime over a ``ShardedExecutor`` hands the sentinel the
+  executor's ``mesh_report`` as its ``mesh_source``.
 
 The whole module is clock-injected and import-light (``torch`` is
 imported only when a profile session actually opens, and the profiler

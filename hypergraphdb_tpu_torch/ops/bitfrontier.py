@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot, DeviceSnapshot
 
@@ -120,6 +121,24 @@ def valid_word_mask(n_valid: int, w: int, offset: int = 0) -> np.ndarray:
     ).view("<u4").reshape(w).view(np.int32)
 
 
+def valid_words(n_valid: int, w: int, device) -> torch.Tensor:
+    """:func:`valid_word_mask` made on ``device``, with no copy from the
+    host (which would wait for the device's queue)."""
+    out = torch.zeros(w, dtype=torch.int32, device=device)
+    full, rem = divmod(max(min(n_valid, w * WORD), 0), WORD)
+    # fills take the value as an argument; an indexed store of a Python
+    # scalar would copy it from the host
+    out[:full].fill_(-1)
+    out[full : full + 1].fill_((1 << rem) - 1 if rem else 0)
+    return out
+
+
+def bit_words(j: torch.Tensor) -> torch.Tensor:
+    """``1 << (j & 31)`` as int32 words (bit 31 wraps to the sign), made
+    on ``j``'s device."""
+    return (torch.ones_like(j, dtype=torch.int64) << (j & 31)).to(torch.int32)
+
+
 # ------------------------------------------------------------------ the hop
 
 
@@ -170,6 +189,11 @@ def _set_levels(levels: torch.Tensor, nxt: torch.Tensor, hop: int) -> None:
         planes[:, j].masked_fill_(hit, hop)
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (hgverify.dev_snapshot_exemplar(device, seed),
+                                 hgverify.seeds_exemplar(device, seed, 8)),
+    statics={"max_hops": 2, "edge_chunk": 64, "with_levels": False},
+)
 def bfs_packed_block(dev: DeviceSnapshot, seeds: torch.Tensor, max_hops: int,
                      edge_chunk: int = 1 << 19,
                      with_levels: bool = False) -> PackedBFSResult:
@@ -189,14 +213,13 @@ def bfs_packed_block(dev: DeviceSnapshot, seeds: torch.Tensor, max_hops: int,
     tgt_src = dev.tgt_src[: dev.n_tgt]
     tgt_flat = dev.index64("tgt_flat")[: dev.n_tgt]
     # (w, 1) words clearing the dummy slot N and the pad bits
-    valid = torch.from_numpy(valid_word_mask(N, w)).to(device)[:, None]
+    valid = valid_words(N, w, device)[:, None]
 
     lanes = torch.arange(K, device=device)
     s64 = seeds.to(torch.int64)
-    bits = torch.from_numpy(_BITS).to(device)
     frontier = torch.zeros((w, K), dtype=torch.int32, device=device)
     # one bit per lane, so an add into a (word, lane) slot is an OR
-    frontier.index_put_((s64 >> 5, lanes), bits[s64 & 31], accumulate=True)
+    frontier.index_put_((s64 >> 5, lanes), bit_words(s64), accumulate=True)
     visited = frontier.clone()
     levels = None
     if with_levels:

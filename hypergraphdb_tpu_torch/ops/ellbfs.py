@@ -47,8 +47,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops import linemask
+from hypergraphdb_tpu_torch.ops.bitfrontier import bit_words
 from hypergraphdb_tpu_torch.ops.aot_cache import CORRUPT_ERRORS
 from hypergraphdb_tpu_torch.ops.gather_or import PLAIN_CHUNK, gather_or
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
@@ -425,22 +427,23 @@ def plans_for(snap: CSRSnapshot, aot=None) -> PullBFSPlans:
 
 # ------------------------------------------------------------------ device ops
 
-#: int32 word with only bit b set, for b in 0..31 (uint32 bits viewed signed)
-_BITS = np.left_shift(np.uint32(1), np.arange(WORD, dtype=np.uint32)).view(
-    np.int32)
 #: elements of one bit-unpacked row block in the counting passes
 _COUNT_BLOCK = 1 << 25
 
 
+@hgverify.entry(
+    "ops.ellbfs._seed_bitmap",
+    shapes=lambda device, seed: (hgverify.seeds_exemplar(device, seed, 32),),
+    statics={"n_rows": 64, "kw": 1},
+)
 def seed_bitmap(seeds: torch.Tensor, n_rows: int, kw: int) -> torch.Tensor:
     """(n_rows, kw) int32 bitmap with bit k of row ``seeds[k]`` set. The
     per-k bits are distinct, so ``index_add_`` over (possibly duplicate)
     seed rows equals bitwise OR."""
     K = seeds.shape[0]
     k = torch.arange(K, device=seeds.device)
-    bits = torch.from_numpy(_BITS).to(seeds.device)
     onehot = torch.zeros((K, kw), dtype=torch.int32, device=seeds.device)
-    onehot[k, k >> 5] = bits[k & 31]
+    onehot[k, k >> 5] = bit_words(k)
     visited = torch.zeros((n_rows, kw), dtype=torch.int32, device=seeds.device)
     return visited.index_add_(0, seeds, onehot)
 
@@ -453,13 +456,22 @@ def seed_mask(seeds: torch.Tensor, n_rows: int, kw: int,
     row itself)."""
     k = torch.arange(seeds.shape[0], device=seeds.device)
     lines = (k >> 5) // linemask.line_words(kw)
-    rows = seeds.to(torch.int64)
+    mask = linemask.mask_of_points(seeds.to(torch.int64), lines, n_rows, kw)
     if clear_row is not None:
-        keep = rows != clear_row
-        rows, lines = rows[keep], lines[keep]
-    return linemask.mask_of_points(rows, lines, n_rows, kw)
+        linemask.clear_field(mask, clear_row, kw)
+    return mask
 
 
+@hgverify.entry(
+    "ops.ellbfs._deg_sum",
+    shapes=lambda device, seed: (
+        hgverify.words(device, seed, (64, 1)),
+        hgverify.ints(device, seed + 1, (64,), 9).float()),
+)
+@hgverify.entry(
+    "ops.ellbfs._reach_counts",
+    shapes=lambda device, seed: (hgverify.words(device, seed, (64, 1)),),
+)
 def bitdot(packed: torch.Tensor, weight: Optional[torch.Tensor] = None,
            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Σ_v weight[v] · bit(v, k) for every seed column k, as exact (K,)
@@ -488,6 +500,33 @@ def bitdot(packed: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return acc.to(torch.int64)
 
 
+def _stage_exemplar(device, seed: int) -> tuple:
+    """:func:`_apply_plan`'s exemplar: 64 one-word rows reduced by one
+    level of width 8 into a zeroed 9-row buffer (8 chunks and the zero
+    row)."""
+    values = hgverify.words(device, seed, (64, 1))
+    buf = torch.zeros((9, 1), dtype=torch.int32, device=values.device)
+    return (values, linemask.line_mask(values),
+            (hgverify.ints(device, seed + 1, (64,), 64),), (8,), buf,
+            linemask.line_mask(buf))
+
+
+def _visited_update_exemplar(device, seed: int) -> tuple:
+    """:func:`_visited_update`'s exemplar: a 64-row bitmap, a 9-row stage
+    buffer, an out map into it and the dummy row 31."""
+    visited = hgverify.words(device, seed, (64, 1))
+    reach = hgverify.words(device, seed + 1, (9, 1))
+    return (visited, linemask.line_mask(visited), reach,
+            linemask.line_mask(reach), hgverify.ints(device, seed + 2, (64,), 9),
+            31)
+
+
+@hgverify.entry(
+    "ops.ellbfs._stage",
+    shapes=lambda device, seed: _stage_exemplar(device, seed),
+    statics={"chunk": 1 << 19},
+    donate=(4, 5),
+)
 def _apply_plan(values: torch.Tensor, vmask: torch.Tensor, levels: tuple,
                 widths: tuple, buf: torch.Tensor, bmask: torch.Tensor,
                 chunk: int) -> torch.Tensor:
@@ -516,6 +555,11 @@ def _apply_plan(values: torch.Tensor, vmask: torch.Tensor, levels: tuple,
     return buf
 
 
+@hgverify.entry(
+    "ops.ellbfs._visited_update",
+    shapes=lambda device, seed: _visited_update_exemplar(device, seed),
+    donate=(0, 1),
+)
 def _visited_update(visited: torch.Tensor, vmask: torch.Tensor,
                     reach: torch.Tensor, rmask: torch.Tensor,
                     out_map: torch.Tensor, n_atoms: int,

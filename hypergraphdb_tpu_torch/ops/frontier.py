@@ -23,9 +23,12 @@ every pad entry into the dummy row, where the atomics serialise.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from hypergraphdb_tpu_torch.ops.snapshot import DeviceSnapshot
+from hypergraphdb_tpu_torch import verify as hgverify
+from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE
+from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot, DeviceSnapshot
 
 #: bytes of the (edges, lanes) gather transient of one scatter chunk
 CHUNK_BYTES = 1 << 31
@@ -74,10 +77,18 @@ def _seed_frontier(dev: DeviceSnapshot, seeds: torch.Tensor) -> torch.Tensor:
     K = seeds.shape[0]
     n1 = dev.type_of.shape[0]
     frontier = torch.zeros((K, n1), dtype=torch.bool, device=seeds.device)
-    frontier[torch.arange(K, device=seeds.device), seeds.long()] = True
+    # the True values made on the device: a Python scalar would be copied
+    # from the host and wait for the queue
+    frontier.index_put_((torch.arange(K, device=seeds.device), seeds.long()),
+                        torch.ones(K, dtype=torch.bool, device=seeds.device))
     return frontier
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (hgverify.dev_snapshot_exemplar(device, seed),
+                                 hgverify.seeds_exemplar(device, seed, 8)),
+    statics={"max_hops": 2},
+)
 def bfs_levels(dev: DeviceSnapshot, seeds: torch.Tensor,
                max_hops: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched K-seed BFS. Returns (levels, visited):
@@ -96,6 +107,43 @@ def bfs_levels(dev: DeviceSnapshot, seeds: torch.Tensor,
     return levels, visited
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (
+        hgverify.dev_snapshot_exemplar(device, seed),
+        hgverify.seeds_exemplar(device, seed, 1).reshape(())),
+    statics={"max_hops": 2},
+)
+def reachable(dev: DeviceSnapshot, seed, max_hops: int) -> torch.Tensor:
+    """Single-seed reachability bitmap (N+1,) bool."""
+    seeds = torch.as_tensor(seed, dtype=torch.int32,
+                            device=dev.type_of.device).reshape(1)
+    return bfs_levels(dev, seeds, max_hops)[1][0]
+
+
+def bfs_reachable_host(snap: CSRSnapshot, seeds: np.ndarray, max_hops: int,
+                       device=DEFAULT_DEVICE) -> list[np.ndarray]:
+    """Per seed, the sorted int64 ids it reaches within ``max_hops``,
+    itself excluded: the contract of draining
+    ``HGBreadthFirstTraversal``. The BFS runs on ``device``."""
+    dev = snap.device(device)
+    seeds = np.asarray(seeds, dtype=np.int32)
+    _, visited = bfs_levels(dev, torch.from_numpy(seeds).to(
+        dev.type_of.device), max_hops)
+    visited = visited.cpu().numpy()
+    out = []
+    for i, s in enumerate(seeds.tolist()):
+        row = visited[i].copy()
+        row[s] = False
+        row[snap.num_atoms] = False
+        out.append(np.nonzero(row)[0].astype(np.int64))
+    return out
+
+
+@hgverify.entry(
+    shapes=lambda device, seed: (hgverify.dev_snapshot_exemplar(device, seed),
+                                 hgverify.seeds_exemplar(device, seed, 8)),
+    statics={"max_hops": 2},
+)
 def frontier_edge_counts(dev: DeviceSnapshot, seeds: torch.Tensor,
                          max_hops: int) -> torch.Tensor:
     """Incidence edges touched by the live frontiers, per seed: Σ degree(a)

@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops import _cuda, linemask
 from hypergraphdb_tpu_torch.ops.ellbfs import (
@@ -570,6 +571,11 @@ def _or_rows(bitmap: torch.Tensor, mask: torch.Tensor, rows: torch.Tensor,
 # --------------------------------------------------------------- fused BFS
 
 
+@hgverify.entry(
+    "ops.pallas_bfs._bfs_fused",
+    shapes=hgverify.fused_args,
+    statics={"max_hops": 2, "count_edges": True, "clear_dummy": True},
+)
 def bfs_fused(plan: DeviceFusedPlan, seeds: torch.Tensor, geom: FusedGeom,
               max_hops: int, count_edges: bool, clear_dummy: bool,
               hop_hook=None, overlay: Optional[DeltaOverlayPlan] = None):

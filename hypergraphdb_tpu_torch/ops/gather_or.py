@@ -23,6 +23,7 @@ from functools import reduce
 
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.ops import _cuda, linemask
 
 #: output rows per streamed block of the plain version (bounds its
@@ -56,6 +57,12 @@ def gather_or_plain(values: torch.Tensor, idx: torch.Tensor, w: int,
     return out
 
 
+@hgverify.entry(
+    "ops.pallas_gather.gather_or",
+    shapes=lambda device, seed: (hgverify.words(device, seed, (8, 128)),
+                                 hgverify.ints(device, seed, (2048,), 8)),
+    statics={"w": 8},
+)
 def gather_or(values: torch.Tensor, idx: torch.Tensor, w: int,
               out: torch.Tensor | None = None,
               chunk: int = PLAIN_CHUNK,

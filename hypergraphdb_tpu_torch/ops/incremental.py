@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.core import events as ev
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.obs.flight import global_flight
@@ -148,7 +149,9 @@ def bfs_delta_lanes(dev: DeviceSnapshot, delta: DeviceDelta,
     n1, L = dev.type_of.shape[0], seeds.shape[0]
     live = ~delta.dead
     frontier = torch.zeros((n1, L), dtype=torch.bool, device=seeds.device)
-    frontier[seeds.to(torch.int64), torch.arange(L, device=seeds.device)] = True
+    frontier.index_put_((seeds.to(torch.int64),
+                         torch.arange(L, device=seeds.device)),
+                        torch.ones(L, dtype=torch.bool, device=seeds.device))
     frontier &= live[:, None]  # a dead seed reaches nothing
     visited = frontier.clone()
     levels = None
@@ -163,6 +166,12 @@ def bfs_delta_lanes(dev: DeviceSnapshot, delta: DeviceDelta,
     return visited, levels
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (hgverify.dev_snapshot_exemplar(device, seed),
+                                 hgverify.device_delta_exemplar(device, seed),
+                                 hgverify.seeds_exemplar(device, seed, 8)),
+    statics={"max_hops": 2, "with_levels": True},
+)
 def bfs_levels_delta(dev: DeviceSnapshot, delta: DeviceDelta,
                      seeds: torch.Tensor, max_hops: int,
                      with_levels: bool = True):

@@ -71,6 +71,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.join.ir import JoinUnsupported
 from hypergraphdb_tpu_torch.join.planner import hub_lane_mask
@@ -80,6 +81,10 @@ from hypergraphdb_tpu_torch.ops.setops import (
     segment_member_mask,
 )
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot, rank_word
+
+#: candidate slots (rows x pad) of ``join_expand_step``'s verification
+#: exemplar: the reference normalizes its byte budget by it
+EXEMPLAR_SLOTS = 8 * 8
 
 #: default binding-table row cap (rows per batch, all requests pooled)
 DEFAULT_ROW_CAP = 1 << 15
@@ -547,6 +552,16 @@ def _keyer(cols, lanes, valid, consts, n_lanes: int, dummy: int):
     return key_of, lanes_c
 
 
+@hgverify.entry(
+    shapes=hgverify.join_args,
+    statics={
+        "exp_sel": ("const", 0),
+        "filt_sel": ((False, "col", 0, False),),
+        "type_handle": -1,
+        "pad": 8, "rows_out": 16, "n_lanes": 4,
+        "n_distinct_cols": 1, "distinct_consts": True, "dedupe": False,
+    },
+)
 def join_expand_step(
     exp_offsets: torch.Tensor,   # (N+2,) int32 — expansion CSR offsets
     exp_flat: torch.Tensor,      # (E,) int32 — expansion CSR payload
@@ -663,6 +678,16 @@ def _hub_groups(R: int, block: int, n_chunks: int, group_slots: int,
         t += n_t
 
 
+@hgverify.entry(
+    shapes=hgverify.join_args,
+    statics={
+        "exp_sel": ("const", 0),
+        "filt_sel": ((False, "col", 0, False),),
+        "type_handle": -1,
+        "block": 8, "rows_out": 16, "n_lanes": 4, "n_chunks": 8,
+        "n_distinct_cols": 1, "distinct_consts": True,
+    },
+)
 def join_hub_expand(
     exp_offsets: torch.Tensor,   # (N+2,) int32 — expansion CSR offsets
     exp_flat: torch.Tensor,      # (E,) int32 — expansion CSR payload
@@ -785,6 +810,10 @@ def join_hub_expand(
             _lost_lanes(n_lanes, counts, out_lanes, out_valid))
 
 
+@hgverify.entry(
+    shapes=hgverify.bag_args,
+    statics={"pad": 8, "rows_out": 32, "n_lanes": 4, "distinct": True},
+)
 def join_bag_join(
     cols: torch.Tensor,       # (R1, T1) int32 — spine binding rows
     lanes: torch.Tensor,      # (R1,) int32
@@ -839,6 +868,10 @@ def join_bag_join(
     return new_cols, new_lanes, new_valid, lane_counts, trunc
 
 
+@hgverify.entry(
+    shapes=hgverify.finalize_args,
+    statics={"top_r": 4, "n_lanes": 4, "sort_cols": (0, 1)},
+)
 def join_finalize(
     cols: torch.Tensor,   # (R, V) int32 complete binding rows
     lanes: torch.Tensor,  # (R,) int32

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops import incremental
 from hypergraphdb_tpu_torch.ops.fused_bfs import (
@@ -61,6 +62,12 @@ def _bucket_for(n: int, what: str) -> int:
     return bucket
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (hgverify.dev_snapshot_exemplar(device, seed),
+                                 hgverify.device_delta_exemplar(device, seed),
+                                 hgverify.seeds_exemplar(device, seed, 8)),
+    statics={"max_hops": 2, "top_r": 4},
+)
 def bfs_serve_batch(dev: DeviceSnapshot, delta: DeviceDelta,
                     seeds: torch.Tensor, max_hops: int, top_r: int):
     """K-seed BFS over base ∪ delta by the dense sweep
@@ -86,6 +93,10 @@ def bfs_serve_batch(dev: DeviceSnapshot, delta: DeviceDelta,
     return counts, first_r
 
 
+@hgverify.entry(
+    shapes=hgverify.fused_args,
+    statics={"max_hops": 2, "top_r": 4},
+)
 def bfs_serve_batch_fused(plan: DeviceFusedPlan, seeds: torch.Tensor,
                           geom: FusedGeom, max_hops: int, top_r: int,
                           overlay: DeltaOverlayPlan | None = None):
@@ -151,6 +162,14 @@ def serve_bfs(snap, seeds, max_hops: int, top_r: int,
 serve_bfs.routes = {"fused": 0, "dense": 0}
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (
+        hgverify.dev_snapshot_exemplar(device, seed),
+        hgverify.ell_exemplar(device, seed),
+        hgverify.tensor(hgverify.pattern_anchors(seed), device),
+        hgverify.pattern_type_vec(device)),
+    statics={"pad_len": 8, "top_r": 4},
+)
 def pattern_serve_batch(dev: DeviceSnapshot, tgt_ell: torch.Tensor,
                         anchors: torch.Tensor, type_vec: torch.Tensor,
                         pad_len: int, top_r: int):

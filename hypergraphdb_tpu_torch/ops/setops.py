@@ -36,6 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops.snapshot import (
     CSRSnapshot,
@@ -72,6 +73,7 @@ def _bucket(n: int, minimum: int = 128) -> int:
 # ------------------------------------------------------------------ 1-D ops
 
 
+@hgverify.entry(shapes=hgverify.member_args)
 def member_mask(sorted_ref: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """``queries ∈ sorted_ref`` elementwise; both may be SENTINEL-padded.
     Leading dimensions, where given, must match and pair row with row."""
@@ -109,6 +111,7 @@ def intersect_mask_ragged(base: torch.Tensor, flat: torch.Tensor,
 # ------------------------------------------------------------------ segment search
 
 
+@hgverify.entry(shapes=hgverify.segment_args)
 def segment_member_mask(
     flat: torch.Tensor,     # (E,) int32: concatenated sorted segments
     starts: torch.Tensor,   # (K,) int32: per-query segment start (inclusive)
@@ -152,6 +155,12 @@ def gather_rows(offsets: torch.Tensor, flat: torch.Tensor, atoms: torch.Tensor,
     return rows, valid
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (
+        hgverify.dev_snapshot_exemplar(device, seed),
+        hgverify.tensor(hgverify.pattern_anchors(seed), device)),
+    statics={"pad_len": 8},
+)
 def incident_intersection(dev: DeviceSnapshot, anchors: torch.Tensor,
                           pad_len: int, type_handle: Optional[int] = None):
     """The conjunctive pattern by gathered rows: for each query k, the links
@@ -231,6 +240,13 @@ def _build_ell(snap: CSRSnapshot, dev: torch.device) -> Optional[torch.Tensor]:
     return ell.view(N + 1, W)
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (
+        hgverify.dev_snapshot_exemplar(device, seed),
+        hgverify.ell_exemplar(device, seed),
+        hgverify.tensor(hgverify.pattern_anchors(seed), device)),
+    statics={"pad_len": 8},
+)
 def incident_intersection_ell(dev: DeviceSnapshot, tgt_ell: torch.Tensor,
                               anchors: torch.Tensor, pad_len: int,
                               type_handle: Optional[int] = None):
@@ -326,6 +342,14 @@ def incident_value_pattern(
     return rows0, mask & strict, mask & eq
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (
+        (hgverify.dev_snapshot_exemplar(device, seed),
+         hgverify.ell_exemplar(device, seed),
+         hgverify.tensor(hgverify.pattern_anchors(seed), device)),
+        {"kind": ord("i"), "lo": 4, "hi": 50}),
+    statics={"pad_len": 8, "lo_op": "gte", "hi_op": "lt", "exact": True},
+)
 def incident_value_range(
     dev: DeviceSnapshot,
     tgt_ell: torch.Tensor,    # (N+1, W) int32

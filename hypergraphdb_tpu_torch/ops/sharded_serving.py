@@ -32,17 +32,49 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.ops.bitfrontier import WORD, popcount
 from hypergraphdb_tpu_torch.ops.setops import ELL_MAX_WIDTH, SENTINEL, _bucket
 from hypergraphdb_tpu_torch.ops.snapshot import CSRSnapshot
 from hypergraphdb_tpu_torch.parallel.sharded import (
+    AXIS,
     Mesh,
     ShardedDelta,
     ShardedSnapshot,
     _bfs_local,
+    _put_local,
     all_gather,
     psum,
 )
+
+
+#: one carrier per mesh, keyed by the mesh's value (axis names, devices,
+#: process group), not its identity: a runtime makes a new Mesh object
+#: for each executor, and an identity key would keep every dead one alive
+_CARRIERS: dict = {}
+
+
+def mesh_carrier(mesh: Mesh) -> ShardedSnapshot:
+    """A minimal ShardedSnapshot that only carries ``mesh`` into the
+    lanes that read no row-sharded state (the pattern and join lanes,
+    whose operands are assembled a batch): constant shapes, no edges,
+    built once per mesh, so a pattern-only runtime never pays for
+    sharding the base."""
+    hit = _CARRIERS.get(mesh)
+    if hit is not None:
+        return hit
+    n_loc = 128
+    empty32 = np.zeros((mesh.n_dev, 0), dtype=np.int32)
+    empty64 = np.zeros((mesh.n_dev, 0), dtype=np.int64)
+    carrier = ShardedSnapshot(
+        mesh=mesh, num_atoms=mesh.n_dev * n_loc - 1, n_loc=n_loc,
+        edge_chunk=8,
+        inc_src=_put_local(mesh, empty32), inc_dst=_put_local(mesh, empty64),
+        tgt_src=_put_local(mesh, empty32), tgt_dst=_put_local(mesh, empty64),
+        valid=_put_local(mesh, np.zeros((mesh.n_dev, n_loc // WORD),
+                                        dtype=np.int32)))
+    _CARRIERS[mesh] = carrier
+    return carrier
 
 
 def _merge_first_r(mesh: Mesh, local_first: list, top_r: int) -> torch.Tensor:
@@ -82,6 +114,20 @@ def _local_first_r(vis: torch.Tensor, row_start: int, k_loc: int,
     return cur
 
 
+def _serve_sharded_exemplar(device, seed: int) -> tuple:
+    """:func:`bfs_serve_batch_sharded`'s exemplar: the sharded snapshot,
+    its delta and 8 seeds, the last a pad lane."""
+    sdev = hgverify.sharded_snapshot_exemplar(device, seed)
+    seeds = hgverify.sharded_seeds(device, seed, 8)
+    seeds[-1] = sdev.num_atoms
+    return (sdev, hgverify.sharded_delta_exemplar(device, seed, sdev), seeds)
+
+
+@hgverify.entry(
+    shapes=lambda device, seed: _serve_sharded_exemplar(device, seed),
+    statics={"max_hops": 2, "top_r": 4},
+    mesh=(AXIS,),
+)
 def bfs_serve_batch_sharded(sdev: ShardedSnapshot, sdelta: ShardedDelta,
                             seeds, max_hops: int, top_r: int):
     """The mesh twin of ``ops.serving.bfs_serve_batch``: ``(counts (K,)
@@ -136,7 +182,12 @@ def pattern_host_rows(snap: CSRSnapshot, anchors: np.ndarray, pad_len: int,
     return rows0, row0_types, tgt
 
 
-def pattern_serve_batch_sharded(mesh: Mesh, rows0: np.ndarray,
+@hgverify.entry(
+    shapes=hgverify.pattern_sharded_args,
+    statics={"top_r": 4},
+    mesh=(AXIS,),
+)
+def pattern_serve_batch_sharded(sdev: ShardedSnapshot, rows0: np.ndarray,
                                 row0_types: np.ndarray,
                                 tgt_tuples: np.ndarray, anchors: np.ndarray,
                                 type_vec: np.ndarray, top_r: int):
@@ -145,8 +196,10 @@ def pattern_serve_batch_sharded(mesh: Mesh, rows0: np.ndarray,
     multiple of the mesh size) split across shards along L; each tests
     its slice's target tuples against anchors 1..P-1 and filters by the
     types that came along (``type_vec`` < 0: any), then the counts sum
-    and the per-shard ``top_r`` windows merge. Returns ``(counts (K,)
-    int64, first_r (K, top_r) int32)``."""
+    and the per-shard ``top_r`` windows merge. ``sdev`` carries the mesh
+    (:func:`mesh_carrier`); its arrays are not read. Returns ``(counts
+    (K,) int64, first_r (K, top_r) int32)``."""
+    mesh = sdev.mesh
     L = rows0.shape[1]
     l_loc = L // mesh.n_dev
     k_loc = min(top_r, max(l_loc, 1))
@@ -182,7 +235,7 @@ def pattern_sharded_ok(snap: CSRSnapshot) -> bool:
 # ---------------------------------------------------- lane-sharded joins
 
 
-def execute_join_sharded(snap: CSRSnapshot, mesh: Mesh, plan,
+def execute_join_sharded(snap: CSRSnapshot, sdev: ShardedSnapshot, plan,
                          consts: np.ndarray, *, top_r: int = 16,
                          n_real: Optional[int] = None,
                          row_cap: Optional[int] = None,
@@ -198,8 +251,8 @@ def execute_join_sharded(snap: CSRSnapshot, mesh: Mesh, plan,
     Relations are replicated (each shard's device holds the join's CSRs).
     Returns an ``ops.join.JoinExecution`` with the lane axis reassembled
     on the home device: the single-card counts, trunc and tuples
-    contract. A left-deep plan only; the caller serves bushy plans on one
-    device."""
+    contract. ``sdev`` carries the mesh (:func:`mesh_carrier`). A
+    left-deep plan only; the caller serves bushy plans on one device."""
     from hypergraphdb_tpu_torch.ops.join import (
         DEFAULT_PAD_CAP,
         DEFAULT_ROW_CAP,
@@ -210,6 +263,7 @@ def execute_join_sharded(snap: CSRSnapshot, mesh: Mesh, plan,
 
     if getattr(plan, "bags", None):
         raise ValueError("execute_join_sharded runs left-deep plans only")
+    mesh = sdev.mesh
     n_dev = mesh.n_dev
     consts = np.ascontiguousarray(consts, dtype=np.int32)
     K = int(consts.shape[0])

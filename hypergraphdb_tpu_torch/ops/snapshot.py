@@ -41,6 +41,9 @@ import torch
 
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 
+#: the padding entry of id arrays
+PAD = np.int32(-1)
+
 #: the sign bit a rank word flips
 _SIGN = np.uint64(1 << 63)
 

@@ -33,9 +33,9 @@ What differs from the reference, and why:
   dummy CSR of an anchor-free batch reads empty segments (every such lane
   masks the probe out, as in the reference). :func:`serve_range_batch`
   refuses anchors outside the snapshot's atoms.
-- The request handling of the runtime (``_range_result``, the memtable's
-  corrections, the host oracle) reads a graph and waits for the port's
-  graph layer.
+- The request handling (``serve/runtime._range_result``: the memtable's
+  corrections and the host oracle over the by-value index) lives in the
+  serve runtime, which reads the graph.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from hypergraphdb_tpu_torch.ops.setops import (
     SENTINEL,
@@ -85,6 +86,12 @@ def _searchsorted2(col_rank: torch.Tensor, col_rank2: torch.Tensor,
     return lo
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (
+        hgverify.value_columns_exemplar(device, seed)[0],
+        *hgverify.bound_tensors(hgverify.range_bounds(seed), device,
+                                BOUND_KEYS[:6])),
+)
 def range_probe_batch(col: ValueIndexColumn, lo: torch.Tensor,
                       lo2: torch.Tensor, lo_right: torch.Tensor,
                       hi: torch.Tensor, hi2: torch.Tensor,
@@ -119,6 +126,21 @@ def _window_gather(col: ValueIndexColumn, lo_idx, hi_idx, desc,
     return col.rank[idx], col.rank2[idx], col.gids[idx], valid
 
 
+def _topk_exemplar(device, seed: int) -> tuple:
+    """:func:`ordered_topk_batch`'s exemplar: the base and delta columns
+    of the exemplar snapshot, its type column and incidence CSR, and 8
+    lanes of bounds."""
+    base, delta = hgverify.value_columns_exemplar(device, seed)
+    dev = hgverify.dev_snapshot_exemplar(device, seed)
+    return (base, delta, dev.type_of, dev.inc_offsets, dev.inc_links,
+            *hgverify.bound_tensors(hgverify.range_bounds(seed), device,
+                                    BOUND_KEYS))
+
+
+@hgverify.entry(
+    shapes=lambda device, seed: _topk_exemplar(device, seed),
+    statics={"win_pad": 8, "top_r": 4},
+)
 def ordered_topk_batch(
     base: ValueIndexColumn,
     delta: ValueIndexColumn,

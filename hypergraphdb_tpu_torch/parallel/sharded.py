@@ -52,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hypergraphdb_tpu_torch import verify as hgverify
 from hypergraphdb_tpu_torch.device import resolve_device
 from hypergraphdb_tpu_torch.ops.bitfrontier import (
     WORD,
@@ -430,6 +431,13 @@ def _gathered(mesh: Mesh, parts: list) -> torch.Tensor:
     return all_gather(mesh, parts, 0)[0].T.contiguous()
 
 
+@hgverify.entry(
+    shapes=lambda device, seed: (
+        hgverify.sharded_snapshot_exemplar(device, seed),
+        hgverify.sharded_seeds(device, seed, 32)),
+    statics={"max_hops": 2},
+    mesh=(AXIS,),
+)
 def bfs_packed_sharded(sdev: ShardedSnapshot, seeds, max_hops: int,
                        with_levels: bool = False) -> PackedBFSResult:
     """Batched K-seed BFS over the mesh with row-sharded packed state.
@@ -554,6 +562,7 @@ def bfs_packed_sharded_blocked(sdev: ShardedSnapshot, seeds, max_hops: int,
 # ------------------------------------------- sharded conjunctive patterns
 
 
+@hgverify.entry(shapes=hgverify.match_args, mesh=(AXIS,))
 def match_candidates_sharded(sdev: ShardedSnapshot, candidates,
                              anchor_rows) -> torch.Tensor:
     """``And(type, incident(a1), ..., incident(ak))`` on the mesh: the

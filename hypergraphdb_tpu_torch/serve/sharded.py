@@ -122,6 +122,7 @@ class ShardedExecutor(DeviceExecutor):
     def _serve_pattern(self, view, ell, anchors: np.ndarray,
                        type_vec: np.ndarray):
         from hypergraphdb_tpu_torch.ops.sharded_serving import (
+            mesh_carrier,
             pattern_host_rows,
             pattern_serve_batch_sharded,
         )
@@ -130,13 +131,14 @@ class ShardedExecutor(DeviceExecutor):
             view.base, anchors, self.config.pattern_pad, self.n_dev)
         self.stats.record_sharded_dispatch()
         return pattern_serve_batch_sharded(
-            self.mesh, rows0, row0_types, tgt, anchors,
+            mesh_carrier(self.mesh), rows0, row0_types, tgt, anchors,
             type_vec, self.config.top_r)
 
     # -- joins ------------------------------------------------------------
     def _execute_join(self, view, plan, consts, n_real: int):
         from hypergraphdb_tpu_torch.ops.sharded_serving import (
             execute_join_sharded,
+            mesh_carrier,
         )
 
         if int(consts.shape[0]) % self.n_dev or getattr(plan, "bags", None):
@@ -148,7 +150,7 @@ class ShardedExecutor(DeviceExecutor):
         fact = view.factorized_join_rels() if cfg.join_factorized else None
         self.stats.record_sharded_dispatch()
         return execute_join_sharded(
-            view.base, self.mesh, plan, consts,
+            view.base, mesh_carrier(self.mesh), plan, consts,
             top_r=cfg.top_r, n_real=n_real, row_cap=cfg.join_row_cap,
             pad_cap=cfg.join_pad_cap, hub_split=cfg.join_hub_split,
             hub_threshold=cfg.join_hub_threshold,

@@ -24,14 +24,6 @@ from typing import Optional
 from hypergraphdb_tpu_torch.obs.registry import Registry
 
 
-def breaker_key_label(key) -> str:
-    """One stable label per batch key: ``("bfs", 2)`` → ``"bfs_2"`` — the
-    reference's ``obs/http.breaker_key_label``, so the per-key
-    ``serve.breaker.*`` instruments keep its names."""
-    if isinstance(key, (tuple, list)):
-        return "_".join(str(p) for p in key)
-    return str(key)
-
 #: legacy ``snapshot()`` key -> dotted registry name (the compat shim;
 #: derived keys map to the instruments they are computed from)
 LEGACY_TO_DOTTED = {
@@ -374,10 +366,12 @@ class ServeStats:
 
     @staticmethod
     def _key_label(key) -> str:
-        """Stable metric label for a batch key: ``("bfs", 2)`` → ``bfs_2``.
-        :func:`breaker_key_label`, the reference's ``obs.http`` labeller
-        (which its ``/healthz`` also uses), copied here until the port
-        has ``obs/http.py``."""
+        """Stable metric label for a batch key: ``("bfs", 2)`` → ``bfs_2``,
+        by ``obs.http.breaker_key_label``, which ``/healthz`` uses too, so
+        the two views join by name. Imported here, not at the top: the
+        HTTP module is needed only once a breaker reports."""
+        from hypergraphdb_tpu_torch.obs.http import breaker_key_label
+
         return breaker_key_label(key)
 
     def set_breaker_key_state(self, key, code: int) -> None:

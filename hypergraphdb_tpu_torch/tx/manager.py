@@ -390,6 +390,14 @@ class HGTransactionManager:
     def cell_version(self, cell: tuple) -> int:
         return self._versions.get(cell, 0)
 
+    def cell_changed_since(self, cell: tuple, sv: int) -> bool:
+        return self._versions.get(cell, 0) > sv
+
+    @property
+    def version(self) -> int:
+        """The commit clock: the version the last commit wrote."""
+        return self._clock
+
     def _apply(self, tx: HGTransaction) -> None:
         b = self.backend
         b.commit_batch_begin()

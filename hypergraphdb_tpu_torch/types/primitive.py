@@ -33,6 +33,10 @@ class IntType(HGAtomType):
     def handles_value(self, value: Any) -> bool:
         return isinstance(value, int) and not isinstance(value, bool)
 
+    def subsumes(self, general: Any, specific: Any) -> bool:
+        """Equal as integers: ``"7"`` subsumes ``7``."""
+        return int(general) == int(specific)
+
 
 class FloatType(HGAtomType):
     name = "float"

@@ -72,6 +72,9 @@ class TopType(HGAtomType):
     def to_key(self, value: Any) -> bytes:
         return self.kind + str(value).encode("utf-8")
 
+    def handles_value(self, value: Any) -> bool:
+        return False  # never inferred
+
 
 class NullType(HGAtomType):
     """The type of ``None``: valueless atoms store the null value handle."""

@@ -75,6 +75,28 @@ class Metrics:
                 out[m.name] = (s["count"], s["total"], s["max"])
         return out
 
+    def snapshot(self) -> dict:
+        """Counters, gauges and each timer's count, total, mean and max
+        (seconds) in one dump."""
+        counters, gauges, timings = {}, {}, {}
+        for m in self.registry.instruments():
+            if m.kind == "counter":
+                counters[m.name] = m.value
+            elif m.kind == "gauge":
+                gauges[m.name] = m.value
+            else:
+                s = m.summary()  # one lock: the four cannot tear
+                timings[m.name] = {"count": s["count"], "total_s": s["total"],
+                                   "mean_s": s["mean"], "max_s": s["max"]}
+        return {"counters": counters, "gauges": gauges, "timings": timings}
+
+    def reset(self) -> None:
+        """Zero every instrument this object made; on a shared registry the
+        others' instruments stay. Iterates a copy, so a racing first
+        recording cannot break the loop."""
+        for m in list(self._memo.values()):
+            m.reset()
+
 
 #: the process-wide metrics (the fault registry's ``fault.injected``),
 #: on the process's default registry

@@ -42,6 +42,15 @@ def decode_float(b: bytes) -> float:
     return struct.unpack(">d", struct.pack(">Q", bits))[0]
 
 
+def encode_str(v: str) -> bytes:
+    """UTF-8: byte order is code point order."""
+    return v.encode("utf-8")
+
+
+def decode_str(b: bytes) -> str:
+    return b.decode("utf-8")
+
+
 def encode_bool(v: bool) -> bytes:
     return b"\x01" if v else b"\x00"
 

@@ -30,6 +30,12 @@ class SortedList:
             raise ValueError(f"{value!r} not in list")
         del self._items[i]
 
+    def discard(self, value) -> None:
+        """:meth:`remove` without the error for an absent value."""
+        i = bisect_left(self._items, value)
+        if i < len(self._items) and self._items[i] == value:
+            del self._items[i]
+
     def __contains__(self, value) -> bool:
         i = bisect_left(self._items, value)
         return i < len(self._items) and self._items[i] == value
@@ -86,6 +92,20 @@ class SortedDict:
         if key in self._data:
             self._dirty = True
         return self._data.pop(key, *default)
+
+    def setdefault(self, key, default=None):
+        if key not in self._data:
+            self[key] = default
+        return self._data[key]
+
+    def keys(self) -> list:
+        return list(self._klist())
+
+    def values(self) -> list:
+        return [self._data[k] for k in self._klist()]
+
+    def items(self) -> list:
+        return [(k, self._data[k]) for k in self._klist()]
 
     def irange(self, minimum: Optional[Any] = None,
                maximum: Optional[Any] = None,

@@ -299,3 +299,26 @@ def test_replica_tier_serves_with_jax_and_reference_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_verify_runs_with_jax_and_reference_blocked():
+    """The verification registry imports, registers its 30 entries, runs
+    each at its CPU exemplar and passes its sync check where neither
+    ``jax`` nor the reference imports."""
+    script = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from hypergraphdb_tpu_torch import verify\n"
+        "reg = verify.load_entries()\n"
+        "assert len(reg) == 30, len(reg)\n"
+        "for e in reg:\n"
+        "    verify.run(e, 'cpu')\n"
+        "assert verify.check_syncs(reg) == []\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    assert "hypergraphdb_tpu_torch.verify" in _module_names()

@@ -189,6 +189,11 @@ def sc_gap_pins_sender_truncation(faults):
         # repair could always be served (floor <= base_ack at drop time)
         assert pa.replication.log.floor <= pa.replication.log.head
         assert pb.replication.last_seen.get("peer-a") > base_ack
+        # once the hole is repaired B acks the head, and the eager
+        # truncation follows on A's own thread: wait for it, or the peer
+        # record read at stop depends on which thread ran first
+        assert wait_for(
+            lambda: pa.replication.log.floor == pa.replication.log.head)
     finally:
         pa.stop()
         pb.stop()
@@ -283,9 +288,24 @@ def sc_redelivery_journal_roundtrip_and_replay(faults, tmp_path):
         pa2.replication.journal_path = journal
         pa2.replication.send_backoff_s = 0.001
         pa2.replication.redelivery_interval_s = 0.01
+        # what the replay loaded, read as it returns: start() replays the
+        # journal before it starts the push worker, which may drain the
+        # healed queue at once
+        rep2, loaded = pa2.replication, {}
+        replay = rep2._journal_replay
+
+        def recorded_replay():
+            replay()
+            loaded["n"] = rep2._redelivery_n
+            loaded["queue"] = [(pid, msg["content"]["seq"])
+                               for pid, dq in rep2._redelivery.items()
+                               for msg, _attempt in dq]
+
+        rep2._journal_replay = recorded_replay
         faults.disarm("peer.transport.send")     # wire healed
         pa2.start()
-        assert pa2.replication._redelivery_n == 2    # replayed
+        assert loaded["n"] == 2                      # replayed
+        assert loaded["queue"] == q_disk             # in the journal's order
         assert pa2.replication.flush(timeout=30)
         assert wait_for(
             lambda: q.find_all(pb.graph, q.value("journal-1")) != [])
