@@ -208,7 +208,7 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     BFS and 16 lanes the host BFS; one 256-seed block with levels against
     the hop at which the staged chain first sets each bit.
 19. Cold start and persistence (after 11, before 22; the children of
-    23 and 24 run beside it): the 10M snapshot through
+    23, 24 and 25 run beside it): the 10M snapshot through
     ``save_snapshot(with_plans=True)`` and ``load_snapshot`` (every array
     equal, the pull plans attached with no build, the fused and staged
     BFS over it equal to phase 4's host truth, K2 and K1 launched); over
@@ -218,7 +218,12 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     during a second save (the checkpoint still loads and serves); bench
     c6's cold-start probe in two fresh processes, the plan cache empty
     then full (the second with no miss and a disk hit), both answers
-    equal to a host BFS.
+    equal to a host BFS; each then serves one pattern request (arity 2,
+    a link's two targets), equal to the host pattern: the first with
+    ``prewarm_pattern_arities=(1, 2)`` (the pattern lane's ELL built
+    inside the constructor: on the base before the first submit), the
+    second with ``()`` (its first pattern flush builds it); both
+    first-pattern-result times.
 20. Planned and observed serving (after 17, before 11): (a) phases 16 and
     17 wrote this run's c6, c9, c10 (patterns and subscriptions) and c11
     windows as bench-shaped records into ``build/bench_records/``;
@@ -361,6 +366,28 @@ Phases, each of which raises (and the script exits non-zero) on a mismatch:
     launched in the replica processes. Bootstraps, atoms/s a batch, the
     lag read from ``/healthz``, served requests/s with p50/p99, kill →
     breaker open, restart → re-admission, the resume, the exit codes.
+25. The range-routed storage grid (``storage/partitioned`` with a
+    ``PartitionMap``), in a child process of its own (niceness 10)
+    started beside 19 and 22: BASELINE config 5 with config 4's 4-way
+    sharding, the grid following the mesh's map as the id space grows.
+    (a) c5's base through ``bulk_import`` into
+    ``HyperGraph(backend=PartitionedStorage(partition_map=
+    PartitionMap.for_mesh(cap0, 4)))`` on memory children,
+    ``cap0`` the id space the bootstrap and the base fill (each atom's
+    value record takes an id of its own) plus 1; packed, split by
+    ``ShardedSnapshot.from_host`` over 4 shards of the card: the two maps
+    are equal and child k holds exactly the records the sharded
+    snapshot's map gives k; (b) 20 of c5's 10,000-link batches streamed
+    through the graph, past ``cap0``; the map re-cut for the grown id
+    space (``repartitioned(n + 1)``, the re-sharded snapshot's map) and
+    ``repartition`` timed: it moves some handles, placement follows the
+    new map, a second call moves none, ``get_link``, ``get_data`` and
+    ``get_incidence_set`` of 10,000 drawn handles and the packed snapshot
+    (array for array) unchanged; (c) K2's fused BFS on one device from
+    c5's 256 seeds at 2 hops over the grid's snapshot, the 4-shard packed
+    BFS on the same seeds: equal bit for bit, and to the host BFS over
+    the grid on lanes ``0..C5_HOST_SEEDS-1``. Build and stream atoms/s,
+    handles moved, repartition and pack seconds, K2's launches.
 
 Every log line carries the card's name and power limit. Before the
 summary, ``phase seconds {...}`` gives each phase's wall seconds: the
@@ -402,6 +429,10 @@ SERVE_SEEDS, SERVE_TOP_R = 5, 16
 #: 3, as the other served timings; ten calls of a route spread under 1 %
 #: on the card, and phase 10's five routes took 47 s at ten
 SERVE_RUNS = 3
+#: runs of each served batch that phase 11 profiles (phases 16 and 17's
+#: legs): one, since reading the trace of three of c6's 1024-lane batches
+#: took 21.5 s of phase 11, and phase 25's child has to be paid for
+SERVE_PROFILE_REPS = 1
 
 #: K3 check cases (Lb, M, Lo, values up to INT32_MAX - 1, an all-SENTINEL
 #: other row): ragged real lengths under SENTINEL padding
@@ -3720,8 +3751,11 @@ PERSIST_LANES = tuple(k for k in HOST_LANES if k < 1024)
 #: bench.py c6's cold-start probe (:1001-1072) at its defaults: 20,000
 #: entities, 20,000 links from default_rng(3), buckets 64/256/1024,
 #: top_r 16, one 2-hop BFS from the first entity, each run in a fresh
-#: process: first with the cache directory empty, then full
+#: process: first with the cache directory empty, then full; then one
+#: pattern request of a link's two targets, the first run prewarming the
+#: pattern lane (COLD_ARITIES), the second not
 COLD_ENTITIES, COLD_TIMEOUT_S = 20_000, 600
+COLD_ARITIES = {"empty": (1, 2), "full": ()}
 COLD_CHILD = """
 import json, sys, time
 import numpy as np
@@ -3742,16 +3776,28 @@ g.bulk_import(values=[int(x) for x in range({n})],
 t0 = time.perf_counter()
 rt = ServeRuntime(g, ServeConfig(buckets=(64, 256, 1024),
                                  max_linger_s=0.002, top_r=16,
-                                 aot_cache_dir={cache!r}))
+                                 aot_cache_dir={cache!r},
+                                 prewarm_pattern_arities={arities!r}))
 res = rt.submit_bfs(e0, max_hops=2).result(timeout=600)
 dt = time.perf_counter() - t0
 s = rt.stats_snapshot()
+base = rt.executor.mgr.base
+ell_before = str(rt.executor.device) in (getattr(base, "_tgt_ell", None)
+                                         or {{}})
+pair = next([e0 + int(a), e0 + int(b)] for a, b in zip(subj, obj) if a != b)
+t0 = time.perf_counter()
+pat = rt.submit_pattern(pair).result(timeout=600)
+pattern_s = time.perf_counter() - t0
 print("COLD_RESULT " + json.dumps({{
     "first_result_s": dt, "aot": s.get("aot"), "seed": e0,
     "count": int(res.count), "matches": res.matches.tolist(),
     "served_by": res.served_by,
     "prewarm": rt.executor.prewarm_counts,
-    "build_s": _cuda.last_build_seconds}}), flush=True)
+    "build_s": _cuda.last_build_seconds,
+    "pattern": {{"pair": pair, "first_result_s": pattern_s,
+                 "ell_before_submit": ell_before, "count": int(pat.count),
+                 "matches": pat.matches.tolist(),
+                 "served_by": pat.served_by}}}}), flush=True)
 rt.close()
 g.close()
 """
@@ -4006,7 +4052,10 @@ def cold_start(s: Smoke) -> None:
     """19 (d): bench c6's cold-start probe at its defaults, in two fresh
     processes that import only the port: the plan cache empty, then full.
     The warm run must read every plan (no miss, a disk hit) and both
-    answers must equal a host BFS over the same graph."""
+    answers must equal a host BFS over the same graph. Each then serves
+    one pattern request: the first run prewarms the pattern lane (its ELL
+    on the base before the first submit), the second does not (its first
+    pattern flush builds it); both answers equal the host pattern."""
     import shutil
 
     import numpy as np
@@ -4015,10 +4064,11 @@ def cold_start(s: Smoke) -> None:
 
     cache = PERSIST_DIR / "coldstart"
     shutil.rmtree(cache, ignore_errors=True)
-    code = COLD_CHILD.format(root=str(ROOT), n=COLD_ENTITIES,
-                             cache=str(cache))
 
     def run_once(what: str) -> dict:
+        code = COLD_CHILD.format(root=str(ROOT), n=COLD_ENTITIES,
+                                 cache=str(cache),
+                                 arities=COLD_ARITIES[what.split()[-1]])
         proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True, cwd=str(ROOT),
                               timeout=COLD_TIMEOUT_S)
@@ -4040,12 +4090,25 @@ def cold_start(s: Smoke) -> None:
                   target_lists=[[e0 + int(a), e0 + int(b)]
                                 for a, b in zip(subj, obj)])
     want = graph_bfs(g, e0, 2)
+    pair = absent["pattern"]["pair"]
+    want_pat = sorted(set(g.get_incidence_set(pair[0]).array().tolist())
+                      & set(g.get_incidence_set(pair[1]).array().tolist()))
     g.close()
     for what, res in (("empty", absent), ("full", present)):
         s.expect(res["seed"] == e0 and res["count"] == len(want)
                  and res["matches"] == want[:16],
                  f"cold start ({what}): count {res['count']}, matches "
                  f"{res['matches'][:8]}; the host {len(want)}, {want[:8]}")
+        pat = res["pattern"]
+        s.expect(pat["pair"] == pair and pat["count"] == len(want_pat) > 0
+                 and pat["matches"] == want_pat[:16]
+                 and pat["served_by"] == "device",
+                 f"cold start ({what}): the pattern {pair} gave {pat}; the "
+                 f"host {want_pat[:16]}")
+        s.expect(pat["ell_before_submit"] == bool(COLD_ARITIES[what]),
+                 f"cold start ({what}, prewarm_pattern_arities "
+                 f"{COLD_ARITIES[what]}): the ELL was on the base before the "
+                 f"first submit: {pat['ell_before_submit']}")
     warm = present["aot"]
     s.expect(warm["misses"] == 0 and warm["disk_hits"] >= 1,
              f"cold start: the warm run missed the cache: {warm}")
@@ -4059,7 +4122,12 @@ def cold_start(s: Smoke) -> None:
           f"prewarm {present['prewarm']}, kernel build "
           f"{present['build_s']:.3f} s); both answers equal the host BFS "
           f"({len(want)} atoms, served by {absent['served_by']} / "
-          f"{present['served_by']})")
+          f"{present['served_by']}); first pattern result "
+          f"{absent['pattern']['first_result_s']:.4f} s with "
+          f"prewarm_pattern_arities {COLD_ARITIES['empty']} (the ELL built "
+          f"in the constructor), {present['pattern']['first_result_s']:.4f}"
+          f" s with {COLD_ARITIES['full']} (built by the first flush); both "
+          f"== the host pattern ({len(want_pat)} links of {pair})")
 
 
 #: phase 19 (b) and (c) (the plan caches over a fresh copy, a crash during
@@ -5454,7 +5522,8 @@ def serve_c6(s: Smoke) -> None:
         g.close()
 
     s.profile_later("serve c6 1024-lane BFS batch (fused, overlay)",
-                    one_batch, float(np.median(ms)), reps=3, teardown=close)
+                    one_batch, float(np.median(ms)),
+                    reps=SERVE_PROFILE_REPS, teardown=close)
 
 
 class PerfTap:
@@ -5742,7 +5811,8 @@ def serve_c10(s: Smoke) -> None:
         g.close()
 
     s.profile_later("serve c10 1024-lane pattern batch", one_batch,
-                    float(np.median(ms)), reps=3, teardown=close)
+                    float(np.median(ms)), reps=SERVE_PROFILE_REPS,
+                    teardown=close)
 
 
 def serve_c9(s: Smoke) -> None:
@@ -5866,7 +5936,8 @@ def serve_c9(s: Smoke) -> None:
         g.close()
 
     s.profile_later("serve c9 1024-lane range batch", one_batch,
-                    float(np.median(ms)), reps=3, teardown=close)
+                    float(np.median(ms)), reps=SERVE_PROFILE_REPS,
+                    teardown=close)
 
 
 def phase_serve(s: Smoke) -> None:
@@ -6222,7 +6293,8 @@ def serve_c11(s: Smoke) -> None:
 
     s.c11 = SimpleNamespace(g=g, mgr=mgr, e0=e0, deg=deg, anchors=anchors)
     s.profile_later("serve c11 256-lane join batch", one_batch,
-                    float(np.median(ms256)), reps=3, teardown=close)
+                    float(np.median(ms256)), reps=SERVE_PROFILE_REPS,
+                    teardown=close)
 
 
 def join_pushdown(s: Smoke) -> None:
@@ -7596,6 +7668,7 @@ def phase_profiles(s: Smoke) -> None:
     torch = s.torch
     faults = []
     for p in s.profiles:
+        t_path = time.perf_counter()
         if p.setup is not None:
             p.setup()
         torch.cuda.synchronize()
@@ -7639,7 +7712,9 @@ def phase_profiles(s: Smoke) -> None:
         s.log(f"profile {p.name}: host calls that can wait, a run: "
               + ("; ".join(f"{e.key} x{e.count / p.reps:.0f} "
                            f"{e.cpu_time_total / 1e3 / p.reps:.3f} ms"
-                           for e in held) or "none"))
+                           for e in held) or "none")
+              + f"; the path's profile {time.perf_counter() - t_path:.1f} s "
+              f"wall (set-up, runs and the trace's reading)")
         if p.device and n_ops == 0:
             faults.append(f"{p.name}: no device operation")
         if union_ms > profiled_ms:
@@ -7794,15 +7869,18 @@ def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
 
-def c5_base(g, r) -> int:
-    """c5's base through ``bulk_import``, from ``r``; returns e0."""
+def c5_base(g, r, entities=None, links=None) -> int:
+    """c5's base through ``bulk_import``, from ``r``; returns e0. The sizes
+    are c5's (:data:`C5_ENTITIES`, :data:`C5_LINKS`) unless given."""
     import numpy as np
 
-    e0 = int(g.bulk_import(values=np.arange(C5_ENTITIES).tolist())[0])
-    for st in range(0, C5_LINKS, C5_LOAD_CHUNK):
-        m = min(C5_LOAD_CHUNK, C5_LINKS - st)
+    entities = C5_ENTITIES if entities is None else entities
+    links = C5_LINKS if links is None else links
+    e0 = int(g.bulk_import(values=np.arange(entities).tolist())[0])
+    for st in range(0, links, C5_LOAD_CHUNK):
+        m = min(C5_LOAD_CHUNK, links - st)
         g.bulk_import(values=list(range(st, st + m)),
-                      target_lists=c5_links(r, e0, m))
+                      target_lists=c5_links(r, e0, m, entities))
     return e0
 
 
@@ -9343,8 +9421,218 @@ def phase_replica(s, c=None) -> dict:
 #: and disk-bound); a child imports only the port and reports on one
 #: tagged line (phase 24 after phase 23 in one child ran the whole smoke
 #: to 1,271 s of the 1,200 allowed, PERF.md §6)
+# -- phase 25: the range-routed storage grid ---------------------------------
+
+#: the grid's owners: config 4's 4-way sharding (4 shards of the card)
+G_SHARDS = 4
+#: c5 batches streamed into the grid after its base (phase 22 (b)'s count)
+G_BATCHES = 20
+#: handles whose storage reads are held across the repartition, drawn
+#: with default_rng(C5_SEED + 2)
+G_SAMPLE = 10_000
+
+
+def grid_cell(**kw) -> SimpleNamespace:
+    """Phase 25's sizes: c5's unless given (``tests/
+    test_torch_import_guard.py`` runs the phase on the CPU at a small size
+    through these, where no kernel launches)."""
+    base = dict(entities=C5_ENTITIES, links=C5_LINKS, batches=G_BATCHES,
+                batch_links=C5_BATCH_LINKS, k=C5_K, hops=C5_HOPS,
+                host_seeds=C5_HOST_SEEDS, sample=G_SAMPLE, shards=G_SHARDS,
+                kernels=True)
+    base.update(kw)
+    return SimpleNamespace(**base)
+
+
+def grid_placement(s: Smoke, grid, pmap, what: str) -> list:
+    """Child k of the grid holds exactly the records ``pmap`` gives k:
+    every handle it holds a record of is owned by k (so no record sits on
+    two children). Returns the children's record counts."""
+    import numpy as np
+
+    sizes = []
+    for k, child in enumerate(grid._parts):
+        hs = np.fromiter(child.iter_record_handles(), dtype=np.int64)
+        bad = int((pmap.owner_np(hs) != k).sum())
+        s.expect(bad == 0, f"grid {what}: child {k} holds {bad} records "
+                 f"another owner has under {pmap}")
+        sizes.append(len(hs))
+    return sizes
+
+
+def grid_reads(grid, handles) -> list:
+    """``get_link``, ``get_data`` and ``get_incidence_set`` of each handle
+    through the grid."""
+    return [(grid.get_link(h), grid.get_data(h),
+             grid.get_incidence_set(h).array().tolist()) for h in handles]
+
+
+def phase_grid(s: Smoke, c=None) -> dict:
+    """Phase 25: c5's base on a range-routed memory grid cut to the mesh's
+    map (a), grown by c5's stream and repartitioned to the re-sharded
+    snapshot's map (b), K2's BFS and the 4-shard packed BFS over it (c).
+    ``c``: :func:`grid_cell`."""
+    import numpy as np
+
+    from hypergraphdb_tpu_torch.core.graph import HyperGraph
+    from hypergraphdb_tpu_torch.ops.ellbfs import bfs_pull
+    from hypergraphdb_tpu_torch.parallel.sharded import (
+        ShardedSnapshot,
+        bfs_packed_sharded,
+        make_mesh,
+    )
+    from hypergraphdb_tpu_torch.storage.partitioned import (
+        PartitionedStorage,
+        PartitionMap,
+    )
+
+    c = c or grid_cell()
+    torch = s.torch
+    t_phase = time.perf_counter()
+    at_start = launches()
+    rec: dict = {}
+    boot = HyperGraph()
+    n_boot = boot.handles.peek
+    boot.close()
+    # the id space c5's base fills, plus 1 (the sharded snapshot's cut):
+    # each atom takes an id and its value's record another
+    cap0 = n_boot + 2 * (c.entities + c.links) + 1
+    old = PartitionMap.for_mesh(cap0, c.shards)
+    grid = PartitionedStorage(partition_map=old)
+    g = HyperGraph(backend=grid)
+    mesh = make_mesh([s.dev] * c.shards)
+    try:
+        s.expect(g.handles.peek == n_boot, f"grid (a): the graph over the "
+                 f"grid bootstrapped {g.handles.peek} atoms, not {n_boot}")
+        r = np.random.default_rng(C5_SEED)
+        t0 = time.perf_counter()
+        e0 = c5_base(g, r, c.entities, c.links)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snap = g.snapshot()
+        pack_s = time.perf_counter() - t0
+        s.expect(snap.num_atoms + 1 == cap0, f"grid (a): {snap.num_atoms} "
+                 f"atoms packed, the map was cut for {cap0 - 1}")
+        sdev = ShardedSnapshot.from_host(snap, mesh)
+        s.expect(sdev.partition_map == old, f"grid (a): the sharded "
+                 f"snapshot's map {sdev.partition_map} != the grid's {old}")
+        sizes0 = grid_placement(s, grid, sdev.partition_map, "(a)")
+        del sdev
+        atoms = c.entities + c.links
+        rec["a"] = {"atoms": atoms, "build_s": build_s,
+                    "build_atoms_per_s": atoms / build_s, "pack_s": pack_s,
+                    "map": old.to_dict(), "records": sizes0}
+        s.log(f"grid (a): c5's base ({atoms} atoms) through bulk_import "
+              f"into a {c.shards}-owner range grid of memory children cut "
+              f"for {cap0} ids in {build_s:.3f} s "
+              f"({atoms / build_s:.0f} atoms/s); pack {pack_s:.3f} s; the "
+              f"{c.shards}-shard snapshot's map == the grid's (part_size "
+              f"{old.part_size}); records a child {sizes0}, each on its "
+              f"owner alone")
+        seeds = (e0 + r.integers(0, c.entities, size=c.k)).astype(np.int32)
+        t0 = time.perf_counter()
+        for _ in range(c.batches):
+            g.bulk_import(values=list(range(c.batch_links)),
+                          target_lists=c5_links(r, e0, c.batch_links,
+                                                c.entities))
+        stream_s = time.perf_counter() - t0
+        streamed = c.batches * c.batch_links
+        n_ids = g.handles.peek
+        s.expect(n_ids > cap0, f"grid (b): the stream grew the id space to "
+                 f"{n_ids}, not past the map's {cap0}")
+        t0 = time.perf_counter()
+        grown = g.snapshot()
+        pack1_s = time.perf_counter() - t0
+        sdev = ShardedSnapshot.from_host(grown, mesh)
+        new = old.repartitioned(grown.num_atoms + 1)
+        s.expect(sdev.partition_map == new, f"grid (b): the re-sharded "
+                 f"snapshot's map {sdev.partition_map} != {new}")
+        del sdev
+        sample = np.random.default_rng(C5_SEED + 2).integers(
+            0, n_ids, size=c.sample).tolist()
+        before = grid_reads(grid, sample)
+        t0 = time.perf_counter()
+        moved = grid.repartition(new)
+        repart_s = time.perf_counter() - t0
+        s.expect(moved > 0, "grid (b): the repartition moved no handle")
+        sizes1 = grid_placement(s, grid, new, "(b)")
+        t0 = time.perf_counter()
+        again = grid.repartition(new)
+        again_s = time.perf_counter() - t0
+        s.expect(again == 0, f"grid (b): a second repartition to the same "
+                 f"map moved {again}")
+        s.expect(grid_reads(grid, sample) == before, "grid (b): storage "
+                 "reads changed across the repartition")
+        t0 = time.perf_counter()
+        snap = g.snapshot(refresh=True)
+        pack2_s = time.perf_counter() - t0
+        diff = snapshot_equal(snap, grown)
+        s.expect(not diff, f"grid (b): the snapshot packed after the "
+                 f"repartition differs from the one before it in {diff}")
+        del grown
+        rec["b"] = {"streamed": streamed, "stream_s": stream_s,
+                    "stream_atoms_per_s": streamed / stream_s,
+                    "ids": n_ids, "pack_s": pack1_s, "map": new.to_dict(),
+                    "moved": moved, "repartition_s": repart_s,
+                    "again_s": again_s, "repack_s": pack2_s,
+                    "records": sizes1}
+        s.log(f"grid (b): {streamed} links streamed in {stream_s:.3f} s "
+              f"({streamed / stream_s:.0f} atoms/s) to {n_ids} ids, past "
+              f"the map's {cap0}; pack {pack1_s:.3f} s; repartition to the "
+              f"re-sharded snapshot's map (part_size {old.part_size} -> "
+              f"{new.part_size}) moved {moved} handles in {repart_s:.3f} s "
+              f"({moved / repart_s:.0f} handles/s), a second call 0 in "
+              f"{again_s:.3f} s; records a child {sizes1}, each on its new "
+              f"owner alone; get_link, get_data and get_incidence_set of "
+              f"{c.sample} drawn handles unchanged; repack {pack2_s:.3f} s, "
+              f"the snapshot equal array for array")
+        before_bfs = launches()
+        t0 = time.perf_counter()
+        pull = bfs_pull(snap, seeds, c.hops, device=s.dev)
+        pull.visited_t.sum().item()  # the launches finished
+        pull_s = time.perf_counter() - t0
+        n_k2 = launch_diff(launches(), before_bfs)
+        s.expect(not c.kernels or n_k2["fused_hop"] > 0,
+                 f"grid (c): K2 did not launch over the grid's snapshot: "
+                 f"{n_k2}")
+        sdev = ShardedSnapshot.from_host(snap, mesh)
+        t0 = time.perf_counter()
+        packed = bfs_packed_sharded(sdev, seeds, c.hops)
+        packed.visited.sum().item()
+        packed_s = time.perf_counter() - t0
+        N = snap.num_atoms
+        vis = packed.visited
+        s.expect(packed_equals_pull(torch, vis, pull.visited_t, N + 1)
+                 and not bool(vis[:, -(-(N + 1) // 32):].any()),
+                 f"grid (c): the {c.shards}-shard packed BFS != K2's fused "
+                 f"BFS")
+        for k in range(c.host_seeds):
+            want = graph_bfs(g, int(seeds[k]), c.hops)
+            got = packed_lane(torch, vis, k, N)
+            s.expect(got.tolist() == want, f"grid (c): lane {k} ({len(got)} "
+                     f"atoms) != the host BFS over the grid ({len(want)})")
+        rec["c"] = {"launches": n_k2, "pull_s": pull_s,
+                    "packed_s": packed_s}
+        s.log(f"grid (c): K2's fused BFS from {c.k} seeds, {c.hops} hops "
+              f"over the grid's snapshot in {pull_s:.3f} s (launches "
+              f"{n_k2}) == the {c.shards}-shard packed BFS "
+              f"({packed_s:.3f} s) bit for bit, and == the host BFS over "
+              f"the grid on lanes 0..{c.host_seeds - 1}")
+        del sdev, packed, vis, pull
+    finally:
+        g.close()
+    rec["launches"] = launch_diff(launches(), at_start)
+    if c.kernels:
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    s.log(f"grid: phase 25 in {rec['phase_s']:.1f} s, launches "
+          f"{rec['launches']}; record " + json.dumps(rec, default=str))
+    return rec
+
+
 P_CHILD = """
-import json, sys
+import json, os, sys
+os.nice({nice})
 sys.modules["jax"] = None
 sys.modules["hypergraphdb_tpu"] = None
 sys.path.insert(0, {root!r})
@@ -9358,14 +9646,22 @@ print("P_CHILD " + json.dumps({{"launches": rec["launches"],
 P_CHILD_TIMEOUT_S = 600
 #: each child's phase function (phase 24's launches are its replica
 #: processes')
-P_PHASES = {"peer": "phase_peer", "replica": "phase_replica"}
+P_PHASES = {"peer": "phase_peer", "replica": "phase_replica",
+            "grid": "phase_grid"}
+#: the kernels each child's phase must launch (phase 25's path runs K2)
+P_KERNELS = {"peer": ("fused_hop", "gather_or"),
+             "replica": ("fused_hop", "gather_or"), "grid": ("fused_hop",)}
+#: each child's niceness: phase 25's 40 s of host work yields the cores to
+#: phases 19 and 22 and the other children (beside them at equal priority
+#: it slowed phase 24's child, whose longer run then slowed phase 22)
+P_NICE = {"peer": 0, "replica": 0, "grid": 10}
 
 
 def start_peer_child(s: Smoke, which: str = "peer"):
-    """Start phase 23's (``"peer"``) or phase 24's (``"replica"``) child;
-    :func:`finish_peer_child` collects it."""
+    """Start phase 23's (``"peer"``), 24's (``"replica"``) or 25's
+    (``"grid"``) child; :func:`finish_peer_child` collects it."""
     code = P_CHILD.format(root=str(ROOT), card=s.card,
-                          phase=P_PHASES[which])
+                          phase=P_PHASES[which], nice=P_NICE[which])
     return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -9373,8 +9669,8 @@ def start_peer_child(s: Smoke, which: str = "peer"):
 
 def finish_peer_child(s: Smoke, proc, which: str = "peer") -> dict:
     """A phase child joined: its log lines printed here, every check of it
-    passed (its exit code), K1 and K2 launched in it (phase 24: in its
-    replica processes)."""
+    passed (its exit code), the kernels of :data:`P_KERNELS` launched in
+    it (phase 24: in its replica processes)."""
     try:
         stdout, stderr = proc.communicate(timeout=P_CHILD_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -9391,8 +9687,9 @@ def finish_peer_child(s: Smoke, proc, which: str = "peer") -> dict:
              f"{stderr[-4000:]}")
     rec = json.loads(out[0][len("P_CHILD "):])
     n = rec["launches"]
-    s.expect(n["fused_hop"] > 0 and n["gather_or"] > 0,
-             f"{which}: K2 and K1 must both launch in the phase: {n}")
+    s.expect(all(n[k] > 0 for k in P_KERNELS[which]),
+             f"{which}: {P_KERNELS[which]} must each launch in the phase: "
+             f"{n}")
     return rec
 
 
@@ -9462,9 +9759,9 @@ def main(argv: list[str]) -> int:
         timed("planned", phase_planned, s)
         timed("sharded", phase_sharded, s, snap, truth)
         timed("profiles", phase_profiles, s)
-        # phases 23 and 24's children beside phases 19 and 22: all host-
-        # and disk-bound (their figures are taken beside each other),
-        # while the card's timed phases run alone before them
+        # phases 23, 24 and 25's children beside phases 19 and 22: all
+        # host- and disk-bound (their figures are taken beside each
+        # other), while the card's timed phases run alone before them
         children = {w: start_peer_child(s, w) for w in P_PHASES}
         try:
             timed("persist", phase_persist, s, snap, truth)
@@ -9474,11 +9771,12 @@ def main(argv: list[str]) -> int:
                 proc.kill()
                 proc.communicate()
             raise
-        # "peer": the children's wall time past phase 22's; "peer_child"
-        # and "replica": phases 23 and 24's own
+        # "peer": the children's wall time past phase 22's; "peer_child",
+        # "replica" and "grid": phases 23, 24 and 25's own
         rec = timed("peer", finish_children, s, children)
         seconds["peer_child"] = round(rec["peer"]["phase_s"], 1)
         seconds["replica"] = round(rec["replica"]["phase_s"], 1)
+        seconds["grid"] = round(rec["grid"]["phase_s"], 1)
     s.log("phase seconds " + json.dumps(seconds))
     s.log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -706,5 +706,10 @@ class HyperGraph:
         self._snapshot_cache = snap
         return snap
 
-    def type_handle(self, name: str) -> HGHandle:
-        return self.typesystem.handle_of(name)
+    def type_handle(self, name_or_class) -> HGHandle:
+        """The handle of a type, by name or by a Python class (the type
+        the typesystem infers for the class's default instance)."""
+        if isinstance(name_or_class, type):
+            t = self.typesystem.infer(name_or_class())
+            return self.typesystem.handle_of(t.name)
+        return self.typesystem.handle_of(name_or_class)

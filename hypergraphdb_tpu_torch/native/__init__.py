@@ -43,13 +43,15 @@ def lib_path() -> Path:
     return BUILD_DIR / f"libhgstore_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``hgstore.cpp`` unless its build exists; returns the path."""
+def build(force: bool = False) -> Path:
+    """Compile ``hgstore.cpp`` unless its build exists (``force``: compile
+    all the same, replacing it); returns the path. A library this process
+    has loaded stays mapped: :func:`lib` binds the build it first found."""
     global last_build_seconds
     import time
 
     out = lib_path()
-    if out.exists():
+    if out.exists() and not force:
         return out
     cxx = shutil.which("g++")
     if cxx is None:

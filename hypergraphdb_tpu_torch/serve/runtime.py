@@ -187,6 +187,10 @@ class ServeConfig:
     aot_cache_dir: Optional[str] = None     # plan cache; None → $HG_AOT_CACHE
     prewarm_aot: bool = True                # prewarm every bucket at start
     prewarm_hops: Optional[tuple] = None    # hops to warm; None → (default,)
+    #: pattern anchor arities P to prewarm per bucket when a plan cache is
+    #: open: the pattern lane's ELL targets are built and each (bucket, P)
+    #: runs once on pad anchors before the first request; () disables
+    prewarm_pattern_arities: tuple = (1, 2)
     #: build the co-incidence CSR (and, with ``join_factorized``, the
     #: factorized relations) on the device at startup, for deployments
     #: that serve joins: done lazily the build would land on the dispatch
@@ -485,7 +489,11 @@ class DeviceExecutor:
         reference warms each bucket's executable), the device twin and
         each bucket's overlay on the current view; then run each bucket's
         route once on pad seeds, so K2 (and, with a delta, K1 on the
-        overlay) is built and launched at start.
+        overlay) is built and launched at start. With a plan cache open
+        and ``prewarm_pattern_arities`` set, the pattern lane's ELL targets
+        are built (one count in ``built``) and each bucket runs the lane
+        once per arity on pad anchors, so the first pattern flush builds
+        nothing.
 
         Returns the number of plans served from the cache, the
         reference's figure; ``prewarm_counts`` holds it beside the number
@@ -520,6 +528,10 @@ class DeviceExecutor:
         for dim in tuple(self.config.prewarm_range_dims or ()):
             value_index_column(self.mgr.base, int(dim), self.device)
             built += 1
+        arities = (tuple(self.config.prewarm_pattern_arities or ())
+                   if self.aot is not None else ())
+        if arities:
+            built += self._prewarm_patterns(buckets, arities)
         if self.config.use_pallas_bfs:
             hops = (int(max_hops) if max_hops is not None
                     else (tuple(self.config.prewarm_hops or ())
@@ -549,6 +561,31 @@ class DeviceExecutor:
         self.prewarm_counts["built"] += built
         self.prewarm_counts["from_cache"] += warm
         return warm
+
+    def _prewarm_patterns(self, buckets, arities) -> int:
+        """The pattern lane's prewarm: the base's ELL targets on the device,
+        then one run of each (bucket, arity) on pad anchors (the dummy row)
+        with no type filter. Returns 1 when the ELL was built here, else 0
+        (the base held it already, or its links are too wide for the ELL
+        route and every pattern takes the host path)."""
+        import numpy as np
+
+        from hypergraphdb_tpu_torch.ops.serving import NO_TYPE
+
+        view = self._pin_view("pattern")
+        fresh = str(self.device) not in (
+            getattr(view.base, "_tgt_ell", None) or {})
+        ell = self._pattern_gate(view)
+        if ell is None:
+            return 0
+        n = view.base.num_atoms
+        for b in buckets:
+            type_vec = np.full(int(b), NO_TYPE, dtype=np.int32)
+            for P in arities:
+                anchors = np.full((int(b), int(P)), n, dtype=np.int32)
+                counts, _ = self._serve_pattern(view, ell, anchors, type_vec)
+                counts.cpu()
+        return int(fresh)
 
     def _fused_bfs_kwargs(self, view, width: int, count: bool = True):
         """Route this batch through the fused hop? None keeps the dense

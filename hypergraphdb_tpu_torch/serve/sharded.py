@@ -160,15 +160,21 @@ class ShardedExecutor(DeviceExecutor):
     def prewarm(self, buckets, max_hops: Optional[int] = None) -> int:
         """Pay at start what the first sharded BFS dispatches would pay:
         the base's split and upload (pinning a sharded view), then one run
-        of each bucket at each prewarm hop count on pad lanes. The pattern
-        and join lanes need nothing built (their rows are assembled a
-        batch). The port's plan cache holds host plans and the sharded
-        lanes have none, so nothing comes from it: returns 0.
-        ``prewarm_counts["built"]`` counts the sharded bases built here,
-        ``prewarm_counts["runs"]`` the bucket runs. Raises whatever
-        fails."""
+        of each bucket at each prewarm hop count on pad lanes. With a plan
+        cache open, ``prewarm_pattern_arities`` set and the base within the
+        sharded pattern lane's arity cap (``pattern_sharded_ok``), each
+        bucket also runs the pattern lane once per arity on pad anchors
+        (its rows are assembled a batch, so nothing is built). The port's
+        plan cache holds host plans and the sharded lanes have none, so
+        nothing comes from it: returns 0. ``prewarm_counts["built"]``
+        counts the sharded bases built here, ``prewarm_counts["runs"]`` the
+        bucket runs of both lanes. Raises whatever fails."""
         from hypergraphdb_tpu_torch.ops.sharded_serving import (
             bfs_serve_batch_sharded,
+            mesh_carrier,
+            pattern_host_rows,
+            pattern_serve_batch_sharded,
+            pattern_sharded_ok,
         )
 
         hops_list = ((int(max_hops),) if max_hops is not None
@@ -185,6 +191,20 @@ class ShardedExecutor(DeviceExecutor):
             for hops in hops_list:
                 counts, _ = bfs_serve_batch_sharded(
                     view.sharded_base, view.sharded_delta, seeds, hops, top_r)
+                counts.cpu()
+                runs += 1
+        arities = (tuple(self.config.prewarm_pattern_arities or ())
+                   if self.aot is not None and pattern_sharded_ok(view.base)
+                   else ())
+        for b in buckets:
+            type_vec = np.full(int(b), -1, dtype=np.int32)
+            for P in arities:
+                anchors = np.full((int(b), int(P)), n, dtype=np.int32)
+                rows0, row0_types, tgt = pattern_host_rows(
+                    view.base, anchors, self.config.pattern_pad, self.n_dev)
+                counts, _ = pattern_serve_batch_sharded(
+                    mesh_carrier(self.mesh), rows0, row0_types, tgt, anchors,
+                    type_vec, self.config.top_r)
                 counts.cpu()
                 runs += 1
         self.prewarm_counts["built"] += int(fresh)

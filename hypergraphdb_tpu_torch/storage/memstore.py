@@ -272,6 +272,12 @@ class MemStorage(StorageBackend):
                            dtype=np.int64, count=int(offsets[-1]))
         return np.asarray(ids, dtype=np.int64), offsets, flat
 
+    def iter_record_handles(self) -> set:
+        """Every handle this backend holds a record of (a link, a payload
+        or an incidence set): what ``PartitionedStorage.repartition`` walks
+        to find the records whose owner changed."""
+        return set(self._links) | set(self._data) | set(self._incidence)
+
     def max_handle(self) -> int:
         m = -1
         for table in (self._links, self._data, self._incidence):

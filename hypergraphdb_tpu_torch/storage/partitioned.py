@@ -4,8 +4,12 @@ partition map it shares with the device mesh.
 :class:`PartitionedStorage` routes every storage operation across its
 children:
 
-- records route by handle, ``h % n``: the owner of atom ``h`` holds its
-  record, payload and incidence set;
+- records route by handle: the owner of atom ``h`` holds its record,
+  payload and incidence set. With a :class:`PartitionMap` the owner is the
+  child whose gid range holds ``h`` (the ranges the sharded snapshot,
+  ``parallel/sharded``, splits its rows by); without one it is ``h % n``.
+  :meth:`PartitionedStorage.repartition` adopts a map re-cut for a grown
+  id space and moves the records whose owner changed;
 - index entries route by a stable hash of the key (:func:`_key_part`);
   range scans and key enumeration merge every child's sorted answer;
 - commit-batch barriers fan out to every child, one after another. Each
@@ -14,11 +18,12 @@ children:
 
 Children are any backend: memory for tests, native WAL stores for a
 durable grid (``core/graph.py`` opens them under ``location``, with the
-partition count recorded in ``partitions.json``). The storage grid does
-not route by :class:`PartitionMap` (the JAX package's range routing and
-``repartition`` have no caller and are not ported): the sharded snapshot
-(``parallel/sharded``) derives its per-shard row ranges from the map, and
-the sharded serving executor advertises it in ``/healthz``.
+partition count recorded in ``partitions.json``, on modulo routing). A
+range-routed grid is built by the caller and handed to the graph:
+``HyperGraph(backend=PartitionedStorage(partition_map=...))``. Its
+children must enumerate their records (``MemStorage.iter_record_handles``)
+for :meth:`~PartitionedStorage.repartition` to move them; native children
+do not, and a grid of them refuses the move.
 """
 
 from __future__ import annotations
@@ -46,14 +51,15 @@ def _key_part(key: bytes, n: int) -> int:
 
 @dataclass(frozen=True)
 class PartitionMap:
-    """Contiguous gid-range ownership: the one partition map the device
-    mesh and the serving tier read.
+    """Contiguous gid-range ownership: the one partition map the storage
+    grid, the device mesh and the serving tier read.
 
     The id space ``[0, capacity)`` splits into ``n_parts`` ranges of
     ``part_size`` ids each, ``part_size`` rounded up to ``align`` so a
     shard's packed frontier words stay whole. Ids at or past ``capacity``
     (atoms minted after the map was cut) clamp into the last range, so
-    ownership is total at any moment. Frozen and hashable."""
+    ownership is total at any moment; :meth:`repartitioned` re-cuts the
+    map for a grown id space. Frozen and hashable."""
 
     n_parts: int
     part_size: int       # ids per range, align-rounded
@@ -206,7 +212,10 @@ class PartitionedStorage(StorageBackend):
         partitions: Sequence[StorageBackend] = (),
         n_partitions: int = 4,
         factory: Optional[Callable[[int], StorageBackend]] = None,
+        partition_map: Optional[PartitionMap] = None,
     ):
+        if partition_map is not None:
+            n_partitions = partition_map.n_parts
         if partitions:
             self._parts = list(partitions)
         else:
@@ -217,6 +226,14 @@ class PartitionedStorage(StorageBackend):
             self._parts = [factory(i) for i in range(n_partitions)]
         if not self._parts:
             raise ValueError("need at least one partition")
+        if (partition_map is not None
+                and partition_map.n_parts != len(self._parts)):
+            raise ValueError(
+                f"partition map covers {partition_map.n_parts} owners but "
+                f"{len(self._parts)} partitions were given")
+        #: gid-range routing; None routes ``h % n``. A store routes one way
+        #: for its whole life: :meth:`repartition` only re-cuts the ranges
+        self.partition_map = partition_map
 
     # -- lifecycle --------------------------------------------------------------
     def startup(self) -> None:
@@ -245,7 +262,60 @@ class PartitionedStorage(StorageBackend):
 
     # -- record routing ---------------------------------------------------------
     def _own(self, h: HGHandle) -> StorageBackend:
+        if self.partition_map is not None:
+            return self._parts[self.partition_map.owner_of(int(h))]
         return self._parts[int(h) % len(self._parts)]
+
+    def repartition(self, new_map: PartitionMap) -> int:
+        """Adopt a re-cut map (the children stay, their gid ranges move) and
+        move every handle whose owner changed: its link record, payload and
+        incidence set go to the new owner. Index entries are key-hash routed
+        and stay. Returns the number of handles moved.
+
+        The walk goes one child at a time, so a crash part-way can leave a
+        handle moved and another not; running the same repartition again
+        finishes the move (a second call moves nothing).
+
+        Raises ``ValueError`` for a map of another partition count or a
+        store on modulo routing, ``TypeError`` for a child that cannot
+        enumerate its records (``iter_record_handles``)."""
+        if new_map.n_parts != len(self._parts):
+            raise ValueError(
+                "repartition cannot change the partition count "
+                f"({new_map.n_parts} != {len(self._parts)}): the owners are "
+                "the fixed children, only their gid ranges move")
+        if self.partition_map is None:
+            raise ValueError("repartition needs gid-range routing; this "
+                             "store routes by modulo")
+        moved = 0
+        for src_part, child in enumerate(self._parts):
+            enum = getattr(child, "iter_record_handles", None)
+            if enum is None:
+                raise TypeError(
+                    f"partition {src_part} ({type(child).__name__}) does "
+                    "not enumerate record handles; repartition needs "
+                    "iter_record_handles()")
+            for h in sorted(enum()):
+                dst_part = new_map.owner_of(int(h))
+                if dst_part == src_part:
+                    continue
+                dst = self._parts[dst_part]
+                rec = child.get_link(h)
+                if rec is not None:
+                    dst.store_link(h, rec)
+                    child.remove_link(h)
+                payload = child.get_data(h)
+                if payload is not None:
+                    dst.store_data(h, payload)
+                    child.remove_data(h)
+                inc = child.get_incidence_set(h)
+                if len(inc):
+                    for link in inc.array().tolist():
+                        dst.add_incidence_link(h, link)
+                    child.remove_incidence_set(h)
+                moved += 1
+        self.partition_map = new_map
+        return moved
 
     def store_link(self, h: HGHandle, targets: Sequence[HGHandle]) -> None:
         self._own(h).store_link(h, targets)

@@ -109,9 +109,11 @@ class SortedDict:
 
     def irange(self, minimum: Optional[Any] = None,
                maximum: Optional[Any] = None,
-               inclusive: tuple[bool, bool] = (True, True)) -> Iterator:
+               inclusive: tuple[bool, bool] = (True, True),
+               reverse: bool = False) -> Iterator:
         """Keys between ``minimum`` and ``maximum`` (None: unbounded), in
-        order; ``inclusive`` says whether each bound is in the range."""
+        order, descending with ``reverse``; ``inclusive`` says whether each
+        bound is in the range."""
         keys = self._klist()
         if minimum is None:
             start = 0
@@ -125,4 +127,5 @@ class SortedDict:
             end = bisect_right(keys, maximum)
         else:
             end = bisect_left(keys, maximum)
-        return iter(keys[start:end])
+        sel = keys[start:end]
+        return reversed(sel) if reverse else iter(sel)

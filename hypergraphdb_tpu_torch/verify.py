@@ -268,12 +268,53 @@ def host_snapshot_exemplar(seed: int = 0, **kw):
                                    pad_multiple=SNAPSHOT_PAD)
 
 
-def dev_snapshot_exemplar(device, seed: int = 0):
-    """A ``DeviceSnapshot`` of 31 atoms plus the dummy row, 64-entry
-    relations, on ``device``."""
+def exemplar_counts(n_atoms: int) -> tuple[int, int]:
+    """``(n_nodes, n_links)`` of an exemplar graph of ``n_atoms`` atoms:
+    11 links in every 31 atoms (the default exemplar's 20 and 11)."""
+    n_links = max(1, n_atoms * 11 // 31)
+    return n_atoms - n_links, n_links
+
+
+def sized_host_exemplar(seed: int = 0, n_atoms: int = 31, e_inc: int = 64,
+                        e_tgt: int = 64):
+    """The host snapshot of an ``n_atoms`` exemplar whose incidence
+    relations hold ``e_inc`` entries and target relations ``e_tgt``, both
+    padded with the dummy row: the links' arities are capped so their
+    targets fit the smaller. At the defaults it is
+    :func:`host_snapshot_exemplar`'s."""
+    import dataclasses
+
+    n_nodes, n_links = exemplar_counts(n_atoms)
+    max_arity = min(5, min(e_inc, e_tgt) // n_links, n_nodes)
+    if max_arity < 2:
+        raise ValueError(f"an exemplar of {n_atoms} atoms needs at least "
+                         f"{2 * n_links} relation entries, not "
+                         f"{min(e_inc, e_tgt)}")
+    snap = host_snapshot_exemplar(seed, n_nodes=n_nodes, n_links=n_links,
+                                  max_arity=max_arity)
+
+    def sized(a, e: int, n: int):
+        out = np.full(e, snap.num_atoms, dtype=a.dtype)
+        out[:n] = a[:n]
+        return out
+
+    ni, nt = snap.n_edges_inc, snap.n_edges_tgt
+    return dataclasses.replace(
+        snap, inc_links=sized(snap.inc_links, e_inc, ni),
+        inc_src=sized(snap.inc_src, e_inc, ni),
+        tgt_flat=sized(snap.tgt_flat, e_tgt, nt),
+        tgt_src=sized(snap.tgt_src, e_tgt, nt))
+
+
+def dev_snapshot_exemplar(device, seed: int = 0, n_atoms: int = 31,
+                          e_inc: int = 64, e_tgt: int = 64):
+    """A ``DeviceSnapshot`` of ``n_atoms`` atoms plus the dummy row, with
+    ``e_inc``- and ``e_tgt``-entry relations (31 atoms and 64 entries by
+    default), on ``device``."""
     from hypergraphdb_tpu_torch.ops.snapshot import DeviceSnapshot
 
-    return DeviceSnapshot.from_host(host_snapshot_exemplar(seed), device)
+    return DeviceSnapshot.from_host(
+        sized_host_exemplar(seed, n_atoms, e_inc, e_tgt), device)
 
 
 def seeds_exemplar(device, seed: int, k: int, n_atoms: int = 31):
@@ -316,10 +357,9 @@ def delta_arrays(seed: int = 0, n_atoms: int = 31, d: int = 16) -> dict:
     space: a few new target entries of existing links (each with its
     incidence twin), padded to ``d`` with the dummy row, and one
     tombstone."""
-    tables = snapshot_tables(seed)
+    n_nodes, _ = exemplar_counts(n_atoms)
     r = np.random.default_rng(seed + 11)
-    links = np.flatnonzero(tables["is_link"])
-    n_nodes = int((~tables["is_link"]).sum())
+    links = np.arange(n_nodes, n_atoms)
     n = d // 2
     tl = r.choice(links, size=n).astype(np.int32)
     tt = r.integers(0, n_nodes, size=n).astype(np.int32)
@@ -335,12 +375,13 @@ def delta_arrays(seed: int = 0, n_atoms: int = 31, d: int = 16) -> dict:
     }
 
 
-def device_delta_exemplar(device, seed: int = 0):
-    """A ``DeviceDelta`` of d = 16 entries matching
-    :func:`dev_snapshot_exemplar`'s id space."""
+def device_delta_exemplar(device, seed: int = 0, n_atoms: int = 31,
+                          d: int = 16):
+    """A ``DeviceDelta`` of ``d`` entries matching
+    :func:`dev_snapshot_exemplar`'s id space of ``n_atoms``."""
     from hypergraphdb_tpu_torch.ops.incremental import delta_from_reference
 
-    return delta_from_reference(delta_arrays(seed), device)
+    return delta_from_reference(delta_arrays(seed, n_atoms, d), device)
 
 
 def fused_exemplar(device, seed: int = 0):
@@ -356,10 +397,18 @@ SHARDS, N_LOC = 4, 128
 SHARDED_ATOMS = SHARDS * N_LOC - 28
 
 
-def sharded_host_exemplar(seed: int = 0):
-    """The host snapshot the sharded exemplars split: 484 atoms."""
-    n_links = 84
-    return host_snapshot_exemplar(seed, n_nodes=SHARDED_ATOMS - n_links,
+def sharded_host_exemplar(seed: int = 0, n_loc: int = N_LOC):
+    """The host snapshot the sharded exemplars split: ``SHARDS * n_loc -
+    28`` atoms (484 by default), 84 links in every 484. ``n_loc`` is a
+    shard's id range, a multiple of the map's alignment (128)."""
+    from hypergraphdb_tpu_torch.storage.partitioned import PartitionMap
+
+    if n_loc < PartitionMap.ALIGN or n_loc % PartitionMap.ALIGN:
+        raise ValueError(f"n_loc {n_loc} is not a positive multiple of "
+                         f"{PartitionMap.ALIGN}")
+    n_atoms = SHARDS * n_loc - 28
+    n_links = n_atoms * 84 // SHARDED_ATOMS
+    return host_snapshot_exemplar(seed, n_nodes=n_atoms - n_links,
                                   n_links=n_links, max_arity=4)
 
 
@@ -379,20 +428,23 @@ def sharded_seeds(device, seed: int, k: int) -> torch.Tensor:
     return tensor(r.choice(pool, size=k).astype(np.int32), device)
 
 
-def sharded_snapshot_exemplar(device, seed: int = 0, e_loc: int = 64):
+def sharded_snapshot_exemplar(device, seed: int = 0, n_loc: int = N_LOC,
+                              e_loc: int = 64):
     """A ``ShardedSnapshot`` of :func:`sharded_host_exemplar` over
-    :func:`exemplar_mesh`, ``n_loc`` 128, edge slices of ``e_loc``."""
+    :func:`exemplar_mesh`: shards of ``n_loc`` ids, edge slices of
+    ``e_loc``."""
     from hypergraphdb_tpu_torch.parallel.sharded import ShardedSnapshot
 
-    return ShardedSnapshot.from_host(sharded_host_exemplar(seed),
+    return ShardedSnapshot.from_host(sharded_host_exemplar(seed, n_loc),
                                      exemplar_mesh(device), edge_chunk=e_loc)
 
 
-def sharded_delta_host(seed: int = 0, d: int = 16) -> dict:
+def sharded_delta_host(seed: int = 0, d: int = 16, n_loc: int = N_LOC
+                       ) -> dict:
     """A ``host_delta()``-shaped dict over the sharded exemplar's id
-    space: ``d`` new target entries of existing links with their
-    incidence twins, and two tombstones."""
-    snap = sharded_host_exemplar(seed)
+    space (shards of ``n_loc``): ``d`` new target entries of existing
+    links with their incidence twins, and two tombstones."""
+    snap = sharded_host_exemplar(seed, n_loc)
     r = np.random.default_rng(seed + 13)
     N = snap.num_atoms
     links = np.flatnonzero(snap.is_link[:N])
@@ -404,14 +456,17 @@ def sharded_delta_host(seed: int = 0, d: int = 16) -> dict:
             "dead": sorted(int(x) for x in r.choice(n_nodes, 2, False))}
 
 
-def sharded_delta_exemplar(device, seed: int = 0, sdev=None, d_loc: int = 16):
+def sharded_delta_exemplar(device, seed: int = 0, sdev=None,
+                           n_loc: int = N_LOC, d_loc: int = 16):
     """A ``ShardedDelta`` of :func:`sharded_delta_host` over the sharded
-    exemplar, delta slices of ``d_loc``."""
+    exemplar of shards of ``n_loc`` ids (``sdev``'s own when given),
+    delta slices of ``d_loc``."""
     from hypergraphdb_tpu_torch.parallel.sharded import shard_host_delta
 
     if sdev is None:
-        sdev = sharded_snapshot_exemplar(device, seed)
-    return shard_host_delta(sdev, sharded_delta_host(seed), edge_chunk=d_loc)
+        sdev = sharded_snapshot_exemplar(device, seed, n_loc)
+    return shard_host_delta(sdev, sharded_delta_host(seed, n_loc=sdev.n_loc),
+                            edge_chunk=d_loc)
 
 
 def _sentinel() -> int:

@@ -322,3 +322,38 @@ def test_verify_runs_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
     assert "hypergraphdb_tpu_torch.verify" in _module_names()
+
+
+def test_grid_phase_runs_with_jax_and_reference_blocked():
+    """``chip_smoke.py``'s phase 25, the body of its grid child, runs on
+    the CPU at a small size where neither ``jax`` nor the reference
+    imports: c5's draw on a 4-owner range grid placed by the sharded
+    snapshot's map, grown, repartitioned (some handles moved, then none),
+    reads and the packed snapshot unchanged, and the fused BFS equal to
+    the 4-shard packed BFS and the host BFS (no launch on the CPU)."""
+    script = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from types import SimpleNamespace\n"
+        "import torch\n"
+        "import chip_smoke\n"
+        "def expect(ok, what):\n"
+        "    assert ok, what\n"
+        "s = SimpleNamespace(torch=torch, dev=torch.device('cpu'), "
+        "log=print, expect=expect)\n"
+        "c = chip_smoke.grid_cell(entities=600, links=1200, batches=3, "
+        "batch_links=200, k=32, sample=300, kernels=False)\n"
+        "rec = chip_smoke.phase_grid(s, c)\n"
+        "assert rec['b']['moved'] > 0, rec\n"
+        "assert rec['b']['ids'] > rec['a']['map']['capacity'], rec\n"
+        "assert sum(rec['b']['records']) >= sum(rec['a']['records'])\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    # and the smoke starts it as a child, beside phases 19 and 22
+    assert '"grid": "phase_grid"' in (ROOT / "chip_smoke.py").read_text()

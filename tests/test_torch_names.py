@@ -311,3 +311,63 @@ def test_metrics_snapshot_and_reset():
     assert snap["timings"]["q.time"] == {"count": 2, "total_s": 1.0,
                                          "mean_s": 0.5, "max_s": 0.75}
     assert after["counters"] == {"q.count": 0}
+
+
+# ------------------------------------------------ parameters (the guard)
+
+_bound = st.one_of(st.none(), st.integers(-2, 22))
+
+
+@settings(max_examples=150, deadline=None)
+@given(st.sets(st.integers(0, 20), max_size=15), _bound, _bound,
+       st.tuples(st.booleans(), st.booleans()), st.booleans())
+def test_sorted_dict_irange_reverse_against_the_reference(keys, lo, hi,
+                                                          inclusive,
+                                                          reverse):
+    """``irange(..., reverse=)`` gives the reference's keys in the
+    reference's order, and the forward keys reversed, over drawn keys and
+    bounds."""
+    dicts = [m.SortedDict() for m in both("utils.sortedshim")]
+    for d in dicts:
+        for k in keys:
+            d[k] = -k
+    got = [list(d.irange(lo, hi, inclusive, reverse=reverse))
+           for d in dicts]
+    assert got[1] == got[0]
+    forward = list(dicts[1].irange(lo, hi, inclusive))
+    assert got[1] == (forward[::-1] if reverse else forward)
+    assert forward == sorted(
+        k for k in keys
+        if (lo is None or (k >= lo if inclusive[0] else k > lo))
+        and (hi is None or (k <= hi if inclusive[1] else k < hi)))
+
+
+@pytest.mark.parametrize("cls", [int, float, str, bool, bytes])
+def test_type_handle_of_a_class_is_its_name_handle(cls):
+    """``type_handle(<class>)`` resolves the class through the typesystem's
+    inference (its default instance), as ``type_handle(<name>)`` does the
+    name: the same handle in both packages."""
+    got = []
+    for g in (m.HyperGraph() for m in both("core.graph")):
+        t = g.typesystem.infer(cls())
+        got.append((g.type_handle(cls), g.type_handle(t.name), t.name))
+        g.close()
+    assert got[1] == got[0]
+    assert got[1][0] == got[1][1]
+
+
+def test_native_build_force_rebuilds_the_existing_library():
+    """``native.build(force=True)`` compiles again over an existing build
+    (the default returns it untouched), and the rebuilt library loads."""
+    import ctypes
+
+    from hypergraphdb_tpu_torch import native
+
+    path = native.build()
+    mtime = path.stat().st_mtime_ns
+    assert native.build() == path and path.stat().st_mtime_ns == mtime
+    native.last_build_seconds = 0.0
+    assert native.build(force=True) == path
+    assert native.last_build_seconds > 0.0
+    assert path.stat().st_mtime_ns >= mtime
+    ctypes.CDLL(str(path))

@@ -604,6 +604,69 @@ def test_prewarm_join_nbr_builds_the_join_relations():
     g.close()
 
 
+def pattern_runtime(pkg, tmp_path, **cfg):
+    """A manual runtime of ``pkg`` over the seeded 40-node graph, the port
+    on the CPU, with a plan cache under ``tmp_path``; and a link's two
+    targets."""
+    from tests.conftest import make_random_hypergraph
+
+    imp = importlib.import_module
+    kw = {}
+    cfg = {"manual": True, "buckets": (4, 8), "top_r": 8,
+           "aot_cache_dir": str(tmp_path / pkg), **cfg}
+    if pkg == PKGS[1]:
+        kw = {"query": imp(f"{pkg}.core.config").QueryConfig(device="cpu")}
+        cfg["device"] = "cpu"
+    g = imp(f"{pkg}.core.graph").HyperGraph(
+        imp(f"{pkg}.core.config").HGConfiguration(**kw))
+    _, links = make_random_hypergraph(g, n_nodes=40, n_links=80, seed=5)
+    pair = next(t[:2] for t in (g.get(int(h)).targets for h in links)
+                if len(set(t[:2])) == 2)
+    rt = imp(f"{pkg}.serve").ServeRuntime(
+        g, imp(f"{pkg}.serve").ServeConfig(**cfg))
+    return g, rt, [int(x) for x in pair]
+
+
+def served_pattern(rt, anchors):
+    fut = rt.submit_pattern(anchors)
+    while rt.step(drain=True):
+        pass
+    res = fut.result(timeout=0)
+    return res.count, np.asarray(res.matches).tolist(), res.served_by
+
+
+@pytest.mark.parametrize("arities", [(1, 2), ()])
+def test_prewarm_pattern_arities_builds_the_pattern_lane(tmp_path, arities):
+    """With a plan cache and ``prewarm_pattern_arities`` the port's
+    runtime builds the pattern lane's ELL targets at construction (one
+    more plan in ``prewarm_counts["built"]``, the base's ELL cache holding
+    the device before the first request); with ``()`` the first pattern
+    flush builds it. The pattern request then answers as the reference's
+    runtime on the same graph: count, window, served on the device."""
+    g, rt, pair = pattern_runtime(PKGS[0], tmp_path, prewarm_aot=False)
+    want = served_pattern(rt, pair)
+    rt.close()
+    g.close()
+    g, rt, pair = pattern_runtime(PKGS[1], tmp_path,
+                                  prewarm_pattern_arities=arities)
+    base = rt.executor.mgr.base
+    try:
+        assert ("cpu" in (getattr(base, "_tgt_ell", None) or {})) == bool(
+            arities)
+        built = rt.executor.prewarm_counts["built"]
+        got = served_pattern(rt, pair)
+        assert "cpu" in base._tgt_ell
+    finally:
+        rt.close()
+        g.close()
+    g, rt, _ = pattern_runtime(PKGS[1], tmp_path / "none",
+                               prewarm_pattern_arities=())
+    assert rt.executor.prewarm_counts["built"] == built - bool(arities)
+    rt.close()
+    g.close()
+    assert got == want and want[2] == "device" and want[0] > 0
+
+
 def test_runtime_without_a_device_asks_for_the_card():
     """``ServeRuntime(graph)`` resolves ``ServeConfig.device`` ("cuda" by
     default): without CUDA it raises instead of serving on the CPU."""

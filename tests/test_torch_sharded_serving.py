@@ -312,6 +312,38 @@ def test_executor_pick_forced_and_auto(monkeypatch):
         g.close()
 
 
+def test_sharded_prewarm_runs_the_pattern_lane_with_a_plan_cache(tmp_path):
+    """With a plan cache open, ``prewarm_pattern_arities`` runs the sharded
+    pattern lane once per (bucket, arity) beside the BFS runs (nothing is
+    built: its rows are assembled a batch), and the first pattern request
+    answers as a runtime that prewarmed no pattern; without a cache the
+    pattern lane is not prewarmed."""
+    g, (nodes, links) = build(PKGS[1], seed=2, n_nodes=80, n_links=160)
+    pair = next([int(t) for t in g.get(int(h)).targets[:2]] for h in links
+                if len(set(g.get(int(h)).targets[:2])) == 2)
+    got = []
+    try:
+        for arities, cache in (((1, 2), True), ((), True), ((1, 2), False)):
+            kw = {"aot_cache_dir": str(tmp_path)} if cache else {}
+            rt = sharded_runtime(g, prewarm_aot=True, prewarm_hops=(1, 2),
+                                 prewarm_pattern_arities=arities, **kw)
+            runs = rt.executor.prewarm_counts["runs"]
+            f = rt.submit_pattern(pair)
+            while rt.step(drain=True):
+                pass
+            res = f.result(timeout=0)
+            got.append((runs, res.count, np.asarray(res.matches).tolist(),
+                        res.served_by))
+            rt.close()
+    finally:
+        g.close()
+    bfs_runs = len(BUCKETS) * 2
+    assert [r[0] for r in got] == [bfs_runs + len(BUCKETS) * 2, bfs_runs,
+                                   bfs_runs]
+    assert got[0][1:] == got[1][1:] == got[2][1:]
+    assert got[0][1] > 0 and got[0][3] == "device"
+
+
 def test_sharded_prewarm_shards_the_base_and_runs_each_bucket():
     g, (nodes, _) = build(PKGS[1], seed=2, n_nodes=80, n_links=160)
     try:

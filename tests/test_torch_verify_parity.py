@@ -482,3 +482,51 @@ def _reference_names() -> set:
 
 
 REF_NAMES = _reference_names()
+
+
+@pytest.mark.parametrize("n_atoms,e_inc,e_tgt", [(31, 64, 64), (64, 128, 160),
+                                                 (200, 512, 448)])
+def test_sized_exemplars_have_the_reference_shapes(n_atoms, e_inc, e_tgt):
+    """The exemplar functions' size parameters give the reference's shapes:
+    the snapshot's columns and relations, the delta's five arrays (at d =
+    n_atoms // 2); and the port's concrete arrays hold a real graph of
+    that many atoms (every relation entry past the graph's is the dummy
+    row)."""
+    dev = verify.dev_snapshot_exemplar("cpu", SEED, n_atoms, e_inc, e_tgt)
+    want = ref_verify.dev_snapshot_exemplar(n_atoms, e_inc, e_tgt)
+    assert dev.num_atoms == want.num_atoms == n_atoms
+    for f in ("inc_offsets", "inc_links", "inc_src", "tgt_offsets",
+              "tgt_flat", "tgt_src", "type_of", "is_link", "arity",
+              "value_kind"):
+        assert tuple(getattr(dev, f).shape) == getattr(want, f).shape, f
+    assert dev.n_inc == dev.n_tgt == int(dev.arity.sum()) <= min(e_inc,
+                                                                 e_tgt)
+    assert (dev.inc_links[dev.n_inc:] == n_atoms).all()
+    assert (dev.tgt_flat[dev.n_tgt:] == n_atoms).all()
+    d = n_atoms // 2
+    delta = verify.device_delta_exemplar("cpu", SEED, n_atoms, d)
+    rd = ref_verify.device_delta_exemplar(n_atoms, d)
+    for f in ("inc_links", "inc_src", "tgt_flat", "tgt_src", "dead"):
+        assert tuple(getattr(delta, f).shape) == getattr(rd, f).shape, f
+    assert int(delta.tgt_src.max()) <= n_atoms
+    assert bool(dev.is_link[delta.tgt_src[delta.tgt_src < n_atoms].long()]
+                .all())
+
+
+@pytest.mark.parametrize("n_loc", [128, 256])
+def test_sized_sharded_exemplars_follow_n_loc(n_loc):
+    """``n_loc`` sizes the sharded exemplars as the reference's: shards of
+    ``n_loc`` ids, 28 of the last past the id space, a delta's tombstone
+    words ``n_loc / 32`` a shard; a size off the 128-id alignment is
+    refused."""
+    sdev = verify.sharded_snapshot_exemplar("cpu", SEED, n_loc)
+    want = ref_verify.sharded_snapshot_exemplar(n_loc)
+    assert sdev.n_loc == want.n_loc == n_loc
+    assert sdev.num_atoms == sdev.n_dev * n_loc - 28
+    assert want.num_atoms == want.type_of.shape[0] - 28
+    delta = verify.sharded_delta_exemplar("cpu", SEED, n_loc=n_loc)
+    assert all(tuple(w.shape) == (n_loc // 32,) for w in delta.dead)
+    assert ref_verify.sharded_delta_exemplar(n_loc).dead.shape == (
+        want.type_of.shape[0] // 32,)
+    with pytest.raises(ValueError, match="multiple"):
+        verify.sharded_snapshot_exemplar("cpu", SEED, n_loc + 64)
